@@ -1,0 +1,593 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card and check it.
+
+Run from the repository root with no arguments::
+
+    python3 chip_smoke.py
+
+Phases, each timed, any failure fatal (a traceback and exit code 1):
+
+1. build    nvcc builds the three CUDA kernels from ``src/repro_torch/csrc``;
+            each is launched once on a small filter against its plain version.
+2. kernels  each kernel against its plain PyTorch version on the card, bit
+            for bit, at the main path's shapes (a q = 24 build of 12.6 M
+            fingerprints, 2**22 probes, the 7-structure cascade of phase 3
+            taken mid-stream, with its RAM structure Q0 partly full), timed
+            with CUDA events beside the plain version, a library call where
+            one computes the same function, and the kernel's bound.  The
+            probes' plain version is the exact decode-and-search lookup, not
+            a copy of the kernel's walk.
+3. main     the paper's 1:4 SSD experiment (``benchmarks/bench_ssd.py``) with
+            its 2**13 scale-down undone: 50,331,648 keys into
+            ``buffered_qf(ram_q=24, disk_q=27, p=39)`` and
+            ``cascade(ram_q=24, p=39, fanout=2, levels=6)`` under
+            ``backend="pallas"``.  After 63 of the 64 batches (RAM tier
+            partly full) and after the last, 2**21 probes of inserted keys
+            (no false negative allowed) and 2**21 fresh keys (false-positive
+            rate at most twice the union bound); every kernel must have
+            launched.  Probe times are the median of several calls by CUDA
+            events after the answered call.
+4. backends the same stream under ``backend="reference"`` (the plain PyTorch
+            path): planes, ``n``, ``overflow``, hits and I/O counters equal at
+            both checkpoints.
+5. report   one JSON line of per-kernel results, then the card's name and
+            power limit, then the result line.
+
+The last line of standard output is the result,
+``{"ok": true, "device": {"platform": "gpu", ...}}``; nothing is printed
+in its place when the card or the package is missing.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+try:
+    from repro_torch import filters
+    from repro_torch.core import fuse_filter as fuse
+    from repro_torch.core import quotient_filter as qf
+    from repro_torch.kernels import cascade_probe, cuda_lib, qf_build, qf_probe
+except ModuleNotFoundError as e:  # run outside the repository
+    if not (e.name or "").startswith("repro_torch"):
+        raise
+    filters = None
+
+H100_BYTES_PER_S = 3.35e12  # HBM3 rate of the H100 SXM data sheet
+
+# main path: bench_ssd.py's 1:4 experiment at the paper's scale
+RAM_Q = 24
+P_BITS = 39
+RATIO = 4
+BATCHES = 64
+MID_BATCHES = BATCHES - 1  # the mid-stream checkpoint: RAM tiers partly full
+PROBES = 1 << 21
+PARITY_PROBES = 1 << 22
+PROBE_REPS = 5  # timed probe calls per probe set; their median is reported
+SEED = RATIO  # bench_ssd seeds its generator with the ratio
+
+
+def log(*args) -> None:
+    print(*args, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True,
+        text=True,
+        check=True,
+        timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
+    """Mean milliseconds per call of ``fn`` by CUDA events, after warm-up."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def max_abs_err(got, want) -> int:
+    """Largest absolute difference over paired outputs, as integers."""
+    worst = 0
+    for a, b in zip(got, want):
+        if a.shape != b.shape:
+            raise AssertionError(f"shape {tuple(a.shape)} != {tuple(b.shape)}")
+        d = (a.to(torch.int64) - b.to(torch.int64)).abs()
+        worst = max(worst, int(d.max()) if d.numel() else 0)
+    return worst
+
+
+def uint32_keys(rng, n, device):
+    """bench_ssd's ``keys_u32``: uniform uint32 keys from ``rng``, on ``device``."""
+    keys = rng.integers(0, 2**32, size=n, dtype=np.int64).astype(np.uint32)
+    return torch.from_numpy(keys.view(np.int32)).to(device)
+
+
+def sorted_stream(cfg, keys):
+    fq, fr = qf.fingerprints(cfg, keys)
+    return qf._pad_sort(fq, fr, torch.ones_like(fq, dtype=torch.bool))
+
+
+def kernel_row(name, source, replaces, err, ms, plain_ms, bound_bytes, library_ms):
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": f"src/repro_torch/csrc/{source}",
+        "replaces": replaces,
+        "max_abs_err": err,
+        "bit_exact": err == 0,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_bytes / H100_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
+        "library_ms": library_ms,
+    }
+
+
+def walk_spans(planes, fq, fr):
+    """The slots each probe's cluster walk (``csrc/qf_walk.cuh``) reads.
+
+    The paper's Fig. 3 walk, one step of every live query at a time:
+    back to the cluster's start, count the occupied buckets up to the
+    quotient, forward to that run, compare remainders.  Returns
+    ``(present, first, last)``: the walk's answer and each query's span
+    of slots (``first == last == fq`` where the bucket is empty; ``last``
+    stops at the last slot, where a walk of an overflowed state would run
+    off the planes).  It serves only the bound's byte count.
+    """
+    rem, occ, shf, con = planes
+    t = rem.shape[0]
+    dev = fq.device
+    fq = fq.to(torch.int64)
+    B = fq.shape[0]
+    present = torch.zeros(B, dtype=torch.bool, device=dev)
+    live = torch.arange(B, device=dev)[(fq >= 0) & (fq < t)]
+    live = live[occ[fq[live]]]
+
+    b = fq.clone()  # 1. back to the last unshifted slot
+    a = live
+    while a.numel():
+        a = a[(b[a] > 0) & shf[b[a]]]
+        b[a] -= 1
+    R = torch.zeros(B, dtype=torch.int64, device=dev)  # 2. occupied in [b, fq]
+    j = b.clone()
+    a = live
+    while a.numel():
+        R[a] += occ[j[a]]
+        a = a[j[a] < fq[a]]
+        j[a] += 1
+    s = b.clone()  # 3. forward to the start of the R-th run
+    c = torch.ones(B, dtype=torch.int64, device=dev)
+    off = torch.zeros(B, dtype=torch.bool, device=dev)
+    a = live[R[live] > 1]
+    while a.numel():
+        s[a] += 1
+        end = s[a] >= t
+        off[a[end]] = True
+        a = a[~end]
+        sa = s[a]
+        c[a] += ((occ[sa] | shf[sa]) & ~con[sa]).to(torch.int64)
+        a = a[c[a] < R[a]]
+    fr32 = fr.to(torch.int32)  # 4. compare remainders along the run
+    a = live[~off[live]]
+    while a.numel():
+        hit = rem[s[a]] == fr32[a]
+        present[a[hit]] = True
+        a = a[~hit]
+        s[a] += 1
+        a = a[s[a] < t]
+        a = a[con[s[a]]]
+    return present, b, s.clamp(max=t - 1)
+
+
+def walked_bytes(planes, fq, fr) -> int:
+    """Bytes the cluster walks of these queries must read, each slot once.
+
+    The three metadata planes over the union of the walked spans, plus
+    the ``occ`` byte of each distinct empty bucket probed.  The ``rem``
+    bytes of the runs compared are left out, so this is a lower bound.
+    """
+    occ = planes[1]
+    t = occ.shape[0]
+    _, first, last = walk_spans(planes, fq, fr)
+    fq = fq.to(torch.int64)
+    walked = occ[fq]
+    one = torch.ones(int(walked.sum()), dtype=torch.int32, device=fq.device)
+    diff = torch.zeros(t + 1, dtype=torch.int32, device=fq.device)
+    diff.index_add_(0, first[walked], one)
+    diff.index_add_(0, last[walked] + 1, -one)
+    covered = int((torch.cumsum(diff, 0)[:t] > 0).sum())
+    empty_buckets = int(torch.unique(fq[~walked]).numel())
+    return 3 * covered + empty_buckets
+
+
+def i32(x):
+    """int64 fingerprints as the kernels take them: the low 32 bits, int32."""
+    return x.to(torch.int32)
+
+
+def canonical_queries(cfg, keys):
+    """Keys hashed once in the cascade's canonical split, as int32 (fq, fr, r)."""
+    qc, rc = fuse.canonical_split(cfg.p)
+    canon = qf.QFConfig(q=qc, r=rc, slack=0, seed=cfg.seed)
+    fq, fr = qf.fingerprints(canon, keys)
+    return i32(fq), i32(fr), rc
+
+
+# ---------------------------------------------------------------------------
+# phases 1 and 2: each kernel against its plain version
+# ---------------------------------------------------------------------------
+
+
+def launch_check(device) -> None:
+    """Launch each kernel once on a small filter and hold it to its plain version.
+
+    This also loads every library and module before anything is timed.
+    """
+    cfg = qf.QFConfig(q=8, r=12)
+    fq, fr = sorted_stream(cfg, uint32_keys(np.random.default_rng(0), 180, device))
+    nn, _, pos, _ = qf.probe_positions(cfg, fq, 180)
+    fq, fr = i32(fq), i32(fr)
+    args = (i32(pos), fq, fr, nn, cfg.total_slots)
+    planes = qf_build.qf_build_planes(*args)
+    qargs = (*planes, fq, fr)
+    # the same table twice, one level read in the split (q, r) = (4, 16)
+    cargs = ([planes, planes], [cfg.r, cfg.r], fq >> 4, (fq & 15) << 12 | fr, 16)
+    checks = [
+        (planes, qf_build.build_planes_plain(*args)),
+        ((qf_probe.qf_probe(*qargs),), (qf_probe.probe_plain(*qargs),)),
+        (
+            (cascade_probe.cascade_probe(*cargs),),
+            (cascade_probe.cascade_probe_plain(*cargs),),
+        ),
+    ]
+    torch.cuda.synchronize()
+    for got, want in checks:
+        if max_abs_err(got, want) != 0:
+            raise AssertionError("a kernel disagrees with its plain version")
+
+
+def check_build(device):
+    """qf_build_planes at a q = 24 build of 0.75 * 2**24 fingerprints."""
+    cfg = qf.QFConfig(q=RAM_Q, r=P_BITS - RAM_Q)
+    keys = uint32_keys(np.random.default_rng(SEED), cfg.capacity, device)
+    fq, fr = sorted_stream(cfg, keys)
+    nn, valid, pos, _ = qf.probe_positions(cfg, fq, cfg.capacity)
+    t = cfg.total_slots
+    pos, fq, fr = i32(pos), i32(fq), i32(fr)
+    args = (pos, fq, fr, nn, t)
+    got = qf_build.qf_build_planes(*args)
+    err = max_abs_err(got, qf_build.build_planes_plain(*args))
+    ms = cuda_ms(lambda: qf_build.qf_build_planes(*args), 10)
+    plain_ms = cuda_ms(lambda: qf_build.build_planes_plain(*args), 5)
+
+    # the library's scatter of the same planes: index_put_ into zeroed planes
+    slot = torch.where(valid & (pos < t), pos, t)
+    bucket = torch.where(valid, fq, t)
+    first = torch.arange(fq.shape[0], device=device) > 0
+    values = (fr, pos != fq, first & (torch.roll(fq, 1) == fq))
+    true = torch.ones((), dtype=torch.bool, device=device)
+
+    def library():
+        rem = torch.zeros(t + 1, dtype=torch.int32, device=device)
+        occ, shf, con = (
+            torch.zeros(t + 1, dtype=torch.bool, device=device) for _ in range(3)
+        )
+        rem.index_put_((slot,), values[0])
+        occ.index_put_((bucket,), true)
+        shf.index_put_((slot,), values[1])
+        con.index_put_((slot,), values[2])
+
+    library_ms = cuda_ms(library, 10)
+    bound_bytes = 3 * 4 * fq.shape[0] + 4 + 7 * t  # pos/fq/fr, n read; planes written
+    row = kernel_row(
+        "qf_build_planes", "qf_build.cu", "src/repro/kernels/qf_build.py:88",
+        err, ms, plain_ms, bound_bytes, library_ms,
+    )
+    return row, (cfg, got, keys)
+
+
+def check_probe(device, built):
+    """qf_probe: 2**22 probes, half inserted keys and half uniform, on q = 24."""
+    cfg, planes, keys = built
+    rng = np.random.default_rng(SEED + 1)
+    half = PARITY_PROBES // 2
+    hits = keys[torch.from_numpy(rng.integers(0, keys.shape[0], half)).to(device)]
+    fq, fr = qf.fingerprints(cfg, torch.cat([hits, uint32_keys(rng, half, device)]))
+    fq, fr = i32(fq), i32(fr)
+    got = qf_probe.qf_probe(*planes, fq, fr)
+    err = max_abs_err([got], [qf_probe.probe_plain(*planes, fq, fr)])
+    if not bool(got[:half].all()):
+        raise AssertionError("qf_probe: an inserted key was not found")
+    ms = cuda_ms(lambda: qf_probe.qf_probe(*planes, fq, fr), 20)
+    plain_ms = cuda_ms(lambda: qf_probe.probe_plain(*planes, fq, fr), 2)
+    # fq/fr read (4 + 4 bytes), present written (1), and the walked slots
+    bound_bytes = walked_bytes(planes, fq, fr) + PARITY_PROBES * (4 + 4 + 1)
+    return kernel_row(
+        "qf_probe", "qf_probe.cu", "src/repro/kernels/qf_probe.py:158",
+        err, ms, plain_ms, bound_bytes, None,
+    )
+
+
+def check_cascade(device, cfg, state, inserted):
+    """cascade_probe over the main path's 7-structure cascade, 2**22 probes."""
+    cfgs = [cfg.q0_cfg] + [cfg.level_cfg(i) for i in range(cfg.levels)]
+    planes = [(s.rem, s.occ, s.shf, s.con) for s in (state.q0, *state.levels)]
+    widths = [c.r for c in cfgs]
+    rng = np.random.default_rng(SEED + 2)
+    half = PARITY_PROBES // 2
+    pick = torch.from_numpy(rng.integers(0, inserted.shape[0], half)).to(device)
+    probes = torch.cat([inserted[pick], uint32_keys(rng, half, device)])
+    fq, fr, rc = canonical_queries(cfg, probes)
+    args = (planes, widths, fq, fr, rc)
+    got = cascade_probe.cascade_probe(*args)
+    err = max_abs_err([got], [cascade_probe.cascade_probe_plain(*args)])
+    if not bool((got[:half] != 0).all()):
+        raise AssertionError("cascade_probe: an inserted key was not found")
+    ms = cuda_ms(lambda: cascade_probe.cascade_probe(*args), 10)
+    plain_ms = cuda_ms(lambda: cascade_probe.cascade_probe_plain(*args), 1)
+    # fq/fr read once (4 + 4 bytes), hit written (4), and per structure the
+    # slots its walks cover, each at its own split of the fingerprint
+    f = (fq.to(torch.int64) << rc) | (fr.to(torch.int64) & 0xFFFFFFFF)
+    walk_bytes = sum(
+        walked_bytes(p, f >> r, f & ((1 << r) - 1)) for p, r in zip(planes, widths)
+    )
+    occupied = [int(s.n) for s in (state.q0, *state.levels)]
+    log(f"  cascade_probe checked on a cascade holding {occupied} fingerprints")
+    bound_bytes = walk_bytes + PARITY_PROBES * (4 + 4 + 4)
+    return kernel_row(
+        "cascade_probe", "cascade_probe.cu", "src/repro/kernels/cascade_probe.py:150",
+        err, ms, plain_ms, bound_bytes, None,
+    )
+
+
+# ---------------------------------------------------------------------------
+# phases 3 and 4: the main path, under each backend
+# ---------------------------------------------------------------------------
+
+
+def specs(backend: str) -> dict:
+    disk_q = RAM_Q + 3  # bench_ssd: RAM_Q + max(2, ceil(log2(ratio * 1.8)))
+    return {
+        "buffered_qf": dict(ram_q=RAM_Q, disk_q=disk_q, p=P_BITS, backend=backend),
+        "cascade": dict(ram_q=RAM_Q, p=P_BITS, fanout=2, levels=6, backend=backend),
+    }
+
+
+def timed_probe(cfg, state, probes):
+    """``filters.probe`` once for its answer and state, then ``PROBE_REPS``
+    more calls on the same input, each timed by CUDA events; median ms."""
+    new_state, hit = filters.probe(cfg, state, probes)
+    times = []
+    for _ in range(PROBE_REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        filters.probe(cfg, state, probes)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return new_state, hit, statistics.median(times)
+
+
+def drive(name, spec, keys, checkpoints):
+    """Ingest ``keys`` in ``BATCHES`` batches through the façade, probing on the way.
+
+    ``checkpoints`` maps a number of batches ingested to the key sets
+    probed right after them.  Returns the config, the ingest wall time,
+    and per checkpoint ``(state, hits, probe ms)``.
+    """
+    cfg, state = filters.make(name, **spec)
+    step = keys.shape[0] // BATCHES
+    ingest_s, out = 0.0, {}
+    for b in range(BATCHES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = filters.insert(cfg, state, keys[b * step : (b + 1) * step])
+        torch.cuda.synchronize()
+        ingest_s += time.perf_counter() - t0
+        if b + 1 in checkpoints:
+            hits, probe_ms = [], []
+            for probes in checkpoints[b + 1]:
+                state, hit, ms = timed_probe(cfg, state, probes)
+                hits.append(hit)
+                probe_ms.append(ms)
+            out[b + 1] = (state, hits, probe_ms)
+    return cfg, ingest_s, out
+
+
+def union_bound(cfg, state) -> float:
+    """Sum over non-empty structures of n / 2**q * 2**-r: the fp-rate bound."""
+    if hasattr(cfg, "q0_cfg"):
+        parts = [(cfg.q0_cfg, state.q0)] + [
+            (cfg.level_cfg(i), s) for i, s in enumerate(state.levels)
+        ]
+    else:
+        parts = [(cfg.ram, state.ram), (cfg.disk, state.disk)]
+    return sum(int(s.n) / 2**c.q * 2.0**-c.r for c, s in parts if int(s.n) > 0)
+
+
+def fresh_keys(rng, inserted_sorted, n, device):
+    """``n`` uniform uint32 keys none of which was inserted."""
+    out = []
+    while sum(k.shape[0] for k in out) < n:
+        cand = uint32_keys(rng, n, device).to(torch.int64) & 0xFFFFFFFF
+        pos = torch.searchsorted(inserted_sorted, cand).clamp(
+            max=inserted_sorted.shape[0] - 1
+        )
+        out.append(cand[inserted_sorted[pos] != cand])
+    return torch.cat(out)[:n]
+
+
+def differing_fields(a, b) -> list:
+    """Names of the state fields that differ between two states."""
+    la, lb = list(filters._leaves(a)), list(filters._leaves(b))
+    if len(la) != len(lb):
+        return ["<structure>"]
+    return [na for (na, x), (_, y) in zip(la, lb) if not torch.equal(x, y)]
+
+
+def main(device: str = "cuda") -> int:
+    if filters is None:
+        print("chip_smoke.py: src/repro_torch is missing", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: no CUDA device is available", file=sys.stderr)
+        return 1
+    device = torch.device(device)
+    kernels = {
+        "qf_build_planes": qf_build.qf_build_planes,
+        "qf_probe": qf_probe.qf_probe,
+        "cascade_probe": cascade_probe.cascade_probe,
+    }
+    phase_s = {}
+    log(f"card: {card_line()}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+
+    # 1. build
+    t0 = time.perf_counter()
+    logs = cuda_lib.build()
+    build_s = time.perf_counter() - t0
+    for name, text in logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  nvcc {name}: {line.strip()}")
+    launch_check(device)
+    phase_s["build"] = time.perf_counter() - t0
+    log(
+        f"phase build: {len(logs)} kernels built in {build_s:.3f} s; each "
+        "launched once on a q = 8 filter and equal to its plain version"
+    )
+
+    # 2. kernels (build and probe; the cascade probe runs on phase 3's state)
+    t0 = time.perf_counter()
+    rows = {}
+    rows["qf_build_planes"], built = check_build(device)
+    rows["qf_probe"] = check_probe(device, built)
+    del built
+    phase_s["kernels"] = time.perf_counter() - t0
+
+    # 3. main path at the paper's scale
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    n_total = RATIO * qf.QFConfig(q=RAM_Q, r=1).capacity
+    mid_total = n_total // BATCHES * MID_BATCHES
+    keys = uint32_keys(rng, n_total, device)
+    inserted_sorted = torch.sort(keys.to(torch.int64) & 0xFFFFFFFF).values
+    sample = keys[torch.from_numpy(rng.integers(0, n_total, PROBES)).to(device)]
+    fresh = fresh_keys(rng, inserted_sorted, PROBES, device)
+    del inserted_sorted
+    mid_pick = torch.from_numpy(rng.integers(0, mid_total, PROBES)).to(device)
+    mid_sample = keys[mid_pick]
+    checkpoints = {MID_BATCHES: (mid_sample, fresh), BATCHES: (sample, fresh)}
+    for k in kernels.values():
+        k.launches = 0
+    results = {}
+    for name, spec in specs("pallas").items():
+        cfg, ingest_s, out = drive(name, spec, keys, checkpoints)
+        results[name] = (cfg, out)
+        log(
+            f"phase main {name}: {n_total} keys ingested at "
+            f"{n_total / ingest_s:.0f} keys/s ({ingest_s:.3f} s of wall time "
+            "around the insert calls)"
+        )
+        for batches, (state, (hit, fp_hit), probe_ms) in out.items():
+            fp_rate = float(fp_hit.float().mean())
+            bound = union_bound(cfg, state)
+            st = filters.stats(cfg, state)
+            overflow = bool(st["overflow"])
+            log(
+                f"  after {batches} batches: probes {PROBES / probe_ms[0] * 1e3:.0f} "
+                f"q/s (inserted), {PROBES / probe_ms[1] * 1e3:.0f} q/s (fresh), "
+                f"median of {PROBE_REPS} calls by CUDA events; fp rate "
+                f"{fp_rate:.3e} (union bound {bound:.3e}); overflow {overflow}"
+            )
+            stats = {
+                k: v.tolist() if torch.is_tensor(v) else v for k, v in st.items()
+            }
+            log(f"  stats: {json.dumps(stats)}")
+            log(f"  iolog: {vars(filters.to_iolog(state.io))}")
+            if not bool(hit.all()):
+                raise AssertionError(f"{name}: false negative among inserted keys")
+            if fp_rate > 2 * bound:
+                raise AssertionError(f"{name}: fp rate {fp_rate} > 2 x {bound}")
+            if overflow:
+                raise AssertionError(f"{name}: overflow")
+    launches = {n: k.launches for n, k in kernels.items()}
+    log(f"  main-path launches: {launches}")
+    for n, c in launches.items():
+        if c <= 0:
+            raise AssertionError(f"{n} was not launched on the main path")
+    phase_s["main"] = time.perf_counter() - t0
+
+    # the fused cascade probe at the main path's size, on the mid-stream
+    # state, where Q0 and a disk level both hold fingerprints
+    t0 = time.perf_counter()
+    cfg, out = results["cascade"]
+    rows["cascade_probe"] = check_cascade(
+        device, cfg, out[MID_BATCHES][0], keys[:mid_total]
+    )
+    del cfg, out
+    phase_s["kernels"] += time.perf_counter() - t0
+
+    # 4. the reference backend on the same stream
+    t0 = time.perf_counter()
+    for name, spec in specs("reference").items():
+        _, ingest_s, out = drive(name, spec, keys, checkpoints)
+        _, k_out = results.pop(name)
+        for batches, (state, hits, probe_ms) in out.items():
+            k_state, k_hits, _ = k_out[batches]
+            diff = differing_fields(k_state, state)
+            same_hits = all(torch.equal(a, b) for a, b in zip(hits, k_hits))
+            if diff or not same_hits:
+                raise AssertionError(
+                    f"{name} after {batches} batches: backends differ in "
+                    f"{diff or 'hits'}"
+                )
+        log(
+            f"phase backends {name}: reference equals pallas after "
+            f"{MID_BATCHES} and {BATCHES} batches (planes, n, overflow, io, "
+            f"hits); reference ingest {n_total / ingest_s:.0f} keys/s, probes "
+            f"{PROBES / probe_ms[0] * 1e3:.0f} q/s (inserted, {BATCHES} batches)"
+        )
+        del k_out, out, state, k_state, hits, k_hits
+        torch.cuda.empty_cache()
+    phase_s["backends"] = time.perf_counter() - t0
+
+    # 5. report
+    for n, row in rows.items():
+        row["launches"] = launches[n]
+        if row["max_abs_err"] != 0:
+            raise AssertionError(f"{n} disagrees with its plain version")
+    log("phase seconds: " + json.dumps({k: round(v, 3) for k, v in phase_s.items()}))
+    log(json.dumps({"kernels": list(rows.values())}))
+    log(card_line())
+    device_info = {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }
+    log(json.dumps({"ok": True, "device": device_info}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

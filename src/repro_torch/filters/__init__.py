@@ -1,0 +1,220 @@
+"""``repro_torch.filters`` — the functional AMQ API of ``repro.filters``, in PyTorch.
+
+Registry name -> implementation -> paper section:
+
+========================  =======================================================
+``"qf"``                  Quotient filter (§3): insert, may-contain, delete, merge.
+``"buffered_qf"``         Buffered quotient filter (§4): RAM QF buffer flushed
+                          into a large flash QF by one streaming merge.
+``"cascade"``             Cascade filter (§4): COLA-style geometric hierarchy of
+                          QFs (without the frozen tier).
+========================  =======================================================
+
+Quickstart::
+
+    from repro_torch import filters
+
+    cfg, state = filters.make("qf", q=16, r=12)      # state on the card
+    state = filters.insert(cfg, state, keys)
+    hits = filters.contains(cfg, state, keys)        # bool[B], no false negatives
+    state = filters.delete(cfg, state, keys[:100])
+
+The spec dictionaries are those of ``repro.filters``.  ``make`` puts the
+state on the CUDA device unless it is given ``device="cpu"``, and raises
+without a card.  ``backend="pallas"`` runs the port's CUDA kernels on
+card state.  :func:`from_numpy` and :func:`to_numpy` carry a state
+across from the JAX package and back as its pytree leaves.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..core import quotient_filter as qf
+from . import buffered, cascade, iostats, qf_filter  # noqa: F401 (registration)
+from .iostats import IOCounters, to_iolog
+from .registry import FilterImpl, UnsupportedOpError, by_cfg, by_name, names, register
+
+# every op name ``supports`` answers for, as in ``repro.filters``
+_OPS = frozenset(
+    {
+        "insert",
+        "contains",
+        "delete",
+        "merge",
+        "probe",
+        "stats",
+        "needs_resize",
+        "grow",
+        "resize",
+        "needs_shrink",
+        "shrink",
+    }
+)
+
+
+def _leaves(state, name=""):
+    """``(field name, tensor)`` pairs in the JAX pytree's leaf order."""
+    if isinstance(state, torch.Tensor):
+        yield name, state
+    elif hasattr(state, "_fields"):
+        for field, value in zip(state._fields, state):
+            yield from _leaves(value, field)
+    else:
+        for value in state:
+            yield from _leaves(value, name)
+
+
+def _keys(state, keys) -> torch.Tensor:
+    """Keys as a tensor on the state's device (numpy arrays are copied there)."""
+    _, leaf = next(_leaves(state))
+    return torch.as_tensor(keys, device=leaf.device)
+
+
+def make(name: str, device=None, **spec):
+    """Construct a filter by registry name: ``make(name, **spec) -> (cfg, state)``."""
+    return by_name(name).make(device=device, **spec)
+
+
+def insert(cfg, state, keys, k=None):
+    """Insert a key batch; ``k`` = optional valid-prefix count for padded batches."""
+    return by_cfg(cfg).require("insert")(cfg, state, _keys(state, keys), k)
+
+
+def contains(cfg, state, keys):
+    """MAY-CONTAIN for a key batch (no false negatives)."""
+    return by_cfg(cfg).contains(cfg, state, _keys(state, keys))
+
+
+def delete(cfg, state, keys, k=None):
+    """Remove one copy of each key (check ``supports(cfg, "delete")``)."""
+    return by_cfg(cfg).require("delete", cfg)(cfg, state, _keys(state, keys), k)
+
+
+def merge(cfg, state_a, state_b):
+    """Union two same-config filters into one state."""
+    return by_cfg(cfg).require("merge")(cfg, state_a, state_b)
+
+
+def probe(cfg, state, keys):
+    """``contains`` + modeled I/O accounting: returns ``(state, hits)``."""
+    impl = by_cfg(cfg)
+    keys = _keys(state, keys)
+    if impl.probe is None:
+        return state, impl.contains(cfg, state, keys)
+    return impl.probe(cfg, state, keys)
+
+
+def stats(cfg, state) -> dict:
+    """Scalar diagnostics (count, load, overflow, I/O counters...)."""
+    return by_cfg(cfg).stats(cfg, state)
+
+
+def grow(cfg, state):
+    """One doubling step (raises :class:`UnsupportedOpError` until ported)."""
+    return by_cfg(cfg).require("grow")(cfg, state)
+
+
+def resize(cfg, state, **kw):
+    """Structural resize (raises :class:`UnsupportedOpError` until ported)."""
+    return by_cfg(cfg).require("resize")(cfg, state, **kw)
+
+
+def shrink(cfg, state):
+    """One halving step (raises :class:`UnsupportedOpError` until ported)."""
+    return by_cfg(cfg).require("shrink")(cfg, state)
+
+
+def supports(name_or_cfg, op: str) -> bool:
+    """Does filter ``name_or_cfg`` implement op ``op``?  Unknown op names raise."""
+    if op not in _OPS:
+        raise ValueError(
+            f"unknown filter op {op!r}; known ops: {', '.join(sorted(_OPS))}"
+        )
+    if isinstance(name_or_cfg, str):
+        return getattr(by_name(name_or_cfg), op) is not None
+    impl = by_cfg(name_or_cfg)
+    if op == "delete":
+        return impl.deletable(name_or_cfg)
+    return getattr(impl, op) is not None
+
+
+def to_numpy(cfg, state) -> list:
+    """The state as the JAX package's pytree leaves, as numpy arrays.
+
+    ``rem`` planes come back as uint32, every other leaf in its dtype;
+    ``jax.tree_util.tree_unflatten`` of the JAX state's treedef over
+    this list rebuilds the JAX state.
+    """
+    by_cfg(cfg)  # a registered config
+    out = []
+    for name, t in _leaves(state):
+        a = t.detach().cpu().numpy()
+        out.append(a.view(np.uint32) if name == "rem" else a)
+    return out
+
+
+def from_numpy(cfg, leaves, device=None):
+    """A port state from the JAX package's pytree leaves (numpy arrays).
+
+    The inverse of :func:`to_numpy`: each leaf must have the dtype and
+    shape of the matching field of ``make``'s state for ``cfg`` (``rem``
+    as uint32).
+    """
+    device = qf.resolve_device(device)
+    _, template = by_cfg(cfg).make(device="meta", **cfg._asdict())  # no memory
+    fields = list(_leaves(template))
+    leaves = list(leaves)
+    if len(leaves) != len(fields):
+        raise ValueError(f"expected {len(fields)} leaves, got {len(leaves)}")
+    tensors = []
+    for (name, like), a in zip(fields, leaves):
+        a = np.array(a, order="C")  # a private, writable copy
+        if name == "rem":
+            if a.dtype != np.uint32:
+                raise TypeError(f"rem leaf must be uint32, got {a.dtype}")
+            a = a.view(np.int32)
+        t = torch.from_numpy(a)
+        if t.dtype != like.dtype or t.shape != like.shape:
+            raise ValueError(
+                f"{name} leaf is {a.dtype}{tuple(a.shape)}, "
+                f"expected {like.dtype}{tuple(like.shape)}"
+            )
+        tensors.append(t.to(device))
+    it = iter(tensors)
+
+    def rebuild(node):
+        if isinstance(node, torch.Tensor):
+            return next(it)
+        if hasattr(node, "_fields"):
+            return type(node)(*(rebuild(v) for v in node))
+        return tuple(rebuild(v) for v in node)
+
+    return rebuild(template)
+
+
+__all__ = [
+    "FilterImpl",
+    "IOCounters",
+    "UnsupportedOpError",
+    "by_cfg",
+    "by_name",
+    "contains",
+    "delete",
+    "from_numpy",
+    "grow",
+    "insert",
+    "iostats",
+    "make",
+    "merge",
+    "names",
+    "probe",
+    "register",
+    "resize",
+    "shrink",
+    "stats",
+    "supports",
+    "to_iolog",
+    "to_numpy",
+]

@@ -1,0 +1,360 @@
+"""Cascade filter, functional (paper §4's insert-optimized on-flash AMQ).
+
+The port of ``repro.filters.cascade`` without the frozen tier.
+COLA-style hierarchy: a RAM quotient filter Q0 plus a fixed-depth stack
+of on-"disk" QFs whose capacities grow geometrically with the fanout.
+When Q0 fills, Q0..Qi are merged into a fresh Qi in one streaming pass,
+where i is the smallest level that fits them all (the paper's collapse
+rule), and the modeled I/O of that pass is counted in ``IOCounters``.
+
+The JAX package picks the collapse (and the ``merge`` target) with a
+``lax.switch`` on device counts; here the branch is chosen on one host
+read per insert batch.  Under ``backend="pallas"``, ``contains`` and
+``probe`` run the whole stack through one fused kernel launch
+(``ops.cascade_lookup``) and rebuilds run through the build kernel.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import torch
+
+from ..core import cost_model
+from ..core import fuse_filter as fuse
+from ..core import quotient_filter as qf
+from ..kernels import ops as kernel_ops
+from . import iostats, qf_filter
+from .iostats import IOCounters
+from .registry import RESIZE_HINTS, FilterImpl, UnsupportedOpError, register
+
+
+class CascadeConfig(NamedTuple):
+    ram_q: int  # log2 buckets of Q0
+    p: int  # fingerprint bits (q + r at every level)
+    fanout: int = 2  # power of two; level i has q = ram_q + (i+1)*log2(fanout)
+    levels: int = 4  # static level-stack depth
+    seed: int = 0
+    max_load: float = 0.75
+    backend: str = "reference"
+    shrink_load: float = 0.5  # kept for spec parity; shrink is not bound yet
+    frozen_below: Optional[int] = None  # the frozen tier is not ported: must be None
+    fuse_bits: Optional[int] = None  # frozen cell width (unused without frozen_below)
+
+    @property
+    def lb(self) -> int:
+        return int(math.log2(self.fanout))
+
+    def _cfg(self, q: int) -> qf.QFConfig:
+        return qf.QFConfig(
+            q=q,
+            r=self.p - q,
+            slack=max(1024, (1 << q) // 64),
+            seed=self.seed,
+            max_load=self.max_load,
+        )
+
+    @property
+    def q0_cfg(self) -> qf.QFConfig:
+        return self._cfg(self.ram_q)
+
+    def level_cfg(self, i: int) -> qf.QFConfig:
+        return self._cfg(self.ram_q + (i + 1) * self.lb)
+
+    @property
+    def size_bytes(self) -> int:
+        return self.q0_cfg.size_bytes + sum(
+            self.level_cfg(i).size_bytes for i in range(self.levels)
+        )
+
+
+class CascadeState(NamedTuple):
+    q0: qf.QFState
+    levels: tuple  # length cfg.levels, element i sized by cfg.level_cfg(i)
+    io: IOCounters
+
+
+def _check_geometry(cfg: CascadeConfig) -> None:
+    if cfg.fanout < 2 or (cfg.fanout & (cfg.fanout - 1)):
+        raise ValueError("fanout must be a power of two >= 2")
+    if cfg.levels < 1:
+        raise ValueError("need at least one disk level")
+    if cfg.ram_q + cfg.levels * cfg.lb >= cfg.p:
+        raise ValueError("fingerprint bits p too small for the deepest level")
+
+
+def _empty_levels(cfg: CascadeConfig, device, keep=None):
+    """Empty QFs for every level, except ``keep = {i: state}``."""
+    keep = keep or {}
+    return tuple(
+        keep[i] if i in keep else qf.empty(cfg.level_cfg(i), device)
+        for i in range(cfg.levels)
+    )
+
+
+def make(device=None, **spec):
+    cfg = CascadeConfig(**spec)
+    if cfg.frozen_below is not None:
+        raise UnsupportedOpError(
+            "cascade", "frozen_below", "the frozen tier is not ported yet"
+        )
+    _check_geometry(cfg)
+    qf_filter._check_backend(cfg)
+    device = qf.resolve_device(device)
+    return cfg, CascadeState(
+        q0=qf.empty(cfg.q0_cfg, device),
+        levels=_empty_levels(cfg, device),
+        io=iostats.zeros(device),
+    )
+
+
+def _canon_cfg(cfg: CascadeConfig) -> qf.QFConfig:
+    """The canonical (q, r) split all cross-level streams are carried in."""
+    qc, rc = fuse.canonical_split(cfg.p)
+    return qf.QFConfig(q=qc, r=rc, slack=0, seed=cfg.seed, max_load=cfg.max_load)
+
+
+def _stream(cfg: CascadeConfig, c: qf.QFConfig, s: qf.QFState):
+    """One QF as a sorted canonical fingerprint stream ``(fq, fr, n)``."""
+    fq, fr, n = qf.extract(c, s)
+    fq, fr = qf._requotient(fq, fr, c, _canon_cfg(cfg))
+    return fq, fr, n
+
+
+def _level_stream(cfg: CascadeConfig, state: CascadeState, i: int):
+    return _stream(cfg, cfg.level_cfg(i), state.levels[i])
+
+
+def _q0_stream(cfg: CascadeConfig, state: CascadeState):
+    return _stream(cfg, cfg.q0_cfg, state.q0)
+
+
+def _build_level(cfg: CascadeConfig, i: int, allq, allr, total):
+    """Materialize level i from a sorted canonical stream."""
+    tgt = cfg.level_cfg(i)
+    tq, tr = qf._requotient(allq, allr, _canon_cfg(cfg), tgt)
+    return qf_filter.build_fn(cfg.backend)(tgt, tq, tr, total)
+
+
+def _f32(x, device) -> torch.Tensor:
+    return torch.tensor(float(x), dtype=torch.float32, device=device)
+
+
+def _level_read(cfg: CascadeConfig, levels, j: int) -> torch.Tensor:
+    """Merge-path read bytes of level j: its table if it is non-empty."""
+    s = levels[j]
+    dev = s.n.device
+    return torch.where(s.n > 0, _f32(cfg.level_cfg(j).size_bytes, dev), _f32(0, dev))
+
+
+def _collapse_into(cfg: CascadeConfig, state: CascadeState, i: int) -> CascadeState:
+    """Merge Q0..Q_i into a fresh Q_i; levels above i empty (paper Fig. 5)."""
+    dev = state.q0.n.device
+    parts = [_q0_stream(cfg, state)] + [
+        _level_stream(cfg, state, j) for j in range(i + 1)
+    ]
+    allq, allr, total = qf.merge_streams_many(parts)
+    overflow = state.q0.overflow
+    for j in range(i + 1):
+        overflow = overflow | state.levels[j].overflow
+    merged = _build_level(cfg, i, allq, allr, total)
+    merged = merged._replace(overflow=merged.overflow | overflow)
+    # I/O: stream each participating non-empty disk level in, target out
+    read = _f32(0, dev)
+    for j in range(i + 1):
+        read = read + _level_read(cfg, state.levels, j)
+    io = state.io._replace(
+        seq_read_bytes=state.io.seq_read_bytes + read,
+        seq_write_bytes=state.io.seq_write_bytes
+        + _f32(cfg.level_cfg(i).size_bytes, dev),
+        flushes=state.io.flushes + 1,
+        merges=state.io.merges + 1,
+    )
+    keep = {j: state.levels[j] for j in range(i + 1, cfg.levels)}
+    keep[i] = merged
+    levels = _empty_levels(cfg, dev, keep)
+    return CascadeState(q0=qf.empty(cfg.q0_cfg, dev), levels=levels, io=io)
+
+
+def _collapse_target(cfg: CascadeConfig, state: CascadeState, full) -> int:
+    """The level Q0 collapses into, or ``cfg.levels`` for none.
+
+    The first level whose capacity holds Q0 and every level above it;
+    read to the host once per insert batch.
+    """
+    L = cfg.levels
+    ns = torch.stack([s.n for s in state.levels])
+    cum = state.q0.n + torch.cumsum(ns, 0, dtype=torch.int32)
+    caps = torch.tensor(
+        [cfg.level_cfg(i).capacity for i in range(L)],
+        dtype=torch.int32,
+        device=cum.device,
+    )
+    fits = cum <= caps
+    target = fits.to(torch.int32).argmax()  # first fitting level
+    return int(torch.where(full & fits.any(), target, L))
+
+
+def insert(cfg: CascadeConfig, state, keys, k=None) -> CascadeState:
+    """Insert a batch into Q0; merge down once Q0 is full."""
+    q0 = qf_filter.insert_keys(cfg.q0_cfg, cfg.backend, state.q0, keys, k)
+    state = state._replace(q0=q0)
+    full = qf.load(cfg.q0_cfg, q0) >= cfg.max_load
+    i = _collapse_target(cfg, state, full)
+    return _collapse_into(cfg, state, i) if i < cfg.levels else state
+
+
+def _level_contains(cfg: CascadeConfig, c: qf.QFConfig, s: qf.QFState, keys):
+    """Reference-path membership in one structure; empty ones answer no."""
+    if not bool(s.n > 0):
+        return torch.zeros(keys.shape[0], dtype=torch.bool, device=keys.device)
+    return qf_filter.contains_keys(c, cfg.backend, s, keys)
+
+
+def _structure_hits(cfg: CascadeConfig, state, keys):
+    """``(q0_hit, [hit per level])``: one fused kernel pass under
+    ``backend="pallas"``, one plain lookup per structure otherwise."""
+    if cfg.backend == "pallas":
+        hits = kernel_ops.cascade_lookup(
+            (cfg.q0_cfg,) + tuple(cfg.level_cfg(i) for i in range(cfg.levels)),
+            (state.q0,) + tuple(state.levels),
+            keys,
+        )
+        return hits[0], list(hits[1:])
+    q0_hit = _level_contains(cfg, cfg.q0_cfg, state.q0, keys)
+    return q0_hit, [
+        _level_contains(cfg, cfg.level_cfg(i), state.levels[i], keys)
+        for i in range(cfg.levels)
+    ]
+
+
+def contains(cfg: CascadeConfig, state, keys):
+    hit, lvl_hits = _structure_hits(cfg, state, keys)
+    for h in lvl_hits:
+        hit = hit | h
+    return hit
+
+
+def probe(cfg: CascadeConfig, state, keys):
+    """Lookup with the paper's schedule: per query still unresolved at a
+    non-empty disk level, one random page read (QF cluster), top-down
+    short-circuit.  Matches ``cost_model.cascade_probe_reads``."""
+    hit, lvl_hits = _structure_hits(cfg, state, keys)
+    reads = torch.zeros((), dtype=torch.int32, device=hit.device)
+    for i in range(cfg.levels):
+        pending = ~hit
+        reads = reads + torch.where(
+            state.levels[i].n > 0,
+            cost_model.QF_PROBE_READS * pending.sum(dtype=torch.int32),
+            0,
+        )
+        hit = hit | (pending & lvl_hits[i])
+    io = state.io._replace(rand_page_reads=state.io.rand_page_reads + reads)
+    return state._replace(io=io), hit
+
+
+def delete(cfg: CascadeConfig, state, keys, k=None) -> CascadeState:
+    """Remove one copy per key from the topmost structure holding it.
+
+    The j-th batch occurrence of a key targets the j-th stored copy in
+    top-down order.  Disk-level deletes charge one random page read per
+    key targeted at a non-empty level and one random page write per
+    copy removed; Q0 deletes are RAM-only and free."""
+    valid = qf_filter.valid_mask(keys, k)
+    structures = [(cfg.q0_cfg, state.q0)] + [
+        (cfg.level_cfg(i), state.levels[i]) for i in range(cfg.levels)
+    ]
+    fq0, fr0 = qf.fingerprints(cfg.q0_cfg, keys)
+    rank = qf_filter.batch_occurrence_rank(fq0, fr0, valid)
+    cum = torch.zeros(keys.shape[0], dtype=torch.int32, device=keys.device)
+    out = []
+    reads = torch.zeros((), dtype=torch.int32, device=keys.device)
+    writes = torch.zeros((), dtype=torch.int32, device=keys.device)
+    for lvl, (c, s) in enumerate(structures):
+        fq, fr = qf.fingerprints(c, keys)
+        cnt = qf_filter.multiplicity(c, s, fq, fr)
+        todel = valid & (rank >= cum) & (rank < cum + cnt)
+        new = qf_filter.delete_masked(c, s, fq, fr, todel)
+        if lvl > 0:  # disk-resident level
+            reads = reads + torch.where(s.n > 0, todel.sum(dtype=torch.int32), 0)
+            writes = writes + (s.n - new.n)
+        out.append(new)
+        cum = cum + cnt
+    io = state.io._replace(
+        rand_page_reads=state.io.rand_page_reads + reads,
+        rand_page_writes=state.io.rand_page_writes + writes,
+    )
+    return CascadeState(q0=out[0], levels=tuple(out[1:]), io=io)
+
+
+def merge(cfg: CascadeConfig, sa, sb) -> CascadeState:
+    """Union of two cascades (same cfg) as ONE streaming pass into the
+    smallest level that fits the combined count (paper Fig. 5's k-way
+    merge).  If even the bottom level cannot hold the union, the merge
+    streams into the bottom and its ``overflow`` flag reports it."""
+    L = cfg.levels
+    dev = sa.q0.n.device
+    parts = [_q0_stream(cfg, sa), _q0_stream(cfg, sb)]
+    for j in range(L):
+        parts.append(_level_stream(cfg, sa, j))
+        parts.append(_level_stream(cfg, sb, j))
+    allq, allr, total = qf.merge_streams_many(parts)
+    overflow = sa.q0.overflow | sb.q0.overflow
+    for s in (sa, sb):
+        for lv in s.levels:
+            overflow = overflow | lv.overflow
+
+    read = _f32(0, dev)
+    for j in range(L):
+        for s in (sa, sb):
+            read = read + _level_read(cfg, s.levels, j)
+    io = iostats.add(sa.io, sb.io)
+    io = io._replace(seq_read_bytes=io.seq_read_bytes + read, merges=io.merges + 1)
+
+    caps = torch.tensor(
+        [cfg.level_cfg(i).capacity for i in range(L)], dtype=torch.int32, device=dev
+    )
+    fits = total <= caps
+    i = int(torch.where(fits.any(), fits.to(torch.int32).argmax(), L - 1))
+    merged = _build_level(cfg, i, allq, allr, total)
+    merged = merged._replace(overflow=merged.overflow | overflow)
+    io = io._replace(
+        seq_write_bytes=io.seq_write_bytes + _f32(cfg.level_cfg(i).size_bytes, dev)
+    )
+    return CascadeState(
+        q0=qf.empty(cfg.q0_cfg, dev),
+        levels=_empty_levels(cfg, dev, {i: merged}),
+        io=io,
+    )
+
+
+def stats(cfg: CascadeConfig, state):
+    ns = torch.stack([s.n for s in state.levels])
+    return {
+        "n": state.q0.n + ns.sum(dtype=torch.int32),
+        "q0_load": qf.load(cfg.q0_cfg, state.q0),
+        "level_counts": ns,
+        "nonempty_levels": (ns > 0).sum(dtype=torch.int32),
+        "overflow": state.q0.overflow
+        | torch.stack([s.overflow for s in state.levels]).any(),
+        "size_bytes": cfg.size_bytes,
+        **state.io._asdict(),
+    }
+
+
+IMPL = register(
+    FilterImpl(
+        name="cascade",
+        paper_section="§4 (cascade filter: COLA-style QF hierarchy on flash)",
+        cfg_cls=CascadeConfig,
+        make=make,
+        insert=insert,
+        contains=contains,
+        stats=stats,
+        delete=delete,
+        merge=merge,
+        probe=probe,
+        op_hints=RESIZE_HINTS,
+    )
+)

@@ -1,0 +1,87 @@
+"""Kernel-path wrappers binding the CUDA kernels to the filter states.
+
+The port of the main-path wrappers of ``repro.kernels.ops``:
+``build_sorted``, ``lookup``/``contains`` and ``cascade_lookup`` (its
+unfrozen part).  Each runs its kernel for CUDA state and the kernel's
+plain PyTorch version for CPU state (:mod:`.dispatch`), and each
+returns exactly what the plain ``repro_torch.core.quotient_filter`` path
+returns.
+
+The JAX wrappers settled window overflows with a ``lax.cond`` on
+``any(ovf)``; here the probe kernels walk whole clusters, so there is
+nothing to settle and no host sync on a probe.  The kernels take int32
+fingerprints, as the TPU kernels did; the wrappers narrow the int64
+streams of ``core`` to them.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core import fuse_filter as ffc
+from ..core import quotient_filter as qf
+from .cascade_probe import cascade_probe
+from .qf_build import qf_build_planes
+from .qf_probe import qf_probe
+
+
+def _i32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values to int32, keeping the low 32 bits (uint32 bit patterns)."""
+    return x.to(torch.int32)
+
+
+def build_sorted(cfg: qf.QFConfig, fq, fr, n) -> qf.QFState:
+    """Kernel-path equivalent of ``quotient_filter.build_sorted``.
+
+    Probe positions are one ``cummax`` scan in PyTorch; the planes are
+    written by the ``qf_build_planes`` kernel.
+    """
+    if cfg.r > 31:
+        raise ValueError("kernel path keeps the JAX package's r <= 31 limit")
+    nn, _, pos, overflow = qf.probe_positions(cfg, fq, n)
+    # a position past INT32_MAX wraps negative and is dropped, as one past
+    # the last slot is
+    rem, occ, shf, con = qf_build_planes(
+        _i32(pos), _i32(fq), _i32(fr), nn, cfg.total_slots
+    )
+    return qf.QFState(rem=rem, occ=occ, shf=shf, con=con, n=nn, overflow=overflow)
+
+
+def lookup(cfg: qf.QFConfig, state: qf.QFState, fq, fr) -> torch.Tensor:
+    """MAY-CONTAIN for fingerprints, equal to ``quotient_filter.lookup_exact``."""
+    return qf_probe(state.rem, state.occ, state.shf, state.con, _i32(fq), _i32(fr))
+
+
+def contains(cfg: qf.QFConfig, state: qf.QFState, keys) -> torch.Tensor:
+    fq, fr = qf.fingerprints(cfg, keys)
+    return lookup(cfg, state, fq, fr)
+
+
+def cascade_lookup(qf_cfgs, qf_states, keys):
+    """Probe a stack of quotient filters in one fused kernel launch.
+
+    ``qf_cfgs``/``qf_states`` are the structures top-down (Q0 first);
+    all must share the fingerprint width ``p`` and seed.  Keys are
+    hashed once in the canonical split, which the kernel re-splits for
+    each level (requotienting is a bit move, so the fingerprint is the
+    same).  Returns one bool (B,) hit array per structure, in argument
+    order.
+    """
+    p = qf_cfgs[0].q + qf_cfgs[0].r
+    seed = qf_cfgs[0].seed
+    for c in qf_cfgs:
+        if c.q + c.r != p or c.seed != seed:
+            raise ValueError("cascade levels must share fingerprint bits and seed")
+    qc, rc = ffc.canonical_split(p)
+    canon = qf.QFConfig(q=qc, r=rc, slack=0, seed=seed)
+    fqc, frc = qf.fingerprints(canon, keys)
+    hitm = cascade_probe(
+        [(s.rem, s.occ, s.shf, s.con) for s in qf_states],
+        [c.r for c in qf_cfgs],
+        _i32(fqc),
+        _i32(frc),
+        rc,
+    )
+    return tuple(
+        (s.n > 0) & (((hitm >> lvl) & 1) > 0) for lvl, s in enumerate(qf_states)
+    )

@@ -1,0 +1,266 @@
+"""The port's kernel wrappers, plain versions and oracles against the JAX package.
+
+On the CPU each wrapper runs its kernel's plain PyTorch version; the
+CUDA kernels themselves are held against those plain versions on the
+card by ``chip_smoke.py``, whose cluster walk (the bytes of the probes'
+bound) is tested here too.  The JAX side runs its Pallas kernels in
+interpret mode at tiny shapes, as ``tests/test_kernels.py`` does, and
+its pure-jnp oracles in ``repro.kernels.ref``.  Every comparison is
+exact.
+"""
+
+import functools
+import importlib.util
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import quotient_filter as jqf
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.core import quotient_filter as tqf
+from repro_torch.kernels import cascade_probe, dispatch, ops, qf_build, qf_probe
+from repro_torch.kernels import ref as tref
+
+
+def _load_chip_smoke():
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+chip_smoke = _load_chip_smoke()  # its cluster walk counts the probes' bound
+
+
+def _i32(x):
+    return x.to(torch.int32)
+
+
+def _keys(seed, n):
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, 2**32, size=n, dtype=np.int64).astype(np.uint32)
+
+
+def _t(keys):
+    return torch.from_numpy(keys.view(np.int32).copy())
+
+
+@functools.lru_cache(maxsize=None)
+def _filled(q, r, n, seed=0):
+    """The same keys in a JAX and a port QF at load up to 1.0."""
+    jcfg = jqf.QFConfig(q=q, r=r, max_load=1.0)
+    tcfg = tqf.QFConfig(q=q, r=r, max_load=1.0)
+    keys = _keys(seed, n)
+    js = jqf.insert(jcfg, jqf.empty(jcfg), jnp.asarray(keys))
+    ts = tqf.insert(tcfg, tqf.empty(tcfg, "cpu"), _t(keys))
+    return jcfg, tcfg, js, ts, keys
+
+
+# compiled: run eagerly the (B x 2W) oracles take seconds op by op
+_jax_probe_ref = jax.jit(jref.probe_ref, static_argnums=6)
+_jax_cascade_probe_ref = jax.jit(jref.cascade_probe_ref, static_argnums=3)
+
+# the filters every test draws from: (q, r, n), n = 0.74 * 2**q
+SMALL, WIDE = (8, 8, 190), (10, 31, 760)
+
+
+def _jplanes(js):
+    planes = (js.rem, js.occ, js.shf, js.con)
+    return tuple(jnp.asarray(p).astype(jnp.int32) for p in planes)
+
+
+def _tplanes(ts):
+    return (ts.rem, ts.occ, ts.shf, ts.con)
+
+
+def _sorted_stream(tcfg, keys):
+    fq, fr = tqf.fingerprints(tcfg, _t(keys))
+    return tqf._pad_sort(fq, fr, torch.ones(fq.shape, dtype=torch.bool))
+
+
+def test_build_plain_matches_interpreted_kernel_and_oracles():
+    jcfg, tcfg, js, ts, keys = _filled(*WIDE)
+    fq, fr = _sorted_stream(tcfg, keys)
+    n = torch.tensor(keys.shape[0], dtype=torch.int32)
+    nn, valid, pos, _ = tqf.probe_positions(tcfg, fq, n)
+    rem, occ, shf, con = qf_build.qf_build_planes(
+        _i32(pos), _i32(fq), _i32(fr), nn, tcfg.total_slots
+    )
+    assert qf_build.qf_build_planes.launches == 0  # CPU tensors: no launch
+    for a, b in zip((rem, occ, shf, con), _tplanes(ts)):
+        assert torch.equal(a, b)
+
+    # the JAX Pallas kernel, interpreted, writes the same planes
+    jfq, jfr = jqf.fingerprints(jcfg, jnp.asarray(keys))
+    jfq, jfr = jqf._pad_sort(jfq, jfr, jnp.ones(jfq.shape, bool))
+    jst = jops.build_sorted(jcfg, jfq, jfr, keys.shape[0], mode="interpret")
+    for f, a, b in zip(jst._fields, jst, ops.build_sorted(tcfg, fq, fr, n)):
+        b = b.numpy().view(np.uint32) if f == "rem" else b.numpy()
+        np.testing.assert_array_equal(np.asarray(a), b, err_msg=f)
+
+    # the oracle ref.build_ref, in both packages
+    idx = torch.arange(fq.shape[0])
+    con_b = (idx > 0) & (fq == torch.roll(fq, 1)) & valid
+    shf_b = (pos != fq) & valid
+    spos = torch.where(valid, pos, tqf.INT32_MAX)
+    t_rem, t_meta, t_occ = tref.build_ref(
+        tcfg.total_slots, spos, fq, fr.to(torch.int32), con_b, shf_b
+    )
+    j_rem, j_meta, j_occ = jref.build_ref(
+        jcfg.total_slots,
+        jnp.asarray(spos.numpy().astype(np.int32)),
+        jnp.asarray(fq.numpy().astype(np.int32)),
+        jnp.asarray(fr.to(torch.int32).numpy()),
+        jnp.asarray(con_b.numpy()),
+        jnp.asarray(shf_b.numpy()),
+    )
+    for a, b in ((j_rem, t_rem), (j_meta, t_meta), (j_occ, t_occ)):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+    assert torch.equal(t_rem, rem)
+    assert torch.equal(t_meta, con.to(torch.int32) | (shf.to(torch.int32) << 1))
+
+
+@pytest.mark.parametrize("q,r,n", [SMALL, WIDE])
+def test_probe_plain_matches_oracles(q, r, n):
+    jcfg, tcfg, js, ts, keys = _filled(q, r, n)
+    probes = np.concatenate([keys, _keys(q + 100, 2 * n)])
+    tq, tr = tqf.fingerprints(tcfg, _t(probes))
+    jq, jr = jqf.fingerprints(jcfg, jnp.asarray(probes))
+    present = qf_probe.qf_probe(*_tplanes(ts), _i32(tq), _i32(tr))
+    assert qf_probe.qf_probe.launches == 0
+    exact = np.asarray(jqf.lookup_exact(jcfg, js, jq, jr))
+    np.testing.assert_array_equal(present.numpy(), exact)
+    np.testing.assert_array_equal(ops.lookup(tcfg, ts, tq, tr).numpy(), exact)
+    # the JAX oracle and its port at a window wide enough that no cluster
+    # leaves it, and (once) at one most clusters leave
+    for window in (8, 256) if q == SMALL[0] else (256,):
+        jp, jo = _jax_probe_ref(*_jplanes(js), jq, jr.astype(jnp.int32), window)
+        tp, to = tref.probe_ref(*_tplanes(ts), tq, tr, window)
+        np.testing.assert_array_equal(np.asarray(jp), tp.numpy())
+        np.testing.assert_array_equal(np.asarray(jo), to.numpy())
+    np.testing.assert_array_equal(present.numpy(), tp.numpy())
+    assert not to.any()
+
+
+def test_probe_plain_matches_interpreted_kernel():
+    jcfg, tcfg, js, ts, keys = _filled(*WIDE)
+    probes = np.concatenate([keys[:300], _keys(9, 300)])
+    jq, jr = jqf.fingerprints(jcfg, jnp.asarray(probes))
+    got = jops.lookup(jcfg, js, jq, jr, mode="interpret")
+    np.testing.assert_array_equal(
+        np.asarray(got), ops.contains(tcfg, ts, _t(probes)).numpy()
+    )
+
+
+def test_walk_spans_cover_the_cluster():
+    jcfg, tcfg, js, ts, keys = _filled(*SMALL)
+    fq, fr = tqf.fingerprints(tcfg, _t(keys))
+    present, first, last = chip_smoke.walk_spans(_tplanes(ts), fq, fr)
+    assert present.all()
+    assert (first <= fq).all() and (fq <= last).all()
+    assert not ts.shf[first].any()  # each walk starts at a cluster's start
+    # the walks' bytes: three metadata bytes per covered slot, at least one
+    # per query, at most the three metadata planes
+    walked = chip_smoke.walked_bytes(_tplanes(ts), fq, fr)
+    assert torch.unique(fq).numel() <= walked <= 3 * tcfg.total_slots
+
+
+def test_overflowed_state_marks_walks_past_the_end():
+    tcfg = tqf.QFConfig(q=5, r=8, slack=2)
+    keys = _keys(4, 60)
+    ts = tqf.insert(tcfg, tqf.empty(tcfg, "cpu"), _t(keys))
+    assert bool(ts.overflow)
+    fq, fr = tqf.fingerprints(tcfg, _t(keys))
+    _, _, last = chip_smoke.walk_spans(_tplanes(ts), fq, fr)
+    # walks that run off the planes stop at the last slot, so the bytes
+    # counted for them stay inside the planes
+    assert (last == tcfg.total_slots - 1).any()
+    assert (last < tcfg.total_slots).all()
+    # the kernel's plain version still answers, and ops.lookup with it
+    got = qf_probe.qf_probe(*_tplanes(ts), _i32(fq), _i32(fr))
+    assert torch.equal(got, ops.lookup(tcfg, ts, fq, fr))
+
+
+def _cascade_levels():
+    """Three QFs of one fingerprint width p = 16, the last one empty."""
+    out = [_filled(7, 9, 90)[:4], _filled(*SMALL)[:4]]
+    jcfg, tcfg = jqf.QFConfig(q=9, r=7), tqf.QFConfig(q=9, r=7)
+    return out + [(jcfg, tcfg, jqf.empty(jcfg), tqf.empty(tcfg, "cpu"))]
+
+
+def test_cascade_plain_matches_oracles():
+    levels = _cascade_levels()
+    inserted = [_keys(0, 90)[:40], _keys(0, SMALL[2])[:40]]  # into levels 0, 1
+    probes = np.concatenate([*inserted, _keys(3, 80)])
+    jq, jr, tq, tr = [], [], [], []
+    for jcfg, tcfg, _, _ in levels:
+        a, b = jqf.fingerprints(jcfg, jnp.asarray(probes))
+        jq.append(a)
+        jr.append(b.astype(jnp.int32))
+        c, d = tqf.fingerprints(tcfg, _t(probes))
+        tq.append(c)
+        tr.append(d)
+    # the kernel reads each query once, in the canonical split of p = 16
+    canon = tqf.QFConfig(q=1, r=15)
+    cq, cr = tqf.fingerprints(canon, _t(probes))
+    hit = cascade_probe.cascade_probe(
+        [_tplanes(ts) for *_, ts in levels],
+        [t.r for _, t, _, _ in levels],
+        _i32(cq),
+        _i32(cr),
+        canon.r,
+    )
+    assert cascade_probe.cascade_probe.launches == 0
+    jh, jo = _jax_cascade_probe_ref(
+        [_jplanes(js) for _, _, js, _ in levels], jq, jr, 512
+    )
+    th, to = tref.cascade_probe_ref([_tplanes(ts) for *_, ts in levels], tq, tr, 512)
+    np.testing.assert_array_equal(np.asarray(jh), th.numpy())
+    np.testing.assert_array_equal(np.asarray(jo), to.numpy())
+    np.testing.assert_array_equal(np.asarray(jh), hit.numpy())
+    assert not to.any()
+    assert (hit[:80] != 0).all() and not (hit >> 2).any()
+
+    # ops.cascade_lookup hashes once and re-splits per level: the same hits
+    # as one plain lookup per level
+    hits = ops.cascade_lookup(
+        [t for _, t, _, _ in levels], [s for *_, s in levels], _t(probes)
+    )
+    for lvl, (_, tcfg, _, ts) in enumerate(levels):
+        want = ops.contains(tcfg, ts, _t(probes)) & (ts.n > 0)
+        assert torch.equal(hits[lvl], want)
+        assert torch.equal(hits[lvl], ((hit >> lvl) & 1) > 0)
+
+
+def test_cascade_rejects_mixed_widths_and_too_many_levels():
+    levels = _cascade_levels()
+    with pytest.raises(ValueError):
+        ops.cascade_lookup(
+            [levels[0][1], tqf.QFConfig(q=8, r=10)],  # p = 16 and p = 18
+            [levels[0][3], levels[1][3]],
+            _t(_keys(1, 4)),
+        )
+    plane = _tplanes(levels[0][3])
+    fq = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        cascade_probe.cascade_probe([plane] * 33, [9] * 33, fq, fq, 15)
+    with pytest.raises(TypeError):  # the kernels take int32 fingerprints
+        cascade_probe.cascade_probe([plane], [9], fq.long(), fq.long(), 15)
+
+
+def test_dispatch_follows_the_inputs_device():
+    cpu = torch.zeros(3)
+    assert dispatch.use_kernel(cpu, cpu) is False
+    meta = torch.zeros(3, device="meta")
+    with pytest.raises(ValueError):
+        dispatch.use_kernel(cpu, meta)
+    with pytest.raises(TypeError):
+        dispatch.require(cpu, "x", torch.int64)
+    with pytest.raises(ValueError):
+        dispatch.require(torch.zeros(4, 2)[:, 0], "x", torch.float32)

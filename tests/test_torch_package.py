@@ -1,0 +1,55 @@
+"""Package rules of ``repro_torch``: no JAX inside, state on the card by default."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import filters as tf
+from repro_torch.core import quotient_filter as tqf
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+
+def test_import_pulls_in_neither_jax_nor_the_jax_package():
+    code = (
+        "import sys\n"
+        "import repro_torch, repro_torch.filters, repro_torch.kernels.ops\n"
+        "import repro_torch.kernels.cuda_lib\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    subprocess.run([sys.executable, "-c", code], check=True, env=env, timeout=120)
+
+
+@pytest.mark.parametrize("name", ["qf", "buffered_qf", "cascade"])
+def test_make_without_a_device_needs_a_card(name, monkeypatch):
+    spec = {
+        "qf": dict(q=6, r=8),
+        "buffered_qf": dict(ram_q=5, disk_q=7, p=20),
+        "cascade": dict(ram_q=5, p=20, levels=2),
+    }[name]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tf.make(name, **spec)
+    cfg, state = tf.make(name, device="cpu", **spec)
+    assert {str(t.device) for _, t in tf._leaves(state)} == {"cpu"}
+
+
+def test_empty_without_a_device_needs_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        tqf.empty(tqf.QFConfig(q=4, r=4))
+
+
+def test_keys_follow_the_state_onto_its_device():
+    cfg, st = tf.make("qf", device="cpu", q=6, r=10)
+    keys = np.arange(40, dtype=np.uint32) * np.uint32(2654435761)
+    st = tf.insert(cfg, st, keys)
+    assert tf.contains(cfg, st, keys).all()
+    assert int(tf.stats(cfg, st)["n"]) == 40
