@@ -7,7 +7,7 @@ Run from the repository root with no arguments::
 
 Phases, each timed, any failure fatal (a traceback and exit code 1):
 
-1. build    nvcc builds the three CUDA kernels from ``src/repro_torch/csrc``;
+1. build    nvcc builds the five CUDA kernels from ``src/repro_torch/csrc``;
             each is launched once on a small filter against its plain version.
 2. kernels  each kernel against its plain PyTorch version on the card, bit
             for bit, at the main path's shapes (a q = 24 build of 12.6 M
@@ -26,11 +26,31 @@ Phases, each timed, any failure fatal (a traceback and exit code 1):
             (no false negative allowed) and 2**21 fresh keys (false-positive
             rate at most twice the union bound); every kernel must have
             launched.  Probe times are the median of several calls by CUDA
-            events after the answered call.
+            events after the answered call.  The probes account their I/O
+            on a copy of the state, so the ingest's own I/O schedule stays
+            apart for phase 7.
 4. backends the same stream under ``backend="reference"`` (the plain PyTorch
             path): planes, ``n``, ``overflow``, hits and I/O counters equal at
             both checkpoints.
-5. report   one JSON line of per-kernel results, then the card's name and
+5. bloom    the same 50,331,648 keys into bench_ssd's Bloom geometry with its
+            scale-down undone (k = 12, m = n * 12 / ln 2 = 871,358,627 bits):
+            ``bloom``, ``blocked_bloom`` (32 KiB blocks) and the counting
+            ``blocked_bloom``, all under ``backend="pallas"``; 2**22 probes,
+            half inserted keys (no false negative) and half fresh keys
+            (false-positive rate at most twice (1 - e**(-k n / m))**k); the
+            counting filter then deletes the first 8 batches and must still
+            hold every key of the other 56.  Both Bloom kernels must have
+            launched; each is then held against its plain version at these
+            shapes.
+6. bloom backends  the same ingest and deletes under ``backend="reference"``:
+            cells, ``n`` and hits equal to phase 5's states.
+7. baselines the paper's Bloom baselines of bench_ssd (EBF, BBF, FBF) at the
+            same geometry, and the modeled SSD throughput of all five
+            structures of its Table 1(b): insert, uniform lookup and
+            successful lookup ops/s from each ``IOLog`` and the paper's SSD
+            constants, with the cascade's and the buffered QF's insert
+            speed-up over the best Bloom variant (the paper: 8.6-11x).
+8. report   one JSON line of per-kernel results, then the card's name and
             power limit, then the result line.
 
 The last line of standard output is the result,
@@ -41,6 +61,7 @@ in its place when the card or the package is missing.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -53,9 +74,12 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 try:
     from repro_torch import filters
+    from repro_torch.core import bf_variants, bloom, cost_model
     from repro_torch.core import fuse_filter as fuse
     from repro_torch.core import quotient_filter as qf
-    from repro_torch.kernels import cascade_probe, cuda_lib, qf_build, qf_probe
+    from repro_torch.filters import bloom_filter
+    from repro_torch.kernels import bloom_block, cascade_probe, cuda_lib, qf_build
+    from repro_torch.kernels import qf_probe
 except ModuleNotFoundError as e:  # run outside the repository
     if not (e.name or "").startswith("repro_torch"):
         raise
@@ -73,6 +97,12 @@ PROBES = 1 << 21
 PARITY_PROBES = 1 << 22
 PROBE_REPS = 5  # timed probe calls per probe set; their median is reported
 SEED = RATIO  # bench_ssd seeds its generator with the ratio
+
+# bench_ssd's Bloom geometry: k = 12, m = n * k / ln 2, 32 KiB BBF blocks
+BLOOM_K = 12
+BLOCK_BITS = 4096 * 8 * 8
+DELETED_BATCHES = 8  # the counting filter deletes the first 8 batches
+PAPER_LOOKUPS = 2048  # bench_ssd's lookup sets
 
 
 def log(*args) -> None:
@@ -105,14 +135,20 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
-def max_abs_err(got, want) -> int:
-    """Largest absolute difference over paired outputs, as integers."""
+def max_abs_err(got, want, chunk: int = 1 << 26) -> int:
+    """Largest absolute difference over paired outputs, as integers.
+
+    Taken over flat chunks, so that a plane of a billion cells needs no
+    int64 copy of its own size.
+    """
     worst = 0
     for a, b in zip(got, want):
         if a.shape != b.shape:
             raise AssertionError(f"shape {tuple(a.shape)} != {tuple(b.shape)}")
-        d = (a.to(torch.int64) - b.to(torch.int64)).abs()
-        worst = max(worst, int(d.max()) if d.numel() else 0)
+        a, b = a.reshape(-1), b.reshape(-1)
+        for i in range(0, a.numel(), chunk):
+            d = a[i : i + chunk].to(torch.int64) - b[i : i + chunk].to(torch.int64)
+            worst = max(worst, int(d.abs().max()))
     return worst
 
 
@@ -252,7 +288,16 @@ def launch_check(device) -> None:
     qargs = (*planes, fq, fr)
     # the same table twice, one level read in the split (q, r) = (4, 16)
     cargs = ([planes, planes], [cfg.r, cfg.r], fq >> 4, (fq & 15) << 12 | fr, 16)
-    checks = [
+    bidx = torch.cat([i32(fq) & 255, torch.full((9,), 2**31 - 1, device=device)])
+    bidx = bidx.to(torch.int32)
+    bcells = bloom_block.bloom_count(bidx, 256)
+    pidx = (fq.reshape(-1, 4) & 255).to(torch.int32)
+    probes = [
+        ((bloom_block.bloom_probe(c, pidx),), (bloom_block.bloom_probe_plain(c, pidx),))
+        for c in ((bcells > 1).to(torch.uint8), (bcells - 1).to(torch.int16))
+    ]
+    checks = probes + [
+        ((bcells,), (bloom_block.bloom_count_plain(bidx, 256),)),
         (planes, qf_build.build_planes_plain(*args)),
         ((qf_probe.qf_probe(*qargs),), (qf_probe.probe_plain(*qargs),)),
         (
@@ -393,8 +438,10 @@ def drive(name, spec, keys, checkpoints):
     """Ingest ``keys`` in ``BATCHES`` batches through the façade, probing on the way.
 
     ``checkpoints`` maps a number of batches ingested to the key sets
-    probed right after them.  Returns the config, the ingest wall time,
-    and per checkpoint ``(state, hits, probe ms)``.
+    probed right after them.  The probes' I/O is accounted on the probed
+    state, not on the one the ingest goes on with.  Returns the config,
+    the ingest wall time, per checkpoint ``(probed state, hits, probe
+    ms)``, and the state after the last batch.
     """
     cfg, state = filters.make(name, **spec)
     step = keys.shape[0] // BATCHES
@@ -406,13 +453,13 @@ def drive(name, spec, keys, checkpoints):
         torch.cuda.synchronize()
         ingest_s += time.perf_counter() - t0
         if b + 1 in checkpoints:
-            hits, probe_ms = [], []
+            probed, hits, probe_ms = state, [], []
             for probes in checkpoints[b + 1]:
-                state, hit, ms = timed_probe(cfg, state, probes)
+                probed, hit, ms = timed_probe(cfg, probed, probes)
                 hits.append(hit)
                 probe_ms.append(ms)
-            out[b + 1] = (state, hits, probe_ms)
-    return cfg, ingest_s, out
+            out[b + 1] = (probed, hits, probe_ms)
+    return cfg, ingest_s, out, state
 
 
 def union_bound(cfg, state) -> float:
@@ -438,6 +485,195 @@ def fresh_keys(rng, inserted_sorted, n, device):
     return torch.cat(out)[:n]
 
 
+# ---------------------------------------------------------------------------
+# phases 5 to 7: the Bloom families and the paper's Bloom baselines
+# ---------------------------------------------------------------------------
+
+
+def bloom_m_bits(n_total: int) -> int:
+    """bench_ssd's Bloom size: n * k / ln 2 bits."""
+    return int(n_total * BLOOM_K / np.log(2))
+
+
+def bloom_specs(n_total: int, backend: str) -> dict:
+    """The three Bloom structures of phase 5, as (family, spec) by label."""
+    base = dict(m_bits=bloom_m_bits(n_total), k=BLOOM_K, backend=backend)
+    blocked = dict(base, block_bits=BLOCK_BITS)
+    return {
+        "bloom": ("bloom", base),
+        "blocked_bloom": ("blocked_bloom", blocked),
+        "counting blocked_bloom": ("blocked_bloom", dict(blocked, counting=True)),
+    }
+
+
+def bloom_fp_bound(n: int, cells: int) -> float:
+    """The classic Bloom false-positive rate (1 - e**(-k n / m))**k."""
+    return (1 - math.exp(-BLOOM_K * n / cells)) ** BLOOM_K
+
+
+def drive_bloom(backend: str, keys, probes):
+    """Ingest ``keys`` into the three Bloom structures, probe them once,
+    then delete the first ``DELETED_BATCHES`` batches from the counting one.
+
+    Returns per label ``(cfg, state, hits, probe ms, ingest s)`` and the
+    counting structure's state after the deletes.
+    """
+    out = {}
+    for label, (name, spec) in bloom_specs(keys.shape[0], backend).items():
+        cfg, ingest_s, probed, state = drive(name, spec, keys, {BATCHES: (probes,)})
+        _, (hit,), (ms,) = probed[BATCHES]
+        out[label] = (cfg, state, hit, ms, ingest_s)
+    cfg, state = out["counting blocked_bloom"][:2]
+    step = keys.shape[0] // BATCHES
+    for b in range(DELETED_BATCHES):
+        state = filters.delete(cfg, state, keys[b * step : (b + 1) * step])
+    return out, state
+
+
+def check_deleted(cfg, state, keys) -> None:
+    """Every key of the batches not deleted still hits, and ``n`` counts them."""
+    step = keys.shape[0] // BATCHES
+    for b in range(DELETED_BATCHES, BATCHES):
+        batch = keys[b * step : (b + 1) * step]
+        if not bool(filters.contains(cfg, state, batch).all()):
+            raise AssertionError(f"counting blocked_bloom lost a key of batch {b}")
+    want = (BATCHES - DELETED_BATCHES) * step
+    if int(state.n) != want:
+        raise AssertionError(f"counting blocked_bloom: n = {int(state.n)} != {want}")
+
+
+def check_bloom_count(keys):
+    """bloom_count on one batch's indices into the classic Bloom plane.
+
+    The batch's last sixteenth is masked (``k=`` shorter than the
+    batch), so its indices are INT32_MAX and must count nothing.
+    """
+    cfg = bloom_filter.BloomFilterConfig(m_bits=bloom_m_bits(keys.shape[0]), k=BLOOM_K)
+    batch = keys[: keys.shape[0] // BATCHES]
+    valid_keys = batch.shape[0] * 15 // 16
+    idx = bloom_filter._masked(bloom_filter._indices(cfg, batch), batch, valid_keys)
+    idx = idx.reshape(-1)
+    ncells = cfg.m_bits
+    got = bloom_block.bloom_count(idx, ncells)
+    err = max_abs_err([got], [bloom_block.bloom_count_plain(idx, ncells)])
+    if int(got.sum()) != valid_keys * BLOOM_K:
+        raise AssertionError("bloom_count: masked indices were counted")
+    del got
+    ms = cuda_ms(lambda: bloom_block.bloom_count(idx, ncells), 10)
+    plain_ms = cuda_ms(lambda: bloom_block.bloom_count_plain(idx, ncells), 3)
+    valid = idx[idx != 2**31 - 1]
+    library_ms = cuda_ms(lambda: torch.bincount(valid, minlength=ncells), 3)
+    log(
+        f"  bloom_count checked: {idx.numel()} indices ({valid.numel()} valid) "
+        f"into {ncells} cells"
+    )
+    bound_bytes = 4 * idx.numel() + 4 * ncells  # indices read, counts written
+    return kernel_row(
+        "bloom_count", "bloom_count.cu", "src/repro/kernels/bloom_block.py:160",
+        err, ms, plain_ms, bound_bytes, library_ms,
+    )
+
+
+def check_bloom_probe(structs, probes):
+    """bloom_probe on the ingested plain and counting ``blocked_bloom`` states.
+
+    The row carries the plain (uint8) state's times and bound; the
+    counting (int16) state's are logged beside them.  A query reads its
+    indices and cells only up to its first empty cell, so the bound
+    counts the reads these queries need.
+    """
+    err, times = 0, {}
+    for label in ("blocked_bloom", "counting blocked_bloom"):
+        cfg, state = structs[label][:2]
+        idx = bloom_filter._indices(cfg, probes)
+        cells = state.cells
+        got = bloom_block.bloom_probe(cells, idx)
+        err = max(err, max_abs_err([got], [bloom_block.bloom_probe_plain(cells, idx)]))
+        if not bool(got[: probes.shape[0] // 2].all()):
+            raise AssertionError(f"bloom_probe: {label} lost an inserted key")
+        ms = cuda_ms(lambda: bloom_block.bloom_probe(cells, idx), 20)
+        plain_ms = cuda_ms(lambda: bloom_block.bloom_probe_plain(cells, idx), 3)
+        # a query stops at its first empty cell: the indices and cells read
+        # up to there, in the cells' width, and one byte out
+        reads = int(bloom.first_zero_probes(cells[idx.to(torch.int64)] != 0).sum())
+        bound = reads * (4 + cells.element_size()) + idx.shape[0]
+        times[label] = (ms, plain_ms, bound)
+        log(
+            f"  bloom_probe on {label} ({cells.dtype}): {ms:.5f} ms, plain "
+            f"{plain_ms:.5f} ms, bound {bound / H100_BYTES_PER_S * 1e3:.6f} ms"
+        )
+    ms, plain_ms, bound = times["blocked_bloom"]
+    return kernel_row(
+        "bloom_probe", "bloom_probe.cu", "src/repro/kernels/bloom_block.py:96",
+        err, ms, plain_ms, bound, None,
+    )
+
+
+def baseline_makers(n_total: int, device) -> dict:
+    """bench_ssd's ``_mk_structs`` Bloom baselines at ratio ``RATIO``."""
+    m_bits = bloom_m_bits(n_total)
+    ram_bits = m_bits // RATIO
+    cfg = bloom.BloomConfig(m_bits=m_bits, k=BLOOM_K)
+    return {
+        "ebf": lambda: bf_variants.ElevatorBloomFilter(
+            cfg, buffer_capacity_bits=ram_bits // 64, device=device
+        ),
+        "bbf": lambda: bf_variants.BufferedBloomFilter(
+            cfg, ram_bytes=ram_bits // 8, block_bytes=4096 * 8, page_bytes=512,
+            device=device,
+        ),
+        "fbf": lambda: bf_variants.ForestBloomFilter(
+            bits_per_element=BLOOM_K / np.log(2), ram_bytes=ram_bits // 8,
+            total_elements=n_total, device=device,
+        ),
+    }
+
+
+def baseline_io(struct, keys, lookups):
+    """Ingest a baseline as bench_ssd does; its I/O logs and ingest time.
+
+    Returns ``((ingest, uniform lookups, hit lookups) logs, ingest s)``.
+    """
+    step = keys.shape[0] // BATCHES
+    ingest_s = 0.0
+    for b in range(BATCHES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        struct.insert(keys[b * step : (b + 1) * step])
+        torch.cuda.synchronize()
+        ingest_s += time.perf_counter() - t0
+    ingest = struct.io.snapshot()
+    uniform, hits = lookups
+    struct.lookup(uniform)
+    mid = struct.io.snapshot()
+    if not bool(struct.lookup(hits).all()):
+        raise AssertionError(f"{type(struct).__name__}: false negative")
+    return (ingest, mid.delta(ingest), struct.io.snapshot().delta(mid)), ingest_s
+
+
+def qf_io(cfg, state, lookups):
+    """The same logs for a QF structure of phase 3, from its ``IOCounters``."""
+    uniform, hits = lookups
+    ingest = filters.to_iolog(state.io)
+    state, _ = filters.probe(cfg, state, uniform)
+    mid = filters.to_iolog(state.io)
+    state, hit = filters.probe(cfg, state, hits)
+    if not bool(hit.all()):
+        raise AssertionError(f"{type(cfg).__name__}: false negative")
+    return ingest, mid.delta(ingest), filters.to_iolog(state.io).delta(mid)
+
+
+def modeled_ops(n_total: int, logs) -> dict:
+    """bench_ssd's modeled ops/s on the paper's SSD from the three logs."""
+    ingest, uniform, hits = logs
+    rate = lambda n, io: cost_model.modeled_throughput(n, io, cost_model.PAPER_SSD)
+    return {
+        "insert": rate(n_total, ingest),
+        "lookup_uniform": rate(PAPER_LOOKUPS, uniform),
+        "lookup_hit": rate(PAPER_LOOKUPS, hits),
+    }
+
+
 def differing_fields(a, b) -> list:
     """Names of the state fields that differ between two states."""
     la, lb = list(filters._leaves(a)), list(filters._leaves(b))
@@ -454,11 +690,16 @@ def main(device: str = "cuda") -> int:
         print("chip_smoke.py: no CUDA device is available", file=sys.stderr)
         return 1
     device = torch.device(device)
-    kernels = {
+    qf_kernels = {
         "qf_build_planes": qf_build.qf_build_planes,
         "qf_probe": qf_probe.qf_probe,
         "cascade_probe": cascade_probe.cascade_probe,
     }
+    bloom_kernels = {
+        "bloom_count": bloom_block.bloom_count,
+        "bloom_probe": bloom_block.bloom_probe,
+    }
+    kernels = {**qf_kernels, **bloom_kernels}
     phase_s = {}
     log(f"card: {card_line()}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
@@ -498,12 +739,23 @@ def main(device: str = "cuda") -> int:
     mid_pick = torch.from_numpy(rng.integers(0, mid_total, PROBES)).to(device)
     mid_sample = keys[mid_pick]
     checkpoints = {MID_BATCHES: (mid_sample, fresh), BATCHES: (sample, fresh)}
+    # bench_ssd's lookup sets for the modeled SSD numbers of phase 7
+    rng_paper = np.random.default_rng(SEED + 3)
+    uniform = rng_paper.integers(2**31, 2**32, PAPER_LOOKUPS).astype(np.uint32)
+    pick = torch.from_numpy(rng_paper.integers(0, n_total, PAPER_LOOKUPS))
+    paper_lookups = (
+        torch.from_numpy(uniform.view(np.int32)).to(device),
+        keys[pick.to(device)],
+    )
+    paper_logs = {}
     for k in kernels.values():
         k.launches = 0
     results = {}
     for name, spec in specs("pallas").items():
-        cfg, ingest_s, out = drive(name, spec, keys, checkpoints)
+        cfg, ingest_s, out, final = drive(name, spec, keys, checkpoints)
         results[name] = (cfg, out)
+        paper_logs[name] = qf_io(cfg, final, paper_lookups)
+        del final
         log(
             f"phase main {name}: {n_total} keys ingested at "
             f"{n_total / ingest_s:.0f} keys/s ({ingest_s:.3f} s of wall time "
@@ -531,7 +783,7 @@ def main(device: str = "cuda") -> int:
                 raise AssertionError(f"{name}: fp rate {fp_rate} > 2 x {bound}")
             if overflow:
                 raise AssertionError(f"{name}: overflow")
-    launches = {n: k.launches for n, k in kernels.items()}
+    launches = {n: k.launches for n, k in qf_kernels.items()}
     log(f"  main-path launches: {launches}")
     for n, c in launches.items():
         if c <= 0:
@@ -551,7 +803,7 @@ def main(device: str = "cuda") -> int:
     # 4. the reference backend on the same stream
     t0 = time.perf_counter()
     for name, spec in specs("reference").items():
-        _, ingest_s, out = drive(name, spec, keys, checkpoints)
+        _, ingest_s, out, _ = drive(name, spec, keys, checkpoints)
         _, k_out = results.pop(name)
         for batches, (state, hits, probe_ms) in out.items():
             k_state, k_hits, _ = k_out[batches]
@@ -572,12 +824,107 @@ def main(device: str = "cuda") -> int:
         torch.cuda.empty_cache()
     phase_s["backends"] = time.perf_counter() - t0
 
-    # 5. report
+    # 5. the Bloom families at bench_ssd's geometry, through both kernels
+    t0 = time.perf_counter()
+    probes = torch.cat([sample, fresh])  # half inserted keys, half fresh
+    for k in kernels.values():
+        k.launches = 0
+    blooms, deleted = drive_bloom("pallas", keys, probes)
+    check_deleted(blooms["counting blocked_bloom"][0], deleted, keys)
+    bloom_launches = {n: k.launches for n, k in bloom_kernels.items()}
+    log(f"  bloom-path launches: {bloom_launches}")
+    for n, c in bloom_launches.items():
+        if c <= 0:
+            raise AssertionError(f"{n} was not launched on the Bloom path")
+    launches.update(bloom_launches)
+    for label, (cfg, state, hit, ms, ingest_s) in blooms.items():
+        cells = state.cells.numel()
+        fp_rate = float(hit[PROBES:].float().mean())
+        bound = bloom_fp_bound(n_total, cells)
+        st = filters.stats(cfg, state)
+        stats = {k: v.tolist() if torch.is_tensor(v) else v for k, v in st.items()}
+        log(
+            f"phase bloom {label}: {n_total} keys into {cells} cells at "
+            f"{n_total / ingest_s:.0f} keys/s ({ingest_s:.3f} s of wall time "
+            f"around the insert calls); {2 * PROBES} probes in {ms:.5f} ms, "
+            f"{2 * PROBES / ms * 1e3:.0f} q/s (median of {PROBE_REPS} calls by "
+            f"CUDA events); fp rate {fp_rate:.4e} (2 x bound {2 * bound:.4e}); "
+            f"stats {json.dumps(stats)}"
+        )
+        if not bool(hit[:PROBES].all()):
+            raise AssertionError(f"{label}: false negative among inserted keys")
+        if fp_rate > 2 * bound:
+            raise AssertionError(f"{label}: fp rate {fp_rate} > 2 x {bound}")
+    log(
+        f"  counting blocked_bloom: the first {DELETED_BATCHES} batches deleted; "
+        f"every key of the other {BATCHES - DELETED_BATCHES} still hits, "
+        f"n = {int(deleted.n)}"
+    )
+    phase_s["bloom"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rows["bloom_count"] = check_bloom_count(keys)
+    rows["bloom_probe"] = check_bloom_probe(blooms, probes)
+    phase_s["kernels"] += time.perf_counter() - t0
+
+    # 6. the Bloom families under the reference backend
+    t0 = time.perf_counter()
+    ref_blooms, ref_deleted = drive_bloom("reference", keys, probes)
+    for label in blooms:
+        _, k_state, k_hit, *_ = blooms[label]
+        _, r_state, r_hit, *_ = ref_blooms[label]
+        diff = differing_fields(k_state, r_state)
+        if diff or not torch.equal(k_hit, r_hit):
+            raise AssertionError(f"{label}: backends differ in {diff or 'hits'}")
+    diff = differing_fields(deleted, ref_deleted)
+    if diff:
+        raise AssertionError(f"counting blocked_bloom deletes: backends differ: {diff}")
+    log(
+        "phase bloom backends: reference equals pallas (cells, n, hits) for "
+        f"{', '.join(blooms)}, and after the deletes; reference ingest "
+        + ", ".join(f"{lb} {n_total / r[4]:.0f} keys/s" for lb, r in ref_blooms.items())
+    )
+    del blooms, deleted, ref_blooms, ref_deleted, k_state, r_state
+    torch.cuda.empty_cache()
+    phase_s["bloom_backends"] = time.perf_counter() - t0
+
+    # 7. the paper's Bloom baselines, and the modeled SSD numbers of all five
+    t0 = time.perf_counter()
+    names = {"cascade": "cf", "buffered_qf": "bqf"}
+    modeled = {names[n]: modeled_ops(n_total, logs) for n, logs in paper_logs.items()}
+    card_keys_per_s = {}
+    for name, make in baseline_makers(n_total, device).items():
+        logs, ingest_s = baseline_io(make(), keys, paper_lookups)
+        modeled[name] = modeled_ops(n_total, logs)
+        card_keys_per_s[name] = n_total / ingest_s
+        log(f"  {name}: ingest log {vars(logs[0])}")
+        torch.cuda.empty_cache()
+    bfs = ("ebf", "bbf", "fbf")
+    best_bf = max(modeled[n]["insert"] for n in bfs)
+    vs_best_bf = {n: modeled[n]["insert"] / best_bf for n in ("cf", "bqf")}
+    vs_each_bf = {
+        n: {b: modeled[n]["insert"] / modeled[b]["insert"] for b in bfs}
+        for n in ("cf", "bqf")
+    }
+    log(
+        "baselines: "
+        + json.dumps(
+            {
+                "modeled_ops_per_s": modeled,
+                "vs_best_bf": vs_best_bf,
+                "vs_each_bf": vs_each_bf,
+                "card_ingest_keys_per_s": card_keys_per_s,
+            }
+        )
+    )
+    phase_s["baselines"] = time.perf_counter() - t0
+
+    # 8. report
     for n, row in rows.items():
         row["launches"] = launches[n]
         if row["max_abs_err"] != 0:
             raise AssertionError(f"{n} disagrees with its plain version")
     log("phase seconds: " + json.dumps({k: round(v, 3) for k, v in phase_s.items()}))
+    log(f"peak device memory allocated: {torch.cuda.max_memory_allocated()} bytes")
     log(json.dumps({"kernels": list(rows.values())}))
     log(card_line())
     device_info = {

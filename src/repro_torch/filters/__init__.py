@@ -4,6 +4,10 @@ Registry name -> implementation -> paper section:
 
 ========================  =======================================================
 ``"qf"``                  Quotient filter (§3): insert, may-contain, delete, merge.
+``"bloom"``               Bloom filter baseline (§2); ``counting=True`` gives the
+                          counting variant [3] with delete + additive merge.
+``"blocked_bloom"``       Hash-localized Bloom filter (§2, buffered BF of Canim
+                          et al.): all k probes in one block/page.
 ``"buffered_qf"``         Buffered quotient filter (§4): RAM QF buffer flushed
                           into a large flash QF by one streaming merge.
 ``"cascade"``             Cascade filter (§4): COLA-style geometric hierarchy of
@@ -23,7 +27,8 @@ The spec dictionaries are those of ``repro.filters``.  ``make`` puts the
 state on the CUDA device unless it is given ``device="cpu"``, and raises
 without a card.  ``backend="pallas"`` runs the port's CUDA kernels on
 card state.  :func:`from_numpy` and :func:`to_numpy` carry a state
-across from the JAX package and back as its pytree leaves.
+across from the JAX package and back as its pytree leaves: ``rem``
+planes as uint32, counting Bloom cells (int16 here) as uint16.
 """
 
 from __future__ import annotations
@@ -32,7 +37,13 @@ import numpy as np
 import torch
 
 from ..core import quotient_filter as qf
-from . import buffered, cascade, iostats, qf_filter  # noqa: F401 (registration)
+from . import (  # noqa: F401 (registration)
+    bloom_filter,
+    buffered,
+    cascade,
+    iostats,
+    qf_filter,
+)
 from .iostats import IOCounters, to_iolog
 from .registry import FilterImpl, UnsupportedOpError, by_cfg, by_name, names, register
 
@@ -66,10 +77,13 @@ def _leaves(state, name=""):
             yield from _leaves(value, name)
 
 
+def _device(state) -> torch.device:
+    return next(_leaves(state))[1].device
+
+
 def _keys(state, keys) -> torch.Tensor:
     """Keys as a tensor on the state's device (numpy arrays are copied there)."""
-    _, leaf = next(_leaves(state))
-    return torch.as_tensor(keys, device=leaf.device)
+    return torch.as_tensor(keys, device=_device(state))
 
 
 def make(name: str, device=None, **spec):
@@ -111,18 +125,40 @@ def stats(cfg, state) -> dict:
     return by_cfg(cfg).stats(cfg, state)
 
 
+def needs_resize(cfg, state):
+    """Is the filter at or over its design capacity?  A bool scalar tensor.
+
+    Filters without a resize binding report a constant False.
+    """
+    impl = by_cfg(cfg)
+    if impl.needs_resize is None:
+        return torch.zeros((), dtype=torch.bool, device=_device(state))
+    return impl.needs_resize(cfg, state)
+
+
+def needs_shrink(cfg, state):
+    """Is the filter far enough under its low watermark to halve?  A bool scalar.
+
+    Filters without a shrink binding report a constant False.
+    """
+    impl = by_cfg(cfg)
+    if impl.needs_shrink is None:
+        return torch.zeros((), dtype=torch.bool, device=_device(state))
+    return impl.needs_shrink(cfg, state)
+
+
 def grow(cfg, state):
-    """One doubling step (raises :class:`UnsupportedOpError` until ported)."""
+    """One doubling step (:class:`UnsupportedOpError` for a family without one)."""
     return by_cfg(cfg).require("grow")(cfg, state)
 
 
 def resize(cfg, state, **kw):
-    """Structural resize (raises :class:`UnsupportedOpError` until ported)."""
+    """Structural resize (:class:`UnsupportedOpError` for a family without one)."""
     return by_cfg(cfg).require("resize")(cfg, state, **kw)
 
 
 def shrink(cfg, state):
-    """One halving step (raises :class:`UnsupportedOpError` until ported)."""
+    """One halving step (:class:`UnsupportedOpError` for a family without one)."""
     return by_cfg(cfg).require("shrink")(cfg, state)
 
 
@@ -140,18 +176,31 @@ def supports(name_or_cfg, op: str) -> bool:
     return getattr(impl, op) is not None
 
 
+def _jax_dtype(name: str, dtype: np.dtype) -> np.dtype:
+    """The dtype of the JAX package's leaf that the port holds in ``dtype``.
+
+    The port keeps unsigned leaves as signed bit patterns: ``rem`` planes
+    (uint32) as int32 and counting Bloom cells (uint16) as int16.
+    """
+    if name == "rem" and dtype == np.int32:
+        return np.dtype(np.uint32)
+    if dtype == np.int16:
+        return np.dtype(np.uint16)
+    return np.dtype(dtype)
+
+
 def to_numpy(cfg, state) -> list:
     """The state as the JAX package's pytree leaves, as numpy arrays.
 
-    ``rem`` planes come back as uint32, every other leaf in its dtype;
-    ``jax.tree_util.tree_unflatten`` of the JAX state's treedef over
-    this list rebuilds the JAX state.
+    ``rem`` planes come back as uint32, counting Bloom cells as uint16,
+    every other leaf in its dtype; ``jax.tree_util.tree_unflatten`` of
+    the JAX state's treedef over this list rebuilds the JAX state.
     """
     by_cfg(cfg)  # a registered config
     out = []
     for name, t in _leaves(state):
         a = t.detach().cpu().numpy()
-        out.append(a.view(np.uint32) if name == "rem" else a)
+        out.append(a.view(_jax_dtype(name, a.dtype)))
     return out
 
 
@@ -160,7 +209,7 @@ def from_numpy(cfg, leaves, device=None):
 
     The inverse of :func:`to_numpy`: each leaf must have the dtype and
     shape of the matching field of ``make``'s state for ``cfg`` (``rem``
-    as uint32).
+    as uint32, counting Bloom cells as uint16).
     """
     device = qf.resolve_device(device)
     _, template = by_cfg(cfg).make(device="meta", **cfg._asdict())  # no memory
@@ -171,10 +220,12 @@ def from_numpy(cfg, leaves, device=None):
     tensors = []
     for (name, like), a in zip(fields, leaves):
         a = np.array(a, order="C")  # a private, writable copy
-        if name == "rem":
-            if a.dtype != np.uint32:
-                raise TypeError(f"rem leaf must be uint32, got {a.dtype}")
-            a = a.view(np.int32)
+        held = torch.empty(0, dtype=like.dtype).numpy().dtype
+        wire = _jax_dtype(name, held)
+        if wire != held:
+            if a.dtype != wire:
+                raise TypeError(f"{name} leaf must be {wire}, got {a.dtype}")
+            a = a.view(held)
         t = torch.from_numpy(a)
         if t.dtype != like.dtype or t.shape != like.shape:
             raise ValueError(
@@ -209,6 +260,8 @@ __all__ = [
     "make",
     "merge",
     "names",
+    "needs_resize",
+    "needs_shrink",
     "probe",
     "register",
     "resize",

@@ -1,17 +1,19 @@
 """Kernel-path wrappers binding the CUDA kernels to the filter states.
 
-The port of the main-path wrappers of ``repro.kernels.ops``:
-``build_sorted``, ``lookup``/``contains`` and ``cascade_lookup`` (its
-unfrozen part).  Each runs its kernel for CUDA state and the kernel's
-plain PyTorch version for CPU state (:mod:`.dispatch`), and each
-returns exactly what the plain ``repro_torch.core.quotient_filter`` path
-returns.
+The port of the wrappers of ``repro.kernels.ops``: ``build_sorted``,
+``lookup``/``contains``, ``cascade_lookup`` (its unfrozen part), and
+the Bloom families' ``bloom_counts`` and ``bloom_probe``.  Each runs
+its kernel for CUDA state and the kernel's plain PyTorch version for
+CPU state (:mod:`.dispatch`), and each returns exactly what the plain
+path of ``repro_torch.core`` returns.
 
 The JAX wrappers settled window overflows with a ``lax.cond`` on
 ``any(ovf)``; here the probe kernels walk whole clusters, so there is
-nothing to settle and no host sync on a probe.  The kernels take int32
-fingerprints, as the TPU kernels did; the wrappers narrow the int64
-streams of ``core`` to them.
+nothing to settle and no host sync on a probe.  The Bloom kernels take
+indices in any order, so the JAX wrappers' sorts, un-permutes and
+overflow recounts have no counterpart either.  The kernels take int32
+fingerprints and indices, as the TPU kernels did; the wrappers narrow
+the int64 streams of ``core`` to them.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 
 from ..core import fuse_filter as ffc
 from ..core import quotient_filter as qf
+from . import bloom_block
 from .cascade_probe import cascade_probe
 from .qf_build import qf_build_planes
 from .qf_probe import qf_probe
@@ -85,3 +88,18 @@ def cascade_lookup(qf_cfgs, qf_states, keys):
     return tuple(
         (s.n > 0) & (((hitm >> lvl) & 1) > 0) for lvl, s in enumerate(qf_states)
     )
+
+
+def bloom_counts(idx_flat, ncells: int) -> torch.Tensor:
+    """Aggregate a flat batch of int32 cell indices into an int32 counts plane.
+
+    The Bloom families' write-side primitive: insert is ``cells + counts``
+    (counting) or ``cells | (counts > 0)`` (plain), delete is
+    ``cells - counts``.  Out-of-range indices (masked keys) drop.
+    """
+    return bloom_block.bloom_count(idx_flat, ncells)
+
+
+def bloom_probe(cells, idx) -> torch.Tensor:
+    """AND-of-k membership over a cell plane for int32 (B, k) cell indices."""
+    return bloom_block.bloom_probe(cells, idx)

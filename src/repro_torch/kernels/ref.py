@@ -85,3 +85,25 @@ def cascade_probe_ref(level_planes, fq_levels, fr_levels, window: int):
         hit = hit | (p.to(torch.int32) << lvl)
         ovf = ovf | (o.to(torch.int32) << lvl)
     return hit, ovf
+
+
+def bloom_probe_ref(cells, idx):
+    """Blocked-Bloom membership oracle: AND of k direct gathers.
+
+    cells: (ncells,) cell plane (any integer type); idx: int32 (B, k)
+    cell indices.  Returns present bool (B,).
+    """
+    return (cells[idx.to(torch.int64)] != 0).all(1)
+
+
+def bloom_count_ref(idx_flat, ncells: int):
+    """Per-cell increment counts from flat cell indices.
+
+    Sentinel / out-of-range indices (e.g. INT32_MAX for masked keys)
+    contribute nothing.  Returns int32 (ncells,).
+    """
+    t = ncells
+    out = torch.zeros(t + 1, dtype=torch.int32, device=idx_flat.device)
+    idx = torch.where((idx_flat >= 0) & (idx_flat < t), idx_flat.to(torch.int64), t)
+    out.index_put_((idx,), torch.ones_like(idx, dtype=torch.int32), accumulate=True)
+    return out[:t]

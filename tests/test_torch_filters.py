@@ -171,7 +171,7 @@ def test_unported_ops_raise_structured_errors():
     assert tf.supports(cfg, "delete") and tf.supports("cascade", "probe")
     with pytest.raises(ValueError):
         tf.supports("qf", "grwo")
-    assert tf.names() == ("buffered_qf", "cascade", "qf")
+    assert tf.names() == ("blocked_bloom", "bloom", "buffered_qf", "cascade", "qf")
 
 
 def test_pallas_backend_keeps_remainder_limit():

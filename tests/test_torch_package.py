@@ -19,7 +19,9 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
     code = (
         "import sys\n"
         "import repro_torch, repro_torch.filters, repro_torch.kernels.ops\n"
-        "import repro_torch.kernels.cuda_lib\n"
+        "import repro_torch.kernels.cuda_lib, repro_torch.kernels.bloom_block\n"
+        "import repro_torch.core.bloom, repro_torch.core.bf_variants\n"
+        "import repro_torch.filters.bloom_filter\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))\n"
         "assert not bad, bad\n"
     )
@@ -27,18 +29,46 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
     subprocess.run([sys.executable, "-c", code], check=True, env=env, timeout=120)
 
 
-@pytest.mark.parametrize("name", ["qf", "buffered_qf", "cascade"])
+@pytest.mark.parametrize(
+    "name", ["qf", "buffered_qf", "cascade", "bloom", "blocked_bloom"]
+)
 def test_make_without_a_device_needs_a_card(name, monkeypatch):
     spec = {
         "qf": dict(q=6, r=8),
         "buffered_qf": dict(ram_q=5, disk_q=7, p=20),
         "cascade": dict(ram_q=5, p=20, levels=2),
+        "bloom": dict(m_bits=500, k=3, counting=True),
+        "blocked_bloom": dict(m_bits=1024, k=3, block_bits=256),
     }[name]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tf.make(name, **spec)
     cfg, state = tf.make(name, device="cpu", **spec)
     assert {str(t.device) for _, t in tf._leaves(state)} == {"cpu"}
+
+
+@pytest.mark.parametrize("name", ["ebf", "bbf", "fbf"])
+def test_baselines_without_a_device_need_a_card(name, monkeypatch):
+    from repro_torch.core import bf_variants as bf
+    from repro_torch.core import bloom
+
+    make = {
+        "ebf": lambda **d: bf.ElevatorBloomFilter(
+            bloom.BloomConfig(m_bits=4096, k=3), buffer_capacity_bits=64, **d
+        ),
+        "bbf": lambda **d: bf.BufferedBloomFilter(
+            bloom.BloomConfig(m_bits=4096, k=3), ram_bytes=256, block_bytes=64, **d
+        ),
+        "fbf": lambda **d: bf.ForestBloomFilter(
+            bits_per_element=8, ram_bytes=64, total_elements=100, **d
+        ),
+    }[name]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make()
+    struct = make(device="cpu")
+    struct.insert(np.arange(50, dtype=np.uint32))
+    assert bool(struct.lookup(np.arange(50, dtype=np.uint32)).all())
 
 
 def test_empty_without_a_device_needs_a_card(monkeypatch):
