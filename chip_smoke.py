@@ -7,7 +7,7 @@ Run from the repository root with no arguments::
 
 Phases, each timed, any failure fatal (a traceback and exit code 1):
 
-1. build    nvcc builds the five CUDA kernels from ``src/repro_torch/csrc``;
+1. build    nvcc builds the six CUDA kernels from ``src/repro_torch/csrc``;
             each is launched once on a small filter against its plain version.
 2. kernels  each kernel against its plain PyTorch version on the card, bit
             for bit, at the main path's shapes (a q = 24 build of 12.6 M
@@ -50,7 +50,27 @@ Phases, each timed, any failure fatal (a traceback and exit code 1):
             successful lookup ops/s from each ``IOLog`` and the paper's SSD
             constants, with the cascade's and the buffered QF's insert
             speed-up over the best Bloom variant (the paper: 8.6-11x).
-8. report   one JSON line of per-kernel results, then the card's name and
+8. frozen   the same 50,331,648 keys into
+            ``cascade(ram_q=24, p=39, fanout=2, levels=3, frozen_below=1)``
+            under ``backend="pallas"``: bench_ssd's 1:4 experiment with the
+            cold tier demoted as ``bench_xor_fuse.py`` does it.  Level 1
+            is a binary-fuse table with 14-bit cells (levels=3: a frozen
+            level 3 would need 2**15 segments); batch 48's merge-down
+            peels 37,748,736 fingerprints into it.  At both checkpoints no
+            false negative, and an fp rate at most twice the bound (the QF
+            union bound plus 2**-fp_bits per non-empty frozen level: the
+            first fp check of the QF side that can fail).  Each freeze's
+            rounds, seed attempts and host reads are printed.  Then the
+            ``xor_fuse`` family on its own: ``make(keys=...)`` at full load
+            on the first ``XF_KEYS`` keys, ``grow``, and ``merge`` with a
+            filter of the next ``XF_KEYS``; no overflow, no false negative,
+            fp rate at most twice 2**-14.  ``fuse_probe`` must have launched,
+            and is then held against its plain version on 2**22 queries.
+9. frozen backends  the frozen cascade's stream under ``backend="reference"``:
+            every level (fuse tables, runs, ``n``, ``n_unique``,
+            ``fuse_seed``, ``overflow``; QF planes), the I/O counters and the
+            hits equal to phase 8's at both checkpoints.
+10. report  one JSON line of per-kernel results, then the card's name and
             power limit, then the result line.
 
 The last line of standard output is the result,
@@ -79,7 +99,7 @@ try:
     from repro_torch.core import quotient_filter as qf
     from repro_torch.filters import bloom_filter
     from repro_torch.kernels import bloom_block, cascade_probe, cuda_lib, qf_build
-    from repro_torch.kernels import qf_probe
+    from repro_torch.kernels import fuse_probe, qf_probe
 except ModuleNotFoundError as e:  # run outside the repository
     if not (e.name or "").startswith("repro_torch"):
         raise
@@ -103,6 +123,13 @@ BLOOM_K = 12
 BLOCK_BITS = 4096 * 8 * 8
 DELETED_BATCHES = 8  # the counting filter deletes the first 8 batches
 PAPER_LOOKUPS = 2048  # bench_ssd's lookup sets
+
+# the frozen tier: at ram_q = 24 a frozen level 3 would need 2**15 fuse
+# segments or more, which the 32-bit start mix refuses, so levels = 3
+FROZEN_LEVELS = 3
+FROZEN_BELOW = 1  # bench_xor_fuse.py's value: level 1 frozen at load 0.75
+XF_KEYS = 1 << 23  # the standalone xor_fuse filter, built at full load
+XF_FP_BITS = 14  # level 1's cell width (cost_model.fuse_fp_bits_for(13))
 
 
 def log(*args) -> None:
@@ -292,11 +319,19 @@ def launch_check(device) -> None:
     bidx = bidx.to(torch.int32)
     bcells = bloom_block.bloom_count(bidx, 256)
     pidx = (fq.reshape(-1, 4) & 255).to(torch.int32)
+    # a small frozen filter (its peel runs on the card too), half its keys probed
+    fcfg = fuse.make_config(180, p=20)
+    fkeys = uint32_keys(np.random.default_rng(1), 360, device)
+    fstate = fuse.freeze_keys(fcfg, fkeys[:180])
+    fq2, fr2 = fuse.key_fingerprints(fcfg, fkeys)
+    fargs = (fstate.table, *map(i32, fuse.fuse_hash(fcfg, fq2, fr2, fstate.fuse_seed)))
+    fhit = fuse_probe.fuse_probe(*fargs)
     probes = [
         ((bloom_block.bloom_probe(c, pidx),), (bloom_block.bloom_probe_plain(c, pidx),))
         for c in ((bcells > 1).to(torch.uint8), (bcells - 1).to(torch.int16))
     ]
     checks = probes + [
+        ((fhit,), (fuse_probe.fuse_probe_plain(*fargs),)),
         ((bcells,), (bloom_block.bloom_count_plain(bidx, 256),)),
         (planes, qf_build.build_planes_plain(*args)),
         ((qf_probe.qf_probe(*qargs),), (qf_probe.probe_plain(*qargs),)),
@@ -309,6 +344,8 @@ def launch_check(device) -> None:
     for got, want in checks:
         if max_abs_err(got, want) != 0:
             raise AssertionError("a kernel disagrees with its plain version")
+    if not bool(fhit[:180].all()):
+        raise AssertionError("fuse_probe: a key of the small frozen filter was lost")
 
 
 def check_build(device):
@@ -434,14 +471,15 @@ def timed_probe(cfg, state, probes):
     return new_state, hit, statistics.median(times)
 
 
-def drive(name, spec, keys, checkpoints):
+def drive(name, spec, keys, checkpoints, on_batch=None):
     """Ingest ``keys`` in ``BATCHES`` batches through the façade, probing on the way.
 
     ``checkpoints`` maps a number of batches ingested to the key sets
     probed right after them.  The probes' I/O is accounted on the probed
-    state, not on the one the ingest goes on with.  Returns the config,
-    the ingest wall time, per checkpoint ``(probed state, hits, probe
-    ms)``, and the state after the last batch.
+    state, not on the one the ingest goes on with.  ``on_batch(b,
+    seconds)`` is called after each insert.  Returns the config, the
+    ingest wall time, per checkpoint ``(probed state, hits, probe ms)``,
+    and the state after the last batch.
     """
     cfg, state = filters.make(name, **spec)
     step = keys.shape[0] // BATCHES
@@ -451,7 +489,10 @@ def drive(name, spec, keys, checkpoints):
         t0 = time.perf_counter()
         state = filters.insert(cfg, state, keys[b * step : (b + 1) * step])
         torch.cuda.synchronize()
-        ingest_s += time.perf_counter() - t0
+        seconds = time.perf_counter() - t0
+        ingest_s += seconds
+        if on_batch is not None:
+            on_batch(b, seconds)
         if b + 1 in checkpoints:
             probed, hits, probe_ms = state, [], []
             for probes in checkpoints[b + 1]:
@@ -463,14 +504,22 @@ def drive(name, spec, keys, checkpoints):
 
 
 def union_bound(cfg, state) -> float:
-    """Sum over non-empty structures of n / 2**q * 2**-r: the fp-rate bound."""
+    """The fp-rate bound: a sum over the non-empty structures of
+    n / 2**q * 2**-r for a QF and 2**-fp_bits for a frozen level."""
     if hasattr(cfg, "q0_cfg"):
         parts = [(cfg.q0_cfg, state.q0)] + [
-            (cfg.level_cfg(i), s) for i, s in enumerate(state.levels)
+            (cfg.fuse_cfg(i) if cfg.is_frozen(i) else cfg.level_cfg(i), s)
+            for i, s in enumerate(state.levels)
         ]
     else:
         parts = [(cfg.ram, state.ram), (cfg.disk, state.disk)]
-    return sum(int(s.n) / 2**c.q * 2.0**-c.r for c, s in parts if int(s.n) > 0)
+
+    def rate(c, s):
+        if isinstance(c, fuse.FuseConfig):
+            return 2.0**-c.fp_bits
+        return int(s.n) / 2**c.q * 2.0**-c.r
+
+    return sum(rate(c, s) for c, s in parts if int(s.n) > 0)
 
 
 def fresh_keys(rng, inserted_sorted, n, device):
@@ -682,6 +731,138 @@ def differing_fields(a, b) -> list:
     return [na for (na, x), (_, y) in zip(la, lb) if not torch.equal(x, y)]
 
 
+# ---------------------------------------------------------------------------
+# phases 8 and 9: the frozen tier
+# ---------------------------------------------------------------------------
+
+
+def frozen_spec(backend: str) -> dict:
+    return dict(
+        ram_q=RAM_Q, p=P_BITS, fanout=2, levels=FROZEN_LEVELS,
+        frozen_below=FROZEN_BELOW, backend=backend,
+    )
+
+
+def peel_delta(before: dict) -> dict:
+    return {k: fuse.peel_counts[k] - before[k] for k in before}
+
+
+def freeze_watch():
+    """A ``drive`` callback that records each insert batch that ran a peel:
+    its batch, wall seconds, and the peel's attempts, rounds, host reads."""
+    freezes, last = [], dict(fuse.peel_counts)
+
+    def on_batch(b, seconds):
+        d = peel_delta(last)
+        if d["freezes"]:
+            freezes.append(dict(batch=b + 1, seconds=seconds, **d))
+        last.update(fuse.peel_counts)
+
+    return freezes, on_batch
+
+
+def drive_frozen(backend, keys, checkpoints):
+    """Phase 3's stream into the frozen cascade; ``drive``'s results and
+    the freezes it ran."""
+    freezes, on_batch = freeze_watch()
+    cfg, ingest_s, out, final = drive(
+        "cascade", frozen_spec(backend), keys, checkpoints, on_batch
+    )
+    return cfg, ingest_s, out, final, freezes
+
+
+def timed_host(fn):
+    """``fn()`` with the card synchronised around it: (result, wall s, peel delta)."""
+    before = dict(fuse.peel_counts)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, peel_delta(before)
+
+
+def check_xor_fuse(label, cfg, state, members, fresh) -> str:
+    """No overflow, no false negative, fp rate at most twice 2**-fp_bits."""
+    st = filters.stats(cfg, state)
+    if bool(st["overflow"]):
+        raise AssertionError(f"{label}: overflow (no seed peeled, or over capacity)")
+    if not bool(filters.contains(cfg, state, members).all()):
+        raise AssertionError(f"{label}: false negative")
+    fp_rate = float(filters.contains(cfg, state, fresh).float().mean())
+    bound = 2.0**-cfg.fp_bits
+    if fp_rate > 2 * bound:
+        raise AssertionError(f"{label}: fp rate {fp_rate} > 2 x {bound}")
+    return (
+        f"n {int(st['n'])}, n_unique {int(st['n_unique'])}, capacity "
+        f"{cfg.capacity}, {st['slots']} cells, {st['bits_per_key']:.4f} bits/key; "
+        f"fp rate {fp_rate:.4e} (2**-{cfg.fp_bits} = {bound:.4e})"
+    )
+
+
+def drive_xor_fuse(keys, fresh):
+    """The ``xor_fuse`` family on its own under ``backend="pallas"``: a
+    full-load ``make(keys=...)`` of the first ``XF_KEYS`` keys, ``grow``,
+    and ``merge`` with a filter of the next ``XF_KEYS`` keys."""
+    spec = dict(p=P_BITS, fp_bits=XF_FP_BITS, backend="pallas")
+    first, second = keys[:XF_KEYS], keys[XF_KEYS : 2 * XF_KEYS]
+    (cfg, state), s, d = timed_host(
+        lambda: filters.make("xor_fuse", keys=first, **spec)
+    )
+    log(
+        f"  xor_fuse make(keys=2**{XF_KEYS.bit_length() - 1}) at full load: "
+        f"{s:.3f} s, {d}"
+    )
+    log(f"    {check_xor_fuse('xor_fuse', cfg, state, first, fresh)}")
+    (gcfg, grown), s, d = timed_host(lambda: filters.grow(cfg, state))
+    log(f"  grow to capacity {gcfg.capacity}: {s:.3f} s, {d}")
+    ocfg, other = filters.make(
+        "xor_fuse", keys=second, capacity=gcfg.capacity, **spec
+    )
+    if ocfg != gcfg:
+        raise AssertionError(f"xor_fuse: {ocfg} != {gcfg}")
+    merged, s, d = timed_host(lambda: filters.merge(gcfg, grown, other))
+    log(f"  merge with the next {XF_KEYS} keys, at full load: {s:.3f} s, {d}")
+    both = keys[: 2 * XF_KEYS]
+    log(f"    {check_xor_fuse('merged xor_fuse', gcfg, merged, both, fresh)}")
+
+
+def check_fuse(device, cfg, state, keys):
+    """fuse_probe on level 1 of the frozen cascade, 2**22 queries: half
+    keys of the 48 batches it holds, half uniform keys."""
+    fc, level = cfg.fuse_cfg(FROZEN_BELOW), state.levels[FROZEN_BELOW]
+    held = keys.shape[0] // BATCHES * 48
+    rng = np.random.default_rng(SEED + 4)
+    half = PARITY_PROBES // 2
+    pick = torch.from_numpy(rng.integers(0, held, half)).to(device)
+    probes = torch.cat([keys[pick], uint32_keys(rng, half, device)])
+    fq, fr, _ = canonical_queries(cfg, probes)
+    args = (level.table, *map(i32, fuse.fuse_hash(fc, fq, fr, level.fuse_seed)))
+    got = fuse_probe.fuse_probe(*args)
+    err = max_abs_err([got], [fuse_probe.fuse_probe_plain(*args)])
+    if not bool(got[:half].all()):
+        raise AssertionError("fuse_probe: an inserted key was not found")
+    ms = cuda_ms(lambda: fuse_probe.fuse_probe(*args), 20)
+    plain_ms = cuda_ms(lambda: fuse_probe.fuse_probe_plain(*args), 5)
+    # the hash a frozen level's lookup runs before the kernel, in PyTorch
+    hash_ms = cuda_ms(lambda: fuse.fuse_hash(fc, fq, fr, level.fuse_seed), 5)
+    log(
+        f"  fuse_hash of the same {PARITY_PROBES} queries: {hash_ms:.5f} ms "
+        f"(the kernel: {ms:.5f} ms)"
+    )
+    log(
+        f"  fuse_probe checked on level 1's {level.table.numel()} cells "
+        f"({int(level.n)} fingerprints); {int(got[half:].sum())} of {half} "
+        "uniform keys hit"
+    )
+    # positions and fingerprint read (4 x 4 bytes), three int32 cells
+    # gathered, one byte written
+    bound_bytes = PARITY_PROBES * (16 + 12 + 1)
+    return kernel_row(
+        "fuse_probe", "fuse_probe.cu", "src/repro/kernels/fuse_probe.py:109",
+        err, ms, plain_ms, bound_bytes, None,
+    )
+
+
 def main(device: str = "cuda") -> int:
     if filters is None:
         print("chip_smoke.py: src/repro_torch is missing", file=sys.stderr)
@@ -699,7 +880,12 @@ def main(device: str = "cuda") -> int:
         "bloom_count": bloom_block.bloom_count,
         "bloom_probe": bloom_block.bloom_probe,
     }
-    kernels = {**qf_kernels, **bloom_kernels}
+    frozen_kernels = {
+        "qf_build_planes": qf_build.qf_build_planes,
+        "cascade_probe": cascade_probe.cascade_probe,
+        "fuse_probe": fuse_probe.fuse_probe,
+    }
+    kernels = {**qf_kernels, **bloom_kernels, **frozen_kernels}
     phase_s = {}
     log(f"card: {card_line()}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
@@ -918,7 +1104,88 @@ def main(device: str = "cuda") -> int:
     )
     phase_s["baselines"] = time.perf_counter() - t0
 
-    # 8. report
+    # 8. the frozen tier: the same stream into a cascade with level 1 frozen,
+    # then the xor_fuse family on its own
+    t0 = time.perf_counter()
+    for k in kernels.values():
+        k.launches = 0
+    cfg, ingest_s, f_out, f_final, freezes = drive_frozen("pallas", keys, checkpoints)
+    fc = cfg.fuse_cfg(FROZEN_BELOW)
+    qf_bytes = cfg.level_cfg(FROZEN_BELOW).size_bytes
+    log(
+        f"phase frozen cascade(levels={FROZEN_LEVELS}, frozen_below={FROZEN_BELOW}): "
+        f"{n_total} keys ingested at {n_total / ingest_s:.0f} keys/s "
+        f"({ingest_s:.3f} s of wall time around the insert calls); level 1 "
+        f"frozen: table {fc.size_bytes} B ({fc.fp_bits}-bit cells, "
+        f"{fc.segment_count} segments of {fc.segment_length}) + run {fc.run_bytes} B, "
+        f"against {qf_bytes} B for the QF level it replaces "
+        f"({1 - fc.size_bytes / qf_bytes:.4f} saved on the probe tier)"
+    )
+    for f in freezes:
+        log(f"  freeze after batch {f['batch']}: {json.dumps(f)}")
+    if not freezes:
+        raise AssertionError("frozen cascade: no merge-down peeled a frozen level")
+    for batches, (state, (hit, fp_hit), probe_ms) in f_out.items():
+        fp_rate = float(fp_hit.float().mean())
+        bound = union_bound(cfg, state)
+        st = filters.stats(cfg, state)
+        log(
+            f"  after {batches} batches: probes {PROBES / probe_ms[0] * 1e3:.0f} "
+            f"q/s (inserted), {PROBES / probe_ms[1] * 1e3:.0f} q/s (fresh), median "
+            f"of {PROBE_REPS} calls by CUDA events ({probe_ms[0]:.5f} and "
+            f"{probe_ms[1]:.5f} ms); fp rate {fp_rate:.4e} (bound {bound:.4e}); "
+            f"level counts {st['level_counts'].tolist()}; "
+            f"overflow {bool(st['overflow'])}"
+        )
+        log(f"  iolog: {vars(filters.to_iolog(state.io))}")
+        if not bool(hit.all()):
+            raise AssertionError("frozen cascade: false negative among inserted keys")
+        if fp_rate > 2 * bound:
+            raise AssertionError(f"frozen cascade: fp rate {fp_rate} > 2 x {bound}")
+        if bool(st["overflow"]):
+            raise AssertionError("frozen cascade: overflow")
+    drive_xor_fuse(keys, fresh)
+    frozen_launches = {n: k.launches for n, k in frozen_kernels.items()}
+    log(f"  frozen-path launches: {frozen_launches}")
+    for n, c in frozen_launches.items():
+        if c <= 0:
+            raise AssertionError(f"{n} was not launched on the frozen path")
+    launches["fuse_probe"] = frozen_launches["fuse_probe"]
+    phase_s["frozen"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rows["fuse_probe"] = check_fuse(device, cfg, f_final, keys)
+    del f_final
+    phase_s["kernels"] += time.perf_counter() - t0
+
+    # 9. the frozen cascade under the reference backend
+    t0 = time.perf_counter()
+    _, ingest_s, r_out, _, r_freezes = drive_frozen("reference", keys, checkpoints)
+    for batches, (state, hits, probe_ms) in r_out.items():
+        k_state, k_hits, _ = f_out[batches]
+        diff = differing_fields(k_state, state)
+        same_hits = all(torch.equal(a, b) for a, b in zip(hits, k_hits))
+        if diff or not same_hits:
+            raise AssertionError(
+                f"frozen cascade after {batches} batches: backends differ in "
+                f"{diff or 'hits'}"
+            )
+    strip = lambda fs: [{k: v for k, v in f.items() if k != "seconds"} for f in fs]
+    if strip(r_freezes) != strip(freezes):
+        raise AssertionError(
+            f"frozen cascade: the backends peeled differently: {r_freezes}"
+        )
+    log(
+        f"phase frozen backends: reference equals pallas after {MID_BATCHES} and "
+        f"{BATCHES} batches (fuse tables, runs, n, n_unique, fuse_seed, overflow, "
+        f"QF planes, io, hits) and ran the same peels; reference ingest "
+        f"{n_total / ingest_s:.0f} keys/s, probes {PROBES / probe_ms[0] * 1e3:.0f} "
+        f"q/s (inserted, {BATCHES} batches)"
+    )
+    del f_out, r_out, state, k_state, hits, k_hits
+    torch.cuda.empty_cache()
+    phase_s["frozen_backends"] = time.perf_counter() - t0
+
+    # 10. report
     for n, row in rows.items():
         row["launches"] = launches[n]
         if row["max_abs_err"] != 0:

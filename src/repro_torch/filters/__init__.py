@@ -11,7 +11,11 @@ Registry name -> implementation -> paper section:
 ``"buffered_qf"``         Buffered quotient filter (§4): RAM QF buffer flushed
                           into a large flash QF by one streaming merge.
 ``"cascade"``             Cascade filter (§4): COLA-style geometric hierarchy of
-                          QFs (without the frozen tier).
+                          QFs; ``frozen_below=k`` demotes levels >= k to
+                          binary-fuse tables (no delete).
+``"xor_fuse"``            Frozen binary-fuse filter (§4 cold levels, beyond the
+                          paper): construct-only; merge/extend/grow/shrink
+                          re-peel, insert/delete raise.
 ========================  =======================================================
 
 Quickstart::
@@ -28,7 +32,9 @@ state on the CUDA device unless it is given ``device="cpu"``, and raises
 without a card.  ``backend="pallas"`` runs the port's CUDA kernels on
 card state.  :func:`from_numpy` and :func:`to_numpy` carry a state
 across from the JAX package and back as its pytree leaves: ``rem``
-planes as uint32, counting Bloom cells (int16 here) as uint16.
+planes and fuse tables as uint32, counting Bloom cells (int16 here) as
+uint16, a frozen level's int64 run as int32 quotients and uint32
+remainders.
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ from . import (  # noqa: F401 (registration)
     cascade,
     iostats,
     qf_filter,
+    xor_fuse,
 )
 from .iostats import IOCounters, to_iolog
 from .registry import FilterImpl, UnsupportedOpError, by_cfg, by_name, names, register
@@ -176,31 +183,47 @@ def supports(name_or_cfg, op: str) -> bool:
     return getattr(impl, op) is not None
 
 
+# the JAX package's dtype of each leaf the port holds in another one
+_JAX_DTYPES = {
+    ("rem", "int32"): "uint32",  # QF remainders, as bit patterns
+    ("table", "int32"): "uint32",  # fuse cells, as bit patterns
+    ("run_q", "int64"): "int32",  # a frozen level's run, held as int64
+    ("run_r", "int64"): "uint32",
+}
+
+
 def _jax_dtype(name: str, dtype: np.dtype) -> np.dtype:
     """The dtype of the JAX package's leaf that the port holds in ``dtype``.
 
-    The port keeps unsigned leaves as signed bit patterns: ``rem`` planes
-    (uint32) as int32 and counting Bloom cells (uint16) as int16.
+    The port keeps unsigned leaves as signed bit patterns (``rem`` planes
+    and fuse tables as int32, counting Bloom cells as int16) and a
+    frozen level's run in its int64 stream convention.
     """
-    if name == "rem" and dtype == np.int32:
-        return np.dtype(np.uint32)
     if dtype == np.int16:
         return np.dtype(np.uint16)
-    return np.dtype(dtype)
+    return np.dtype(_JAX_DTYPES.get((name, np.dtype(dtype).name), dtype))
+
+
+def _cast(a: np.ndarray, dtype: np.dtype) -> np.ndarray:
+    """A bit-pattern view where the widths match, a value cast where they do not."""
+    if a.dtype.itemsize == np.dtype(dtype).itemsize:
+        return a.view(dtype)
+    return a.astype(dtype)
 
 
 def to_numpy(cfg, state) -> list:
     """The state as the JAX package's pytree leaves, as numpy arrays.
 
-    ``rem`` planes come back as uint32, counting Bloom cells as uint16,
-    every other leaf in its dtype; ``jax.tree_util.tree_unflatten`` of
-    the JAX state's treedef over this list rebuilds the JAX state.
+    ``rem`` planes and fuse tables come back as uint32, counting Bloom
+    cells as uint16, frozen runs as int32/uint32, every other leaf in
+    its dtype; ``jax.tree_util.tree_unflatten`` of the JAX state's
+    treedef over this list rebuilds the JAX state.
     """
     by_cfg(cfg)  # a registered config
     out = []
     for name, t in _leaves(state):
         a = t.detach().cpu().numpy()
-        out.append(a.view(_jax_dtype(name, a.dtype)))
+        out.append(_cast(a, _jax_dtype(name, a.dtype)))
     return out
 
 
@@ -209,7 +232,8 @@ def from_numpy(cfg, leaves, device=None):
 
     The inverse of :func:`to_numpy`: each leaf must have the dtype and
     shape of the matching field of ``make``'s state for ``cfg`` (``rem``
-    as uint32, counting Bloom cells as uint16).
+    and fuse tables as uint32, counting Bloom cells as uint16, frozen
+    runs as int32/uint32).
     """
     device = qf.resolve_device(device)
     _, template = by_cfg(cfg).make(device="meta", **cfg._asdict())  # no memory
@@ -225,7 +249,7 @@ def from_numpy(cfg, leaves, device=None):
         if wire != held:
             if a.dtype != wire:
                 raise TypeError(f"{name} leaf must be {wire}, got {a.dtype}")
-            a = a.view(held)
+            a = _cast(a, held)
         t = torch.from_numpy(a)
         if t.dtype != like.dtype or t.shape != like.shape:
             raise ValueError(

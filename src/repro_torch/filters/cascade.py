@@ -1,17 +1,26 @@
 """Cascade filter, functional (paper §4's insert-optimized on-flash AMQ).
 
-The port of ``repro.filters.cascade`` without the frozen tier.
-COLA-style hierarchy: a RAM quotient filter Q0 plus a fixed-depth stack
-of on-"disk" QFs whose capacities grow geometrically with the fanout.
-When Q0 fills, Q0..Qi are merged into a fresh Qi in one streaming pass,
-where i is the smallest level that fits them all (the paper's collapse
-rule), and the modeled I/O of that pass is counted in ``IOCounters``.
+The port of ``repro.filters.cascade``.  COLA-style hierarchy: a RAM
+quotient filter Q0 plus a fixed-depth stack of on-"disk" QFs whose
+capacities grow geometrically with the fanout.  When Q0 fills, Q0..Qi
+are merged into a fresh Qi in one streaming pass, where i is the
+smallest level that fits them all (the paper's collapse rule), and the
+modeled I/O of that pass is counted in ``IOCounters``.
+
+**Frozen cold tier** (``frozen_below=k``): levels at depth >= k are
+binary-fuse tables (``core.fuse_filter``), smaller than the QF at the
+same fp-rate target, with a fixed 3-read probe.  A merge-down into a
+frozen level peels the merged stream into its table; a later merge that
+consumes the level re-expands it from its retained sorted run.  Deletes
+are refused: a fuse table cannot unlink a key.
 
 The JAX package picks the collapse (and the ``merge`` target) with a
 ``lax.switch`` on device counts; here the branch is chosen on one host
-read per insert batch.  Under ``backend="pallas"``, ``contains`` and
-``probe`` run the whole stack through one fused kernel launch
-(``ops.cascade_lookup``) and rebuilds run through the build kernel.
+read per insert batch, and a frozen target's peel reads the host a few
+times more (``fuse_filter.peel_counts``).  Under ``backend="pallas"``,
+``contains`` and ``probe`` run the QF structures through one fused
+kernel launch and each frozen level through one ``fuse_probe`` launch
+(``ops.cascade_lookup``), and rebuilds run through the build kernel.
 """
 
 from __future__ import annotations
@@ -39,12 +48,36 @@ class CascadeConfig(NamedTuple):
     max_load: float = 0.75
     backend: str = "reference"
     shrink_load: float = 0.5  # kept for spec parity; shrink is not bound yet
-    frozen_below: Optional[int] = None  # the frozen tier is not ported: must be None
-    fuse_bits: Optional[int] = None  # frozen cell width (unused without frozen_below)
+    frozen_below: Optional[int] = None  # demote levels >= this depth to fuse form
+    fuse_bits: Optional[int] = None  # frozen cell width override (default: match QF fp)
 
     @property
     def lb(self) -> int:
         return int(math.log2(self.fanout))
+
+    def is_frozen(self, i: int) -> bool:
+        return self.frozen_below is not None and i >= self.frozen_below
+
+    def fuse_cfg(self, i: int) -> fuse.FuseConfig:
+        """Frozen geometry of level i: sized for the level's design
+        capacity, cell width matching the QF level's fp-rate target."""
+        lvl = self.level_cfg(i)
+        fp_bits = self.fuse_bits or cost_model.fuse_fp_bits_for(lvl.r, self.max_load)
+        return fuse.make_config(lvl.capacity, self.p, fp_bits=fp_bits, seed=self.seed)
+
+    def level_size_bytes(self, i: int) -> int:
+        """Probe-structure bytes of level i (fuse table when frozen)."""
+        if self.is_frozen(i):
+            return self.fuse_cfg(i).size_bytes
+        return self.level_cfg(i).size_bytes
+
+    @property
+    def cold_run_bytes(self) -> int:
+        """Sequential-only re-expansion runs of the frozen levels —
+        merge-path bytes, never touched by probes."""
+        return sum(
+            self.fuse_cfg(i).run_bytes for i in range(self.levels) if self.is_frozen(i)
+        )
 
     def _cfg(self, q: int) -> qf.QFConfig:
         return qf.QFConfig(
@@ -65,13 +98,13 @@ class CascadeConfig(NamedTuple):
     @property
     def size_bytes(self) -> int:
         return self.q0_cfg.size_bytes + sum(
-            self.level_cfg(i).size_bytes for i in range(self.levels)
+            self.level_size_bytes(i) for i in range(self.levels)
         )
 
 
 class CascadeState(NamedTuple):
     q0: qf.QFState
-    levels: tuple  # length cfg.levels, element i sized by cfg.level_cfg(i)
+    levels: tuple  # length cfg.levels: QFState, or FuseState where frozen
     io: IOCounters
 
 
@@ -82,23 +115,31 @@ def _check_geometry(cfg: CascadeConfig) -> None:
         raise ValueError("need at least one disk level")
     if cfg.ram_q + cfg.levels * cfg.lb >= cfg.p:
         raise ValueError("fingerprint bits p too small for the deepest level")
+    if cfg.frozen_below is not None:
+        if cfg.frozen_below < 0:
+            raise ValueError("frozen_below must be a depth >= 0")
+        fuse.canonical_split(cfg.p)  # frozen levels carry canonical streams
+        for i in range(cfg.frozen_below, cfg.levels):
+            cfg.fuse_cfg(i)  # validates the per-level fuse geometry
+
+
+def _empty_level(cfg: CascadeConfig, i: int, device):
+    if cfg.is_frozen(i):
+        return fuse.empty(cfg.fuse_cfg(i), device)
+    return qf.empty(cfg.level_cfg(i), device)
 
 
 def _empty_levels(cfg: CascadeConfig, device, keep=None):
-    """Empty QFs for every level, except ``keep = {i: state}``."""
+    """Empty structures for every level, except ``keep = {i: state}``."""
     keep = keep or {}
     return tuple(
-        keep[i] if i in keep else qf.empty(cfg.level_cfg(i), device)
+        keep[i] if i in keep else _empty_level(cfg, i, device)
         for i in range(cfg.levels)
     )
 
 
 def make(device=None, **spec):
     cfg = CascadeConfig(**spec)
-    if cfg.frozen_below is not None:
-        raise UnsupportedOpError(
-            "cascade", "frozen_below", "the frozen tier is not ported yet"
-        )
     _check_geometry(cfg)
     qf_filter._check_backend(cfg)
     device = qf.resolve_device(device)
@@ -123,6 +164,10 @@ def _stream(cfg: CascadeConfig, c: qf.QFConfig, s: qf.QFState):
 
 
 def _level_stream(cfg: CascadeConfig, state: CascadeState, i: int):
+    """Level i as a canonical stream; a frozen level streams its retained
+    run directly (the re-expansion path)."""
+    if cfg.is_frozen(i):
+        return fuse.extract_run(cfg.fuse_cfg(i), state.levels[i])
     return _stream(cfg, cfg.level_cfg(i), state.levels[i])
 
 
@@ -131,21 +176,32 @@ def _q0_stream(cfg: CascadeConfig, state: CascadeState):
 
 
 def _build_level(cfg: CascadeConfig, i: int, allq, allr, total):
-    """Materialize level i from a sorted canonical stream."""
+    """Materialize level i from a sorted canonical stream.  A frozen
+    target peels it; a stream that exceeds the frozen capacity or will
+    not peel sets the level's ``overflow`` flag."""
+    if cfg.is_frozen(i):
+        return fuse.freeze_stream(cfg.fuse_cfg(i), allq, allr, total)
     tgt = cfg.level_cfg(i)
     tq, tr = qf._requotient(allq, allr, _canon_cfg(cfg), tgt)
     return qf_filter.build_fn(cfg.backend)(tgt, tq, tr, total)
 
 
-def _f32(x, device) -> torch.Tensor:
-    return torch.tensor(float(x), dtype=torch.float32, device=device)
-
-
 def _level_read(cfg: CascadeConfig, levels, j: int) -> torch.Tensor:
-    """Merge-path read bytes of level j: its table if it is non-empty."""
+    """Merge-path read bytes of level j if it is non-empty: a QF level
+    streams its table, a frozen level only its run."""
     s = levels[j]
     dev = s.n.device
-    return torch.where(s.n > 0, _f32(cfg.level_cfg(j).size_bytes, dev), _f32(0, dev))
+    if cfg.is_frozen(j):
+        size = cfg.fuse_cfg(j).run_bytes
+    else:
+        size = cfg.level_cfg(j).size_bytes
+    return torch.where(s.n > 0, iostats.f32(size, dev), iostats.f32(0, dev))
+
+
+def _level_write_bytes(cfg: CascadeConfig, i: int) -> int:
+    """Bytes a merge writes into level i: its table, and a frozen level's run."""
+    run = cfg.fuse_cfg(i).run_bytes if cfg.is_frozen(i) else 0
+    return cfg.level_size_bytes(i) + run
 
 
 def _collapse_into(cfg: CascadeConfig, state: CascadeState, i: int) -> CascadeState:
@@ -161,13 +217,13 @@ def _collapse_into(cfg: CascadeConfig, state: CascadeState, i: int) -> CascadeSt
     merged = _build_level(cfg, i, allq, allr, total)
     merged = merged._replace(overflow=merged.overflow | overflow)
     # I/O: stream each participating non-empty disk level in, target out
-    read = _f32(0, dev)
+    read = iostats.f32(0, dev)
     for j in range(i + 1):
         read = read + _level_read(cfg, state.levels, j)
     io = state.io._replace(
         seq_read_bytes=state.io.seq_read_bytes + read,
         seq_write_bytes=state.io.seq_write_bytes
-        + _f32(cfg.level_cfg(i).size_bytes, dev),
+        + iostats.f32(_level_write_bytes(cfg, i), dev),
         flushes=state.io.flushes + 1,
         merges=state.io.merges + 1,
     )
@@ -205,28 +261,37 @@ def insert(cfg: CascadeConfig, state, keys, k=None) -> CascadeState:
     return _collapse_into(cfg, state, i) if i < cfg.levels else state
 
 
-def _level_contains(cfg: CascadeConfig, c: qf.QFConfig, s: qf.QFState, keys):
-    """Reference-path membership in one structure; empty ones answer no."""
+def _qf_contains(cfg: CascadeConfig, c: qf.QFConfig, s: qf.QFState, keys):
+    """Reference-path membership in one QF; empty ones answer no."""
     if not bool(s.n > 0):
         return torch.zeros(keys.shape[0], dtype=torch.bool, device=keys.device)
     return qf_filter.contains_keys(c, cfg.backend, s, keys)
 
 
+def _level_contains(cfg: CascadeConfig, state, i: int, keys):
+    if cfg.is_frozen(i):  # the fuse lookup carries its own n > 0 guard
+        return fuse.contains(cfg.fuse_cfg(i), state.levels[i], keys)
+    return _qf_contains(cfg, cfg.level_cfg(i), state.levels[i], keys)
+
+
 def _structure_hits(cfg: CascadeConfig, state, keys):
-    """``(q0_hit, [hit per level])``: one fused kernel pass under
-    ``backend="pallas"``, one plain lookup per structure otherwise."""
+    """``(q0_hit, [hit per level])``: one fused QF kernel pass and one
+    fuse probe per frozen level under ``backend="pallas"``, one plain
+    lookup per structure otherwise."""
     if cfg.backend == "pallas":
+        qf_ix = [i for i in range(cfg.levels) if not cfg.is_frozen(i)]
+        fz_ix = [i for i in range(cfg.levels) if cfg.is_frozen(i)]
         hits = kernel_ops.cascade_lookup(
-            (cfg.q0_cfg,) + tuple(cfg.level_cfg(i) for i in range(cfg.levels)),
-            (state.q0,) + tuple(state.levels),
+            (cfg.q0_cfg,) + tuple(cfg.level_cfg(i) for i in qf_ix),
+            (state.q0,) + tuple(state.levels[i] for i in qf_ix),
+            tuple(cfg.fuse_cfg(i) for i in fz_ix),
+            tuple(state.levels[i] for i in fz_ix),
             keys,
         )
-        return hits[0], list(hits[1:])
-    q0_hit = _level_contains(cfg, cfg.q0_cfg, state.q0, keys)
-    return q0_hit, [
-        _level_contains(cfg, cfg.level_cfg(i), state.levels[i], keys)
-        for i in range(cfg.levels)
-    ]
+        per_level = dict(zip(qf_ix + fz_ix, hits[1:]))
+        return hits[0], [per_level[i] for i in range(cfg.levels)]
+    q0_hit = _qf_contains(cfg, cfg.q0_cfg, state.q0, keys)
+    return q0_hit, [_level_contains(cfg, state, i, keys) for i in range(cfg.levels)]
 
 
 def contains(cfg: CascadeConfig, state, keys):
@@ -238,15 +303,19 @@ def contains(cfg: CascadeConfig, state, keys):
 
 def probe(cfg: CascadeConfig, state, keys):
     """Lookup with the paper's schedule: per query still unresolved at a
-    non-empty disk level, one random page read (QF cluster), top-down
+    non-empty disk level, one random page read (QF cluster) or
+    ``cost_model.FUSE_PROBE_READS`` gathers (frozen level), top-down
     short-circuit.  Matches ``cost_model.cascade_probe_reads``."""
     hit, lvl_hits = _structure_hits(cfg, state, keys)
     reads = torch.zeros((), dtype=torch.int32, device=hit.device)
     for i in range(cfg.levels):
         pending = ~hit
+        per_query = cost_model.QF_PROBE_READS
+        if cfg.is_frozen(i):
+            per_query = cost_model.FUSE_PROBE_READS
         reads = reads + torch.where(
             state.levels[i].n > 0,
-            cost_model.QF_PROBE_READS * pending.sum(dtype=torch.int32),
+            per_query * pending.sum(dtype=torch.int32),
             0,
         )
         hit = hit | (pending & lvl_hits[i])
@@ -260,7 +329,10 @@ def delete(cfg: CascadeConfig, state, keys, k=None) -> CascadeState:
     The j-th batch occurrence of a key targets the j-th stored copy in
     top-down order.  Disk-level deletes charge one random page read per
     key targeted at a non-empty level and one random page write per
-    copy removed; Q0 deletes are RAM-only and free."""
+    copy removed; Q0 deletes are RAM-only and free.  A frozen cascade
+    refuses deletes: a fuse table cannot unlink a key."""
+    if cfg.frozen_below is not None:
+        raise UnsupportedOpError("cascade", "delete", _FROZEN_DELETE_HINT)
     valid = qf_filter.valid_mask(keys, k)
     structures = [(cfg.q0_cfg, state.q0)] + [
         (cfg.level_cfg(i), state.levels[i]) for i in range(cfg.levels)
@@ -305,7 +377,7 @@ def merge(cfg: CascadeConfig, sa, sb) -> CascadeState:
         for lv in s.levels:
             overflow = overflow | lv.overflow
 
-    read = _f32(0, dev)
+    read = iostats.f32(0, dev)
     for j in range(L):
         for s in (sa, sb):
             read = read + _level_read(cfg, s.levels, j)
@@ -319,9 +391,8 @@ def merge(cfg: CascadeConfig, sa, sb) -> CascadeState:
     i = int(torch.where(fits.any(), fits.to(torch.int32).argmax(), L - 1))
     merged = _build_level(cfg, i, allq, allr, total)
     merged = merged._replace(overflow=merged.overflow | overflow)
-    io = io._replace(
-        seq_write_bytes=io.seq_write_bytes + _f32(cfg.level_cfg(i).size_bytes, dev)
-    )
+    written = iostats.f32(_level_write_bytes(cfg, i), dev)
+    io = io._replace(seq_write_bytes=io.seq_write_bytes + written)
     return CascadeState(
         q0=qf.empty(cfg.q0_cfg, dev),
         levels=_empty_levels(cfg, dev, {i: merged}),
@@ -331,7 +402,7 @@ def merge(cfg: CascadeConfig, sa, sb) -> CascadeState:
 
 def stats(cfg: CascadeConfig, state):
     ns = torch.stack([s.n for s in state.levels])
-    return {
+    out = {
         "n": state.q0.n + ns.sum(dtype=torch.int32),
         "q0_load": qf.load(cfg.q0_cfg, state.q0),
         "level_counts": ns,
@@ -341,7 +412,18 @@ def stats(cfg: CascadeConfig, state):
         "size_bytes": cfg.size_bytes,
         **state.io._asdict(),
     }
+    if cfg.frozen_below is not None:
+        frozen = [i for i in range(cfg.levels) if cfg.is_frozen(i)]
+        out["frozen_levels"] = len(frozen)
+        out["frozen_size_bytes"] = sum(cfg.level_size_bytes(i) for i in frozen)
+        out["cold_run_bytes"] = cfg.cold_run_bytes
+    return out
 
+
+_FROZEN_DELETE_HINT = (
+    "frozen_below cascades cannot unlink keys from demoted (binary-fuse) "
+    "levels; use an all-QF cascade when the cold tier must support deletes"
+)
 
 IMPL = register(
     FilterImpl(
@@ -355,6 +437,11 @@ IMPL = register(
         delete=delete,
         merge=merge,
         probe=probe,
-        op_hints=RESIZE_HINTS,
+        can_delete=lambda cfg: cfg.frozen_below is None,
+        op_hints={
+            **RESIZE_HINTS,
+            "delete": "frozen_below cascades cannot unlink keys from "
+            "demoted (binary-fuse) levels",
+        },
     )
 )

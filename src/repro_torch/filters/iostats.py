@@ -51,6 +51,11 @@ def zeros(device) -> IOCounters:
     )
 
 
+def f32(x, device) -> torch.Tensor:
+    """A byte count as a float32 scalar on ``device`` (the counters' type)."""
+    return torch.tensor(float(x), dtype=torch.float32, device=device)
+
+
 def add(a: IOCounters, b: IOCounters) -> IOCounters:
     return IOCounters(*(x + y for x, y in zip(a, b)))
 

@@ -23,7 +23,14 @@ import torch
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("qf_build", "qf_probe", "cascade_probe", "bloom_count", "bloom_probe")
+SOURCES = (
+    "qf_build",
+    "qf_probe",
+    "cascade_probe",
+    "bloom_count",
+    "bloom_probe",
+    "fuse_probe",
+)
 NVCC_FLAGS = (
     "-gencode",
     "arch=compute_90a,code=sm_90a",

@@ -1,15 +1,16 @@
 """Kernel-path wrappers binding the CUDA kernels to the filter states.
 
 The port of the wrappers of ``repro.kernels.ops``: ``build_sorted``,
-``lookup``/``contains``, ``cascade_lookup`` (its unfrozen part), and
-the Bloom families' ``bloom_counts`` and ``bloom_probe``.  Each runs
-its kernel for CUDA state and the kernel's plain PyTorch version for
-CPU state (:mod:`.dispatch`), and each returns exactly what the plain
-path of ``repro_torch.core`` returns.
+``lookup``/``contains``, ``fuse_lookup``/``fuse_contains``,
+``cascade_lookup``, and the Bloom families' ``bloom_counts`` and
+``bloom_probe``.  Each runs its kernel for CUDA state and the kernel's
+plain PyTorch version for CPU state (:mod:`.dispatch`), and each
+returns exactly what the plain path of ``repro_torch.core`` returns.
 
 The JAX wrappers settled window overflows with a ``lax.cond`` on
-``any(ovf)``; here the probe kernels walk whole clusters, so there is
-nothing to settle and no host sync on a probe.  The Bloom kernels take
+``any(ovf)``; here the QF probe kernels walk whole clusters and the
+fuse probe gathers its three cells directly, so there is nothing to
+settle and no host sync on a probe.  The Bloom kernels take
 indices in any order, so the JAX wrappers' sorts, un-permutes and
 overflow recounts have no counterpart either.  The kernels take int32
 fingerprints and indices, as the TPU kernels did; the wrappers narrow
@@ -24,6 +25,7 @@ from ..core import fuse_filter as ffc
 from ..core import quotient_filter as qf
 from . import bloom_block
 from .cascade_probe import cascade_probe
+from .fuse_probe import fuse_probe
 from .qf_build import qf_build_planes
 from .qf_probe import qf_probe
 
@@ -60,21 +62,40 @@ def contains(cfg: qf.QFConfig, state: qf.QFState, keys) -> torch.Tensor:
     return lookup(cfg, state, fq, fr)
 
 
-def cascade_lookup(qf_cfgs, qf_states, keys):
-    """Probe a stack of quotient filters in one fused kernel launch.
+def fuse_lookup(cfg: ffc.FuseConfig, state: ffc.FuseState, fq, fr) -> torch.Tensor:
+    """Binary-fuse MAY-CONTAIN for canonical fingerprints, equal to
+    ``fuse_filter.lookup_fp``: the hash in PyTorch, the three gathers in
+    the ``fuse_probe`` kernel (queries in any order, no sort)."""
+    p0, p1, p2, fp = ffc.fuse_hash(cfg, fq, fr, state.fuse_seed)
+    hit = fuse_probe(state.table, _i32(p0), _i32(p1), _i32(p2), _i32(fp))
+    return (state.n > 0) & hit
 
-    ``qf_cfgs``/``qf_states`` are the structures top-down (Q0 first);
-    all must share the fingerprint width ``p`` and seed.  Keys are
-    hashed once in the canonical split, which the kernel re-splits for
-    each level (requotienting is a bit move, so the fingerprint is the
-    same).  Returns one bool (B,) hit array per structure, in argument
-    order.
+
+def fuse_contains(cfg: ffc.FuseConfig, state: ffc.FuseState, keys) -> torch.Tensor:
+    fq, fr = ffc.key_fingerprints(cfg, keys)
+    return fuse_lookup(cfg, state, fq, fr)
+
+
+def cascade_lookup(qf_cfgs, qf_states, fuse_cfgs, fuse_states, keys):
+    """Probe a whole cascade stack: one fused launch over its quotient
+    filters, one ``fuse_probe`` launch per frozen level.
+
+    ``qf_cfgs``/``qf_states`` are the unfrozen structures top-down (Q0
+    first), ``fuse_cfgs``/``fuse_states`` the frozen levels; all must
+    share the fingerprint width ``p`` and seed.  Keys are hashed once in
+    the canonical split, which the QF kernel re-splits for each level
+    (requotienting is a bit move, so the fingerprint is the same) and
+    the frozen levels hash as they are.  Returns one bool (B,) hit array
+    per structure, QF structures first, in argument order.
     """
     p = qf_cfgs[0].q + qf_cfgs[0].r
     seed = qf_cfgs[0].seed
     for c in qf_cfgs:
         if c.q + c.r != p or c.seed != seed:
             raise ValueError("cascade levels must share fingerprint bits and seed")
+    for c in fuse_cfgs:
+        if c.p != p or c.seed != seed:
+            raise ValueError("frozen levels must share fingerprint bits and seed")
     qc, rc = ffc.canonical_split(p)
     canon = qf.QFConfig(q=qc, r=rc, slack=0, seed=seed)
     fqc, frc = qf.fingerprints(canon, keys)
@@ -85,8 +106,11 @@ def cascade_lookup(qf_cfgs, qf_states, keys):
         _i32(frc),
         rc,
     )
-    return tuple(
+    qf_hits = tuple(
         (s.n > 0) & (((hitm >> lvl) & 1) > 0) for lvl, s in enumerate(qf_states)
+    )
+    return qf_hits + tuple(
+        fuse_lookup(c, s, fqc, frc) for c, s in zip(fuse_cfgs, fuse_states)
     )
 
 

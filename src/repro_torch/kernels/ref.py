@@ -87,6 +87,18 @@ def cascade_probe_ref(level_planes, fq_levels, fr_levels, window: int):
     return hit, ovf
 
 
+def fuse_probe_ref(table, p0, p1, p2, fp):
+    """Binary-fuse membership oracle: three gathers + xor + compare.
+
+    table: (slots,) cells; p0/p1/p2: (B,) cell positions (already
+    hashed, one per consecutive segment); fp: (B,) stored fingerprints.
+    Returns present bool (B,).  The caller owns the empty-table guard.
+    """
+    t = table.to(torch.int64)
+    got = t[p0.to(torch.int64)] ^ t[p1.to(torch.int64)] ^ t[p2.to(torch.int64)]
+    return got == fp.to(torch.int64)
+
+
 def bloom_probe_ref(cells, idx):
     """Blocked-Bloom membership oracle: AND of k direct gathers.
 

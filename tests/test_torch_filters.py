@@ -165,13 +165,16 @@ def test_unported_ops_raise_structured_errors():
             op(cfg, st)
     with pytest.raises(tf.UnsupportedOpError):
         tf.resize(cfg, st, new_q=7)
+    ccfg, cst = tf.make("cascade", device="cpu", ram_q=6, p=22, frozen_below=1)
     with pytest.raises(tf.UnsupportedOpError):
-        tf.make("cascade", device="cpu", ram_q=6, p=22, frozen_below=1)
+        tf.grow(ccfg, cst)
     assert not tf.supports("qf", "grow")
     assert tf.supports(cfg, "delete") and tf.supports("cascade", "probe")
     with pytest.raises(ValueError):
         tf.supports("qf", "grwo")
-    assert tf.names() == ("blocked_bloom", "bloom", "buffered_qf", "cascade", "qf")
+    assert tf.names() == (
+        "blocked_bloom", "bloom", "buffered_qf", "cascade", "qf", "xor_fuse"
+    )
 
 
 def test_pallas_backend_keeps_remainder_limit():

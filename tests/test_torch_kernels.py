@@ -230,7 +230,7 @@ def test_cascade_plain_matches_oracles():
     # ops.cascade_lookup hashes once and re-splits per level: the same hits
     # as one plain lookup per level
     hits = ops.cascade_lookup(
-        [t for _, t, _, _ in levels], [s for *_, s in levels], _t(probes)
+        [t for _, t, _, _ in levels], [s for *_, s in levels], (), (), _t(probes)
     )
     for lvl, (_, tcfg, _, ts) in enumerate(levels):
         want = ops.contains(tcfg, ts, _t(probes)) & (ts.n > 0)
@@ -244,6 +244,8 @@ def test_cascade_rejects_mixed_widths_and_too_many_levels():
         ops.cascade_lookup(
             [levels[0][1], tqf.QFConfig(q=8, r=10)],  # p = 16 and p = 18
             [levels[0][3], levels[1][3]],
+            (),
+            (),
             _t(_keys(1, 4)),
         )
     plane = _tplanes(levels[0][3])

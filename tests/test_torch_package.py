@@ -11,6 +11,14 @@ import torch
 
 from repro_torch import filters as tf
 from repro_torch.core import quotient_filter as tqf
+from repro_torch.kernels import (
+    bloom_block,
+    cascade_probe,
+    cuda_lib,
+    fuse_probe,
+    qf_build,
+    qf_probe,
+)
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 
@@ -21,7 +29,8 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
         "import repro_torch, repro_torch.filters, repro_torch.kernels.ops\n"
         "import repro_torch.kernels.cuda_lib, repro_torch.kernels.bloom_block\n"
         "import repro_torch.core.bloom, repro_torch.core.bf_variants\n"
-        "import repro_torch.filters.bloom_filter\n"
+        "import repro_torch.filters.bloom_filter, repro_torch.filters.xor_fuse\n"
+        "import repro_torch.core.fuse_filter, repro_torch.kernels.fuse_probe\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))\n"
         "assert not bad, bad\n"
     )
@@ -30,20 +39,24 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
 
 
 @pytest.mark.parametrize(
-    "name", ["qf", "buffered_qf", "cascade", "bloom", "blocked_bloom"]
+    "name",
+    ["qf", "buffered_qf", "cascade", "bloom", "blocked_bloom", "frozen cascade",
+     "xor_fuse"],
 )
 def test_make_without_a_device_needs_a_card(name, monkeypatch):
-    spec = {
-        "qf": dict(q=6, r=8),
-        "buffered_qf": dict(ram_q=5, disk_q=7, p=20),
-        "cascade": dict(ram_q=5, p=20, levels=2),
-        "bloom": dict(m_bits=500, k=3, counting=True),
-        "blocked_bloom": dict(m_bits=1024, k=3, block_bits=256),
+    family, spec = {
+        "qf": ("qf", dict(q=6, r=8)),
+        "buffered_qf": ("buffered_qf", dict(ram_q=5, disk_q=7, p=20)),
+        "cascade": ("cascade", dict(ram_q=5, p=20, levels=2)),
+        "bloom": ("bloom", dict(m_bits=500, k=3, counting=True)),
+        "blocked_bloom": ("blocked_bloom", dict(m_bits=1024, k=3, block_bits=256)),
+        "frozen cascade": ("cascade", dict(ram_q=5, p=20, levels=2, frozen_below=1)),
+        "xor_fuse": ("xor_fuse", dict(p=26, keys=np.arange(50, dtype=np.int32))),
     }[name]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        tf.make(name, **spec)
-    cfg, state = tf.make(name, device="cpu", **spec)
+        tf.make(family, **spec)
+    cfg, state = tf.make(family, device="cpu", **spec)
     assert {str(t.device) for _, t in tf._leaves(state)} == {"cpu"}
 
 
@@ -83,3 +96,34 @@ def test_keys_follow_the_state_onto_its_device():
     st = tf.insert(cfg, st, keys)
     assert tf.contains(cfg, st, keys).all()
     assert int(tf.stats(cfg, st)["n"]) == 40
+
+
+# each kernel module's wrappers, with the plain versions beside them
+KERNELS = {
+    "qf_build": (qf_build, [("qf_build_planes", "build_planes_plain")]),
+    "qf_probe": (qf_probe, [("qf_probe", "probe_plain")]),
+    "cascade_probe": (cascade_probe, [("cascade_probe", "cascade_probe_plain")]),
+    "bloom_block": (
+        bloom_block,
+        [("bloom_count", "bloom_count_plain"), ("bloom_probe", "bloom_probe_plain")],
+    ),
+    "fuse_probe": (fuse_probe, [("fuse_probe", "fuse_probe_plain")]),
+}
+
+
+@pytest.mark.parametrize("module", sorted(KERNELS))
+def test_kernel_module_has_plain_version_and_launch_counter(module):
+    mod, pairs = KERNELS[module]
+    for wrapper, plain in pairs:
+        assert callable(getattr(mod, plain))
+        assert isinstance(getattr(mod, wrapper).launches, int)
+    assert "repro/kernels/" in mod.__doc__  # names the TPU kernel it replaces
+
+
+def test_csrc_holds_the_six_sources_cuda_lib_builds():
+    sources = sorted(p.stem for p in cuda_lib.CSRC.glob("*.cu"))
+    assert sources == sorted(cuda_lib.SOURCES)
+    assert len(sources) == 6 and "fuse_probe" in sources
+    for name in sources:  # a plain C entry point, and the TPU kernel it replaces
+        text = (cuda_lib.CSRC / f"{name}.cu").read_text()
+        assert 'extern "C" int ' in text and "repro/kernels/" in text
