@@ -301,6 +301,40 @@ def canonical_queries(cfg, keys):
 # ---------------------------------------------------------------------------
 
 
+def bloom_probe_cases(rng, cells, device):
+    """Small ``bloom_probe`` inputs that reach every branch of its kernel.
+
+    At k = 3, 4, 12 and 13 (ragged and whole groups), 300 rows (not a
+    multiple of the 256-thread block), half of them drawn from set cells
+    (every group read) and half uniform (an early stop); and the k = 12
+    rows once more as a contiguous view that starts 4 bytes past an
+    allocation (so off every 8- and 16-byte boundary).
+    """
+    ncells = cells.shape[0]
+    set_cells = torch.nonzero(cells).flatten().cpu().numpy()
+    out = []
+    for k in (3, 4, 12, 13):
+        rows = np.concatenate([
+            rng.choice(set_cells, (150, k)), rng.integers(0, ncells, (150, k))
+        ])
+        idx = torch.from_numpy(rows.astype(np.int32)).to(device)
+        out.append(idx)
+        if k == 12:
+            out.append(torch.cat([idx.new_zeros(1), idx.flatten()])[1:].view(idx.shape))
+    return out
+
+
+def cascade_case(planes, nn, cfg, device):
+    """32 levels over one small table: live (its count), stale (its planes,
+    count 0) and empty (zero planes, count 0) in turn, the last one live."""
+    empty = tuple(torch.zeros_like(p) for p in planes)
+    zero = torch.zeros((), dtype=torch.int32, device=device)
+    kinds = [("live", "stale", "empty")[lvl % 3] for lvl in range(31)] + ["live"]
+    level_planes = [empty if k == "empty" else planes for k in kinds]
+    level_n = [nn if k == "live" else zero for k in kinds]
+    return level_planes, level_n, [cfg.r] * 32
+
+
 def launch_check(device) -> None:
     """Launch each kernel once on a small filter and hold it to its plain version.
 
@@ -313,12 +347,17 @@ def launch_check(device) -> None:
     args = (i32(pos), fq, fr, nn, cfg.total_slots)
     planes = qf_build.qf_build_planes(*args)
     qargs = (*planes, fq, fr)
-    # the same table twice, one level read in the split (q, r) = (4, 16)
-    cargs = ([planes, planes], [cfg.r, cfg.r], fq >> 4, (fq & 15) << 12 | fr, 16)
+    # the same table twice, one level read in the split (q, r) = (4, 16);
+    # then 32 levels, empty and stale ones among the live
+    split = (fq >> 4, (fq & 15) << 12 | fr, 16)
+    cases = [
+        ([planes, planes], [nn, nn], [cfg.r, cfg.r]),
+        cascade_case(planes, nn, cfg, device),
+    ]
     bidx = torch.cat([i32(fq) & 255, torch.full((9,), 2**31 - 1, device=device)])
     bidx = bidx.to(torch.int32)
     bcells = bloom_block.bloom_count(bidx, 256)
-    pidx = (fq.reshape(-1, 4) & 255).to(torch.int32)
+    pcases = bloom_probe_cases(np.random.default_rng(2), bcells > 1, device)
     # a small frozen filter (its peel runs on the card too), half its keys probed
     fcfg = fuse.make_config(180, p=20)
     fkeys = uint32_keys(np.random.default_rng(1), 360, device)
@@ -326,26 +365,34 @@ def launch_check(device) -> None:
     fq2, fr2 = fuse.key_fingerprints(fcfg, fkeys)
     fargs = (fstate.table, *map(i32, fuse.fuse_hash(fcfg, fq2, fr2, fstate.fuse_seed)))
     fhit = fuse_probe.fuse_probe(*fargs)
-    probes = [
-        ((bloom_block.bloom_probe(c, pidx),), (bloom_block.bloom_probe_plain(c, pidx),))
+    checks = [
+        (f"bloom_probe ({c.dtype}, k = {p.shape[1]})",
+         (bloom_block.bloom_probe(c, p),), (bloom_block.bloom_probe_plain(c, p),))
         for c in ((bcells > 1).to(torch.uint8), (bcells - 1).to(torch.int16))
+        for p in pcases
     ]
-    checks = probes + [
-        ((fhit,), (fuse_probe.fuse_probe_plain(*fargs),)),
-        ((bcells,), (bloom_block.bloom_count_plain(bidx, 256),)),
-        (planes, qf_build.build_planes_plain(*args)),
-        ((qf_probe.qf_probe(*qargs),), (qf_probe.probe_plain(*qargs),)),
-        (
-            (cascade_probe.cascade_probe(*cargs),),
-            (cascade_probe.cascade_probe_plain(*cargs),),
-        ),
+    chits = [cascade_probe.cascade_probe(*c, *split) for c in cases]
+    checks += [
+        (f"cascade_probe (L = {len(c[0])})", (h,),
+         (cascade_probe.cascade_probe_plain(*c, *split),))
+        for c, h in zip(cases, chits)
+    ]
+    checks += [
+        ("fuse_probe", (fhit,), (fuse_probe.fuse_probe_plain(*fargs),)),
+        ("bloom_count", (bcells,), (bloom_block.bloom_count_plain(bidx, 256),)),
+        ("qf_build_planes", planes, qf_build.build_planes_plain(*args)),
+        ("qf_probe", (qf_probe.qf_probe(*qargs),), (qf_probe.probe_plain(*qargs),)),
     ]
     torch.cuda.synchronize()
-    for got, want in checks:
+    for name, got, want in checks:
         if max_abs_err(got, want) != 0:
-            raise AssertionError("a kernel disagrees with its plain version")
+            raise AssertionError(f"{name} disagrees with its plain version")
     if not bool(fhit[:180].all()):
         raise AssertionError("fuse_probe: a key of the small frozen filter was lost")
+    # of the 32 levels, 0, 3, ..., 30 and 31 are live: every key hits them all
+    live = sum(1 << lvl for lvl in range(0, 31, 3)) | 1 << 31
+    if not bool((chits[1][:180] == live - 2**32).all()):
+        raise AssertionError("cascade_probe: a live level missed, or a dead one hit")
 
 
 def check_build(device):
@@ -410,32 +457,68 @@ def check_probe(device, built):
     )
 
 
+def walk_sectors(planes, fq, fr) -> int:
+    """32-byte sectors the cluster walks of these queries touch, counted per
+    query: for each query whose bucket is occupied, the sectors of its
+    walked span in each of the four planes (an upper estimate: the
+    remainders are read over the run only)."""
+    occ = planes[1]
+    walked = occ[fq.to(torch.int64)]
+    _, first, last = walk_spans(planes, fq, fr)
+    first, last = first[walked], last[walked]
+    meta = (last >> 5) - (first >> 5) + 1  # one-byte planes occ, shf, con
+    rem = (last >> 3) - (first >> 3) + 1  # four-byte remainders
+    return int((3 * meta + rem).sum())
+
+
 def check_cascade(device, cfg, state, inserted):
     """cascade_probe over the main path's 7-structure cascade, 2**22 probes."""
     cfgs = [cfg.q0_cfg] + [cfg.level_cfg(i) for i in range(cfg.levels)]
-    planes = [(s.rem, s.occ, s.shf, s.con) for s in (state.q0, *state.levels)]
+    structs = (state.q0, *state.levels)
+    planes = [(s.rem, s.occ, s.shf, s.con) for s in structs]
+    counts = [s.n for s in structs]
     widths = [c.r for c in cfgs]
     rng = np.random.default_rng(SEED + 2)
     half = PARITY_PROBES // 2
     pick = torch.from_numpy(rng.integers(0, inserted.shape[0], half)).to(device)
     probes = torch.cat([inserted[pick], uint32_keys(rng, half, device)])
     fq, fr, rc = canonical_queries(cfg, probes)
-    args = (planes, widths, fq, fr, rc)
+    args = (planes, counts, widths, fq, fr, rc)
     got = cascade_probe.cascade_probe(*args)
     err = max_abs_err([got], [cascade_probe.cascade_probe_plain(*args)])
     if not bool((got[:half] != 0).all()):
         raise AssertionError("cascade_probe: an inserted key was not found")
     ms = cuda_ms(lambda: cascade_probe.cascade_probe(*args), 10)
     plain_ms = cuda_ms(lambda: cascade_probe.cascade_probe_plain(*args), 1)
-    # fq/fr read once (4 + 4 bytes), hit written (4), and per structure the
-    # slots its walks cover, each at its own split of the fingerprint
+    # fq/fr read once (4 + 4 bytes), hit written (4), each level's 4-byte
+    # count, and per live structure the slots its walks cover, each at its
+    # own split of the fingerprint; a level whose count is 0 is not read
     f = (fq.to(torch.int64) << rc) | (fr.to(torch.int64) & 0xFFFFFFFF)
-    walk_bytes = sum(
-        walked_bytes(p, f >> r, f & ((1 << r) - 1)) for p, r in zip(planes, widths)
-    )
-    occupied = [int(s.n) for s in (state.q0, *state.levels)]
+    occupied = [int(n) for n in counts]
+    walk_bytes, every_level_bytes, occ_reads, sectors = 0, 0, 0, 0
+    for p, r, n in zip(planes, widths, occupied):
+        lq, lr = f >> r, f & ((1 << r) - 1)
+        b = walked_bytes(p, lq, lr)
+        every_level_bytes += b
+        if n > 0:
+            walk_bytes += b
+            occ_reads += PARITY_PROBES
+            sectors += walk_sectors(p, lq, lr)
+    bound_bytes = walk_bytes + 4 * len(planes) + PARITY_PROBES * (4 + 4 + 4)
+    old_bound = every_level_bytes + PARITY_PROBES * (4 + 4 + 4)
     log(f"  cascade_probe checked on a cascade holding {occupied} fingerprints")
-    bound_bytes = walk_bytes + PARITY_PROBES * (4 + 4 + 4)
+    log(
+        f"  cascade_probe bound {bound_bytes / H100_BYTES_PER_S * 1e3:.6f} ms "
+        f"over the {sum(n > 0 for n in occupied)} live levels (reading every "
+        f"level: {old_bound / H100_BYTES_PER_S * 1e3:.6f} ms)"
+    )
+    dead_reads = PARITY_PROBES * len(planes) - occ_reads
+    log(
+        f"  cascade_probe gathers: {occ_reads} occ sectors of live levels, about "
+        f"{sectors} walk sectors, {dead_reads} occ sectors of empty levels not "
+        f"read; {(occ_reads + sectors) / ms / 1e6:.4f} G sectors/s, "
+        f"{(occ_reads + sectors) * 32 / ms / 1e9:.4f} TB/s of sectors"
+    )
     return kernel_row(
         "cascade_probe", "cascade_probe.cu", "src/repro/kernels/cascade_probe.py:150",
         err, ms, plain_ms, bound_bytes, None,
@@ -632,6 +715,7 @@ def check_bloom_probe(structs, probes):
     counts the reads these queries need.
     """
     err, times = 0, {}
+    group = cuda_lib.library("bloom_probe").bloom_probe_group()
     for label in ("blocked_bloom", "counting blocked_bloom"):
         cfg, state = structs[label][:2]
         idx = bloom_filter._indices(cfg, probes)
@@ -644,12 +728,19 @@ def check_bloom_probe(structs, probes):
         plain_ms = cuda_ms(lambda: bloom_block.bloom_probe_plain(cells, idx), 3)
         # a query stops at its first empty cell: the indices and cells read
         # up to there, in the cells' width, and one byte out
-        reads = int(bloom.first_zero_probes(cells[idx.to(torch.int64)] != 0).sum())
+        needed = bloom.first_zero_probes(cells[idx.to(torch.int64)] != 0)
+        reads = int(needed.sum())
         bound = reads * (4 + cells.element_size()) + idx.shape[0]
         times[label] = (ms, plain_ms, bound)
+        # the kernel reads whole groups: each cell read a random 32-byte sector
+        k = idx.shape[1]
+        gathers = int(torch.clamp((needed + group - 1) // group * group, max=k).sum())
         log(
             f"  bloom_probe on {label} ({cells.dtype}): {ms:.5f} ms, plain "
-            f"{plain_ms:.5f} ms, bound {bound / H100_BYTES_PER_S * 1e3:.6f} ms"
+            f"{plain_ms:.5f} ms, bound {bound / H100_BYTES_PER_S * 1e3:.6f} ms; "
+            f"{gathers} cell sectors gathered in groups of {group} ({reads} "
+            f"up to the first empty cell), {gathers / ms / 1e6:.4f} G sectors/s, "
+            f"{gathers * 32 / ms / 1e9:.4f} TB/s of sectors"
         )
     ms, plain_ms, bound = times["blocked_bloom"]
     return kernel_row(

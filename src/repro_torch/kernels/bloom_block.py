@@ -16,10 +16,17 @@ Replace the TPU kernels of ``repro/kernels/bloom_block.py``:
   one prefetched 2*wblk-cell window per tile by one-hot gathers and
   flagged tiles whose bins outran it.  ``csrc/bloom_probe.cu`` gives
   each query one thread that reads its k cells directly, in the cells'
-  own width (uint8 bits or int16 counters, no int32 copy), and stops at
-  the first zero: no sort, no window, no ``ovf``.  Bound: bytes, the
-  query's k int32 indices, its k cells and one byte out; the cells are
-  random gathers, so the card moves a 32-byte sector for each.
+  own width (uint8 bits or int16 counters, no int32 copy): no sort, no
+  window, no ``ovf``.  Bound: bytes, the query's int32 indices and
+  cells up to its first empty cell and one byte out; the cells are
+  random gathers, so the card moves a 32-byte sector for each, and
+  its rate of random sectors bounds the kernel once enough gathers are
+  in flight.  A thread reads its cells in groups of 2 (two
+  independent cell loads, a ragged last group masked) and stops after
+  the first group holding a zero: 6 dependent round trips for a member
+  query at k = 12 instead of 12, for at most one cell read past the
+  zero.  Wider groups read more sectors than the round trips they save
+  are worth (``kernel_turns.py``; ``PERF.md``).
 
 Each wrapper runs its plain PyTorch version for CPU tensors and launches
 its kernel for CUDA tensors (:mod:`.dispatch`); ``launches`` counts the

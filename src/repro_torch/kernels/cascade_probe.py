@@ -5,16 +5,22 @@ Replaces the TPU kernel
 ``_make_kernel(L)``).  The TPU kernel ran one grid over canonically
 sorted query tiles with a prefetched window per (tile, level), reading
 each level's requotiented view of the queries.  ``csrc/cascade_probe.cu``
-gives each query one thread that reads its canonical split once,
-re-splits it for each level in registers, and runs the cluster walk of
-``qf_probe`` (``csrc/qf_walk.cuh``) in each of the L levels in turn, in
-one launch; it writes the verdicts as bit l of an int32 mask.  The L
-levels' plane pointers, sizes and remainder widths travel by value in
-the launch's parameter block.
+gives each query one thread that reads its canonical split once and
+re-splits it for each level in registers; it writes the verdicts as bit
+l of an int32 mask.  The L levels' plane pointers, count pointers, sizes
+and remainder widths travel by value in the launch's parameter block.
 
-Bound on the card: bytes.  A query reads 8 bytes and writes 4, and per
-level an empty bucket costs one byte (its ``occ`` bit), an occupied one
-the metadata of a cluster.
+Bound on the card: bytes, met as random 32-byte sectors.  A query reads
+8 bytes and writes 4, and per live level an empty bucket costs one byte
+(its ``occ`` bit), an occupied one the metadata of a cluster; the
+function also reads the 4-byte count of every level.  A cascade holds
+few live levels at a time (two of seven on the main path), so the
+kernel reads the counts on the card, once per block, and a level whose
+count is 0 answers 0 without a read of its planes; nothing is read to
+the host.  Each thread issues the ``occ`` reads of all live levels
+together, then runs the cluster walk of ``qf_probe``
+(``csrc/qf_walk.cuh``) only where a bucket is occupied, so its chain of
+dependent reads is one ``occ`` round plus the walks it needs.
 """
 
 from __future__ import annotations
@@ -33,12 +39,13 @@ _I64 = ctypes.c_longlong
 _P = ctypes.c_void_p
 
 
-def cascade_probe_plain(level_planes, level_r, fq, fr, r: int):
-    """Plain PyTorch version: the exact lookup per non-empty level, as bitmasks."""
+def cascade_probe_plain(level_planes, level_n, level_r, fq, fr, r: int):
+    """Plain PyTorch version: the exact lookup per level with ``n > 0``, as
+    bitmasks; a level whose count is 0 answers 0, whatever its planes hold."""
     f = (fq.to(torch.int64) << r) | (fr.to(torch.int64) & M32)
     hit = torch.zeros(fq.shape[0], dtype=torch.int32, device=fq.device)
-    for lvl, (planes, rl) in enumerate(zip(level_planes, level_r)):
-        if not bool(planes[1].any()):  # no occupied bucket: holds nothing
+    for lvl, (planes, n, rl) in enumerate(zip(level_planes, level_n, level_r)):
+        if not bool(n > 0):
             continue
         lq = (f >> rl).to(torch.int32)
         lr = (f & ((1 << rl) - 1)).to(torch.int32)
@@ -46,32 +53,39 @@ def cascade_probe_plain(level_planes, level_r, fq, fr, r: int):
     return hit
 
 
-def cascade_probe(level_planes, level_r, fq, fr, r: int):
+def cascade_probe(level_planes, level_n, level_r, fq, fr, r: int):
     """Probe L quotient filters of one fingerprint width in one launch.
 
     ``level_planes`` is a sequence of ``(rem, occ, shf, con)`` plane
-    tuples (any per-level size) and ``level_r`` each level's remainder
-    width.  ``fq``/``fr`` are int32 (B,): the queries' fingerprints in
-    one split with remainder width ``r`` (``fr`` the uint32 bit
-    pattern); level l reads fingerprint ``f = fq << r | fr`` as
-    ``(f >> r_l, f mod 2**r_l)``.  Returns ``hit`` int32 (B,), bit l =
-    level l.
+    tuples (any per-level size), ``level_n`` each level's count (the
+    int32 0-d ``n`` of its state: a level whose count is 0 answers 0)
+    and ``level_r`` each level's remainder width.  ``fq``/``fr`` are
+    int32 (B,): the queries' fingerprints in one split with remainder
+    width ``r`` (``fr`` the uint32 bit pattern); level l reads
+    fingerprint ``f = fq << r | fr`` as ``(f >> r_l, f mod 2**r_l)``.
+    Returns ``hit`` int32 (B,), bit l = level l.
     """
     L = len(level_planes)
-    if not 1 <= L <= MAX_LEVELS or len(level_r) != L:
+    if not 1 <= L <= MAX_LEVELS or len(level_r) != L or len(level_n) != L:
         raise ValueError(
-            f"cascade_probe takes 1 to {MAX_LEVELS} levels and one width each"
+            f"cascade_probe takes 1 to {MAX_LEVELS} levels and one count and "
+            "one width each"
         )
     if not all(1 <= w <= 32 for w in (r, *level_r)):
         raise ValueError("remainder widths must be in [1, 32]")
     for planes in level_planes:
         require_planes(*planes)
+    for n in level_n:
+        dispatch.require(n, "level_n", torch.int32)
+        if n.dim() != 0:
+            raise ValueError("each level count must be a 0-d tensor")
     dispatch.require(fq, "fq", torch.int32)
     dispatch.require(fr, "fr", torch.int32)
     if fq.shape != fr.shape or fq.dim() != 1:
         raise ValueError("fq and fr must be one-dimensional and of one shape")
-    if not dispatch.use_kernel(*(t for lv in level_planes for t in lv), fq, fr):
-        return cascade_probe_plain(level_planes, level_r, fq, fr, r)
+    planes_flat = (t for lv in level_planes for t in lv)
+    if not dispatch.use_kernel(*planes_flat, *level_n, fq, fr):
+        return cascade_probe_plain(level_planes, level_n, level_r, fq, fr, r)
     B = fq.shape[0]
     hit = torch.empty(B, dtype=torch.int32, device=fq.device)
 
@@ -81,15 +95,16 @@ def cascade_probe(level_planes, level_r, fq, fr, r: int):
     rem_p, occ_p, shf_p, con_p = (
         table(_I64, (lv[k].data_ptr() for lv in level_planes)) for k in range(4)
     )
+    counts = table(_I64, (n.data_ptr() for n in level_n))
     totals = table(_I64, (lv[0].shape[0] for lv in level_planes))
     widths = table(ctypes.c_int, level_r)
     fn = cuda_lib.library("cascade_probe").cascade_probe
-    fn.argtypes = [_P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+    fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
                    _P, _P, _I64, _P, _P]
     fn.restype = ctypes.c_int
     P = cuda_lib.ptr
     err = fn(
-        rem_p, occ_p, shf_p, con_p, totals, widths, L, r, P(fq), P(fr), B,
+        rem_p, occ_p, shf_p, con_p, counts, totals, widths, L, r, P(fq), P(fr), B,
         P(hit), cuda_lib.stream_handle(fq.device),
     )
     cuda_lib.check(err, "cascade_probe")

@@ -101,14 +101,13 @@ def cascade_lookup(qf_cfgs, qf_states, fuse_cfgs, fuse_states, keys):
     fqc, frc = qf.fingerprints(canon, keys)
     hitm = cascade_probe(
         [(s.rem, s.occ, s.shf, s.con) for s in qf_states],
+        [s.n for s in qf_states],  # an empty level answers no, unread
         [c.r for c in qf_cfgs],
         _i32(fqc),
         _i32(frc),
         rc,
     )
-    qf_hits = tuple(
-        (s.n > 0) & (((hitm >> lvl) & 1) > 0) for lvl, s in enumerate(qf_states)
-    )
+    qf_hits = tuple(((hitm >> lvl) & 1) > 0 for lvl in range(len(qf_states)))
     return qf_hits + tuple(
         fuse_lookup(c, s, fqc, frc) for c, s in zip(fuse_cfgs, fuse_states)
     )

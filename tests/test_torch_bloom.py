@@ -99,6 +99,14 @@ def test_bloom_count_matches_jax_kernel(case):
         (np.uint8, 1000, 4, 4096),  # B not a multiple of the TPU's 128-row tile
         (np.uint16, 777, 7, 4096),
         (np.uint8, 512, 2, 256),  # bins wider than the window: all overflow
+        # the card's kernel reads cells in groups of 2: k = 1, 3, 5 and 13
+        # end in a ragged group, k = 12 in whole ones; no B is a multiple
+        # of its 256-thread block
+        (np.uint8, 300, 1, 4096),
+        (np.uint16, 513, 3, 4096),
+        (np.uint8, 257, 5, 4096),
+        (np.uint8, 1000, 12, 4096),
+        (np.uint16, 999, 13, 4096),
     ],
 )
 def test_bloom_probe_matches_jax_kernel(cell_dtype, B, k, wblk):

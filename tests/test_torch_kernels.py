@@ -211,6 +211,7 @@ def test_cascade_plain_matches_oracles():
     cq, cr = tqf.fingerprints(canon, _t(probes))
     hit = cascade_probe.cascade_probe(
         [_tplanes(ts) for *_, ts in levels],
+        [ts.n for *_, ts in levels],
         [t.r for _, t, _, _ in levels],
         _i32(cq),
         _i32(cr),
@@ -238,6 +239,54 @@ def test_cascade_plain_matches_oracles():
         assert torch.equal(hits[lvl], ((hit >> lvl) & 1) > 0)
 
 
+def _interleaved_levels():
+    """Five QFs of p = 16 whose counts run [live, 0, live, 0, 0], as the
+    main path's cascade stands mid-stream."""
+    def empty(q):
+        jcfg, tcfg = jqf.QFConfig(q=q, r=16 - q), tqf.QFConfig(q=q, r=16 - q)
+        return jcfg, tcfg, jqf.empty(jcfg), tqf.empty(tcfg, "cpu")
+
+    return [_filled(7, 9, 90)[:4], empty(8), _filled(9, 7, 380)[:4], empty(10),
+            empty(11)]
+
+
+@pytest.mark.parametrize("case", ["interleaved", "stale_occ"])
+def test_cascade_reads_no_level_whose_count_is_zero(case):
+    levels = _interleaved_levels()
+    inserted = [_keys(0, 90)[:40], _keys(0, 380)[:40]]  # into levels 0 and 2
+    probes = np.concatenate([*inserted, _keys(5, 80)])
+    counts = [ts.n for *_, ts in levels]
+    if case == "stale_occ":  # level 2 keeps its planes but counts nothing
+        counts[2] = torch.zeros((), dtype=torch.int32)
+    canon = tqf.QFConfig(q=1, r=15)
+    cq, cr = tqf.fingerprints(canon, _t(probes))
+    hit = cascade_probe.cascade_probe(
+        [_tplanes(ts) for *_, ts in levels],
+        counts,
+        [t.r for _, t, _, _ in levels],
+        _i32(cq),
+        _i32(cr),
+        canon.r,
+    )
+    assert cascade_probe.cascade_probe.launches == 0
+    # the JAX oracle reads every level's planes; an empty level's are zero
+    jq, jr = [], []
+    for jcfg, *_ in levels:
+        a, b = jqf.fingerprints(jcfg, jnp.asarray(probes))
+        jq.append(a)
+        jr.append(b.astype(jnp.int32))
+    jh, jo = _jax_cascade_probe_ref(
+        [_jplanes(js) for _, _, js, _ in levels], jq, jr, 512
+    )
+    assert not np.asarray(jo).any()
+    want = np.asarray(jh)
+    assert (want[:40] & 1).all() and (want[40:80] & 4).all()
+    assert not (want & 0b11010).any()  # the empty levels hold nothing
+    if case == "stale_occ":
+        want = want & ~4  # a count of 0 answers no, whatever occ holds
+    np.testing.assert_array_equal(hit.numpy(), want)
+
+
 def test_cascade_rejects_mixed_widths_and_too_many_levels():
     levels = _cascade_levels()
     with pytest.raises(ValueError):
@@ -249,11 +298,18 @@ def test_cascade_rejects_mixed_widths_and_too_many_levels():
             _t(_keys(1, 4)),
         )
     plane = _tplanes(levels[0][3])
+    n = levels[0][3].n
     fq = torch.zeros(4, dtype=torch.int32)
     with pytest.raises(ValueError):
-        cascade_probe.cascade_probe([plane] * 33, [9] * 33, fq, fq, 15)
+        cascade_probe.cascade_probe([plane] * 33, [n] * 33, [9] * 33, fq, fq, 15)
     with pytest.raises(TypeError):  # the kernels take int32 fingerprints
-        cascade_probe.cascade_probe([plane], [9], fq.long(), fq.long(), 15)
+        cascade_probe.cascade_probe([plane], [n], [9], fq.long(), fq.long(), 15)
+    with pytest.raises(ValueError):  # one count per level
+        cascade_probe.cascade_probe([plane] * 2, [n], [9] * 2, fq, fq, 15)
+    with pytest.raises(TypeError):  # counts are the states' int32 n
+        cascade_probe.cascade_probe([plane], [n.long()], [9], fq, fq, 15)
+    with pytest.raises(ValueError):  # ... as 0-d tensors
+        cascade_probe.cascade_probe([plane], [n.reshape(1)], [9], fq, fq, 15)
 
 
 def test_dispatch_follows_the_inputs_device():

@@ -419,6 +419,32 @@ def test_frozen_cascade_stream_matches_jax(levels, frozen_below, backend):
     assert vars(tf.to_iolog(final.io)) == vars(jf.to_iolog(jseen[3][1].io))
 
 
+@pytest.mark.parametrize("frozen_below", [None, 1])
+def test_cascade_contains_with_empty_levels_matches_jax(frozen_below):
+    """``contains`` on the kernel path where the 4:1 stream leaves levels
+    empty between live ones: after 48 batches level 1 alone holds keys,
+    after 63 Q0 and level 1 (the main path's mid-stream checkpoint)."""
+    jspec = _cascade_spec(4, frozen_below, "reference")
+    jcfg, jst = jf.make("cascade", **jspec)
+    tcfg, tst = tf.make("cascade", device="cpu", **dict(jspec, backend="pallas"))
+    keys = _keys(60, CASCADE_KEYS)
+    step = CASCADE_KEYS // CASCADE_BATCHES
+    probes = np.concatenate([keys[::7], _keys(61, 400)])
+    counts = {}
+    for b in range(63):
+        batch = keys[b * step : (b + 1) * step]
+        jst = jf.insert(jcfg, jst, jnp.asarray(batch))
+        tst = tf.insert(tcfg, tst, _tkeys(batch))
+        if b + 1 in (48, 63):
+            counts[b + 1] = [int(s.n) for s in (tst.q0, *tst.levels)]
+            want = np.asarray(jf.contains(jcfg, jst, jnp.asarray(probes)))
+            got = tf.contains(tcfg, tst, _tkeys(probes))
+            np.testing.assert_array_equal(got.numpy(), want, err_msg=str(b + 1))
+            held = keys[: (b + 1) * step][::7].shape[0]
+            assert got[:held].all()
+    assert counts == {48: [0, 0, 576, 0, 0], 63: [180, 0, 576, 0, 0]}
+
+
 @pytest.mark.parametrize("backend", ["reference", "pallas"])
 @pytest.mark.parametrize("frozen_below", [0, 1])
 def test_frozen_probe_reads_match_cost_model(frozen_below, backend):
