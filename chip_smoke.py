@@ -8,7 +8,9 @@ Run from the repository root with no arguments::
 Phases, each timed, any failure fatal (a traceback and exit code 1):
 
 1. build    nvcc builds the six CUDA kernels from ``src/repro_torch/csrc``;
-            each is launched once on a small filter against its plain version.
+            each is launched once on a small filter against its plain version,
+            and the two quotient-filter kernels on small cases that reach
+            every branch of their kernels (``build_cases``, ``probe_cases``).
 2. kernels  each kernel against its plain PyTorch version on the card, bit
             for bit, at the main path's shapes (a q = 24 build of 12.6 M
             fingerprints, 2**22 probes, the 7-structure cascade of phase 3
@@ -212,10 +214,13 @@ def walk_spans(planes, fq, fr):
     The paper's Fig. 3 walk, one step of every live query at a time:
     back to the cluster's start, count the occupied buckets up to the
     quotient, forward to that run, compare remainders.  Returns
-    ``(present, first, last)``: the walk's answer and each query's span
+    ``(present, first, last, run)``: the walk's answer, each query's span
     of slots (``first == last == fq`` where the bucket is empty; ``last``
     stops at the last slot, where a walk of an overflowed state would run
-    off the planes).  It serves only the bound's byte count.
+    off the planes), and the slot where its run starts, the first whose
+    remainder it compares (``first`` where the bucket is empty, the
+    number of slots where the walk ran off the planes before it).  It
+    serves only the bound's byte and sector counts.
     """
     rem, occ, shf, con = planes
     t = rem.shape[0]
@@ -250,6 +255,7 @@ def walk_spans(planes, fq, fr):
         sa = s[a]
         c[a] += ((occ[sa] | shf[sa]) & ~con[sa]).to(torch.int64)
         a = a[c[a] < R[a]]
+    run = s.clone()
     fr32 = fr.to(torch.int32)  # 4. compare remainders along the run
     a = live[~off[live]]
     while a.numel():
@@ -259,7 +265,7 @@ def walk_spans(planes, fq, fr):
         s[a] += 1
         a = a[s[a] < t]
         a = a[con[s[a]]]
-    return present, b, s.clamp(max=t - 1)
+    return present, b, s.clamp(max=t - 1), run
 
 
 def walked_bytes(planes, fq, fr) -> int:
@@ -271,7 +277,7 @@ def walked_bytes(planes, fq, fr) -> int:
     """
     occ = planes[1]
     t = occ.shape[0]
-    _, first, last = walk_spans(planes, fq, fr)
+    _, first, last, _ = walk_spans(planes, fq, fr)
     fq = fq.to(torch.int64)
     walked = occ[fq]
     one = torch.ones(int(walked.sum()), dtype=torch.int32, device=fq.device)
@@ -335,6 +341,108 @@ def cascade_case(planes, nn, cfg, device):
     return level_planes, level_n, [cfg.r] * 32
 
 
+def build_cases(device):
+    """Small ``qf_build_planes`` inputs that reach every branch of its kernel.
+
+    Returns ``(label, args)`` pairs.  A q = 13 table at load 0.95 with a
+    run of 40 items at bucket 4070, so that a cluster and a run cross the
+    first 4096-slot tile's end, on 9216 slots (not a multiple of 4096);
+    the same items with fewer valid and with none valid; and items
+    packed at the end of a table with 16 slots of slack, the last ones
+    dropped past the last slot.
+    """
+    rng = np.random.default_rng(5)
+    out = []
+
+    def stream(cfg, fq):
+        fq = np.sort(fq)
+        fr = rng.integers(0, 1 << cfg.r, fq.shape[0])
+        o = np.lexsort((fr, fq))
+        fq = torch.from_numpy(fq[o]).to(device)
+        fr = torch.from_numpy(fr[o]).to(device)
+        nn, _, pos, _ = qf.probe_positions(cfg, fq, fq.shape[0])
+        return i32(pos), i32(fq), i32(fr), nn
+
+    cfg = qf.QFConfig(q=13, r=10)
+    fq = np.concatenate([rng.integers(0, cfg.m, int(0.95 * cfg.m) - 40), [4070] * 40])
+    pos, fq, fr, nn = stream(cfg, fq)
+    t = cfg.total_slots
+    out.append(("load 0.95, across a tile's end", (pos, fq, fr, nn, t)))
+    out.append(("fewer valid than items", (pos, fq, fr, nn - 1000, t)))
+    out.append(("none valid", (pos, fq, fr, nn * 0, t)))
+    cfg = qf.QFConfig(q=13, r=10, slack=16)
+    pos, fq, fr, nn = stream(cfg, rng.integers(cfg.m - 700, cfg.m, 760))
+    out.append(("items dropped past the last slot", (pos, fq, fr, nn, cfg.total_slots)))
+    return out
+
+
+def probe_cases(device, build_args):
+    """Small ``qf_probe`` inputs that reach every branch of its kernels.
+
+    Returns ``(label, planes, fq, fr)``.  On the load-0.95 table of
+    ``build_cases`` (9216 slots, clusters across 32-slot words): its
+    items (in their sorted order) and uniform keys, shuffled; 1000 of
+    them twice over (duplicates; 2000 queries, not a multiple of the
+    256-thread block); quotients below 0 and at or past the last slot;
+    no query.  On a q = 12 table with a run of 600 slots, walks of many
+    words, forward from bucket 1000 and back from 1500.  The first table
+    again, each plane a view one element past a 16-byte boundary (the
+    pack's unaligned loads).  On a q = 14 table, 300 uniform queries:
+    sparse, so the wrapper walks the byte planes.  And a state whose
+    ``overflow`` flag is set on 34 slots (a ragged last word), where
+    walks run off the end of the planes.
+    """
+    rng = np.random.default_rng(6)
+    pos, fq, fr, nn, t = build_args
+    planes = qf_build.qf_build_planes(pos, fq, fr, nn, t)
+    n = int(nn)
+    fq_u = torch.from_numpy(rng.integers(0, t, n)).to(device)
+    fr_u = torch.from_numpy(rng.integers(0, 1 << 10, n)).to(device)
+    perm = torch.from_numpy(rng.permutation(2 * n)).to(device)
+    mq, mr = torch.cat([fq[:n], i32(fq_u)])[perm], torch.cat([fr[:n], i32(fr_u)])[perm]
+    edge = torch.tensor(
+        [-1, -(2**31), t, t + 100, 2**31 - 1, 0, t - 1], dtype=torch.int32, device=device
+    )
+    out = [
+        ("unsorted members and uniform", planes, mq, mr),
+        ("duplicates", planes, mq[:1000].repeat(2), mr[:1000].repeat(2)),
+        ("quotients off the planes", planes, edge, edge),
+        ("no query", planes, mq[:0], mr[:0]),
+    ]
+    # a run of 600 at bucket 1000 on a q = 12 table: walks across many
+    # 32-slot words, forward from bucket 1000 and back from 1500
+    cfg = qf.QFConfig(q=12, r=10)
+    lq = np.sort(np.concatenate([rng.integers(0, cfg.m, 1500), [1000] * 600]))
+    lr = rng.integers(0, 1 << 10, lq.shape[0])
+    lr[lq == 1000] = np.arange(600)
+    o = np.lexsort((lr, lq))
+    lq, lr = (torch.from_numpy(a[o]).to(device) for a in (lq, lr))
+    nn, _, lpos, _ = qf.probe_positions(cfg, lq, lq.shape[0])
+    long_run = qf_build.qf_build_planes(i32(lpos), i32(lq), i32(lr), nn, cfg.total_slots)
+    fwd = torch.full((300,), 1000, dtype=torch.int32, device=device)
+    back = torch.full((300,), 1500, dtype=torch.int32, device=device)
+    tail = torch.arange(300, 600, dtype=torch.int32, device=device)
+    out.append(("a run of 600, forward", long_run, fwd, tail))
+    out.append(("a run of 600, back", long_run, back, tail))
+    shifted = tuple(torch.cat([x[:1], x])[1:] for x in planes)
+    out.append(("planes off a 16-byte boundary", shifted, mq, mr))
+    cfg = qf.QFConfig(q=14, r=10)
+    keys = uint32_keys(rng, int(0.75 * cfg.m), device)
+    state = qf.insert(cfg, qf.empty(cfg, device), keys)
+    wide = (state.rem, state.occ, state.shf, state.con)
+    q14, r14 = qf.fingerprints(cfg, torch.cat([keys[:150], uint32_keys(rng, 150, device)]))
+    out.append(("sparse queries", wide, i32(q14), i32(r14)))
+    cfg = qf.QFConfig(q=5, r=8, slack=2)
+    keys = uint32_keys(rng, 60, device)
+    state = qf.insert(cfg, qf.empty(cfg, device), keys)
+    if not bool(state.overflow):
+        raise AssertionError("the overflow case's state did not overflow")
+    q5, r5 = qf.fingerprints(cfg, torch.cat([keys, uint32_keys(rng, 60, device)]))
+    out.append(("overflowed state", (state.rem, state.occ, state.shf, state.con),
+                i32(q5), i32(r5)))
+    return out
+
+
 def launch_check(device) -> None:
     """Launch each kernel once on a small filter and hold it to its plain version.
 
@@ -383,6 +491,20 @@ def launch_check(device) -> None:
         ("qf_build_planes", planes, qf_build.build_planes_plain(*args)),
         ("qf_probe", (qf_probe.qf_probe(*qargs),), (qf_probe.probe_plain(*qargs),)),
     ]
+    bcases = build_cases(device)
+    checks += [
+        (f"qf_build_planes ({label})", qf_build.qf_build_planes(*a),
+         qf_build.build_planes_plain(*a))
+        for label, a in bcases
+    ]
+    for label, p, q, r in probe_cases(device, bcases[0][1]):
+        want = (qf_probe.probe_plain(*p, q, r),)
+        checks.append((f"qf_probe ({label})", (qf_probe.qf_probe(*p, q, r),), want))
+        # each walk, whichever the wrapper picks for this case
+        bits = qf_probe.pack_bits(*p[1:])
+        checks.append((f"qf_probe's bit walk ({label})",
+                       (qf_probe.walk(*p, q, r, bits),), want))
+        checks.append((f"qf_probe's byte walk ({label})", (qf_probe.walk(*p, q, r),), want))
     torch.cuda.synchronize()
     for name, got, want in checks:
         if max_abs_err(got, want) != 0:
@@ -449,26 +571,45 @@ def check_probe(device, built):
         raise AssertionError("qf_probe: an inserted key was not found")
     ms = cuda_ms(lambda: qf_probe.qf_probe(*planes, fq, fr), 20)
     plain_ms = cuda_ms(lambda: qf_probe.probe_plain(*planes, fq, fr), 2)
+    pack_ms = cuda_ms(lambda: qf_probe.pack_bits(*planes[1:]), 20)
+    bits = qf_probe.pack_bits(*planes[1:])
+    walk_ms = cuda_ms(lambda: qf_probe.walk(*planes, fq, fr, bits), 20)
     # fq/fr read (4 + 4 bytes), present written (1), and the walked slots
     bound_bytes = walked_bytes(planes, fq, fr) + PARITY_PROBES * (4 + 4 + 1)
+    meta, rem = walk_sectors(planes, fq, fr)
+    empty = int((~planes[1][fq.to(torch.int64)]).sum())
+    log(
+        f"  qf_probe: {ms:.5f} ms a call of {PARITY_PROBES} queries: pack "
+        f"{pack_ms:.5f} ms ({bits.numel() * 4} bytes of bit planes), walk "
+        f"{walk_ms:.5f} ms"
+    )
+    log(
+        f"  qf_probe gathers: on the byte planes about {meta + rem + empty} "
+        f"sectors (walk_sectors: {meta} metadata, {rem} rem of the runs, and "
+        f"{empty} occ of empty buckets); on the bit planes, which stay in L2, "
+        f"the {rem} rem sectors come from the card's memory: "
+        f"{rem / walk_ms / 1e6:.4f} G sectors/s over the walk"
+    )
     return kernel_row(
         "qf_probe", "qf_probe.cu", "src/repro/kernels/qf_probe.py:158",
         err, ms, plain_ms, bound_bytes, None,
     )
 
 
-def walk_sectors(planes, fq, fr) -> int:
+def walk_sectors(planes, fq, fr) -> tuple:
     """32-byte sectors the cluster walks of these queries touch, counted per
-    query: for each query whose bucket is occupied, the sectors of its
-    walked span in each of the four planes (an upper estimate: the
-    remainders are read over the run only)."""
+    query whose bucket is occupied: the sectors of its walked span in each
+    of the three metadata planes (an upper estimate: not every plane is
+    read over the whole span), and those of its run in ``rem``, which is
+    read there only.  Returns ``(metadata sectors, rem sectors)``."""
     occ = planes[1]
+    t = occ.shape[0]
     walked = occ[fq.to(torch.int64)]
-    _, first, last = walk_spans(planes, fq, fr)
-    first, last = first[walked], last[walked]
+    _, first, last, run = walk_spans(planes, fq, fr)
+    first, last, run = first[walked], last[walked], run[walked]
     meta = (last >> 5) - (first >> 5) + 1  # one-byte planes occ, shf, con
-    rem = (last >> 3) - (first >> 3) + 1  # four-byte remainders
-    return int((3 * meta + rem).sum())
+    rem = torch.where(run < t, (last >> 3) - (run.clamp(max=t - 1) >> 3) + 1, 0)
+    return int(3 * meta.sum()), int(rem.sum())
 
 
 def check_cascade(device, cfg, state, inserted):
@@ -503,7 +644,7 @@ def check_cascade(device, cfg, state, inserted):
         if n > 0:
             walk_bytes += b
             occ_reads += PARITY_PROBES
-            sectors += walk_sectors(p, lq, lr)
+            sectors += sum(walk_sectors(p, lq, lr))
     bound_bytes = walk_bytes + 4 * len(planes) + PARITY_PROBES * (4 + 4 + 4)
     old_bound = every_level_bytes + PARITY_PROBES * (4 + 4 + 4)
     log(f"  cascade_probe checked on a cascade holding {occupied} fingerprints")

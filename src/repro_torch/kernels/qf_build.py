@@ -3,15 +3,15 @@
 Replaces the TPU kernel ``repro/kernels/qf_build.py::qf_build_planes``
 (body ``_build_kernel``).  The TPU kernel tiled the scatter into S-slot
 output tiles and reduced a (2S x S) one-hot match per tile, because
-Mosaic cannot index memory dynamically.  On the card each item owns its
-slot (probe positions strictly increase), so ``csrc/qf_build.cu`` is one
-thread per item writing ``rem``/``shf``/``con`` at its slot and
-``occ`` at its bucket into planes zeroed here.
+Mosaic cannot index memory dynamically.  ``csrc/qf_build.cu`` keeps the
+tiles: one block per 4096-slot tile finds its items by a search (probe
+positions strictly increase, quotients do not decrease), builds the
+tile of all four planes in shared memory, and stores it once.
 
 Bound on the card: bytes.  It reads three int32 words per item, as the
-TPU kernel did, and writes 7 bytes per slot (the zeroing included);
-consecutive threads write consecutive slots within a cluster, so the
-stores coalesce.
+TPU kernel did, and writes 7 bytes per slot.  Every plane byte is
+written once, 16 bytes a store, so the planes are allocated here
+without the zero fill a scatter into them would need.
 """
 
 from __future__ import annotations
@@ -50,8 +50,11 @@ def qf_build_planes(pos, fq, fr, n, total_slots: int):
 
     ``pos``/``fq``/``fr`` are int32 (items,): probe positions, quotients
     and remainders (the uint32 bit pattern), the first ``n`` valid
-    (``n`` an int32 scalar tensor).  Valid items whose position is
-    outside the planes are dropped, as the JAX scatter drops them.
+    (``n`` an int32 scalar tensor), sorted: over the valid items ``fq``
+    does not decrease and ``pos`` strictly increases (as
+    ``quotient_filter.probe_positions`` gives them).  Valid items whose
+    position is outside the planes are dropped, as the JAX scatter
+    drops them; their buckets are still marked occupied.
     """
     for name, t in (("pos", pos), ("fq", fq), ("fr", fr), ("n", n)):
         dispatch.require(t, name, torch.int32)
@@ -60,10 +63,10 @@ def qf_build_planes(pos, fq, fr, n, total_slots: int):
     if not dispatch.use_kernel(pos, fq, fr, n):
         return build_planes_plain(pos, fq, fr, n, total_slots)
     dev = pos.device
-    rem = torch.zeros(total_slots, dtype=torch.int32, device=dev)
-    occ = torch.zeros(total_slots, dtype=torch.bool, device=dev)
-    shf = torch.zeros_like(occ)
-    con = torch.zeros_like(occ)
+    rem = torch.empty(total_slots, dtype=torch.int32, device=dev)
+    occ = torch.empty(total_slots, dtype=torch.bool, device=dev)
+    shf = torch.empty_like(occ)
+    con = torch.empty_like(occ)
     fn = cuda_lib.library("qf_build").qf_build_planes
     fn.argtypes = [_P, _P, _P, _P, _I64, _I64, _P, _P, _P, _P, _P]
     fn.restype = ctypes.c_int

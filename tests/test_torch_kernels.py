@@ -161,10 +161,11 @@ def test_probe_plain_matches_interpreted_kernel():
 def test_walk_spans_cover_the_cluster():
     jcfg, tcfg, js, ts, keys = _filled(*SMALL)
     fq, fr = tqf.fingerprints(tcfg, _t(keys))
-    present, first, last = chip_smoke.walk_spans(_tplanes(ts), fq, fr)
+    present, first, last, run = chip_smoke.walk_spans(_tplanes(ts), fq, fr)
     assert present.all()
     assert (first <= fq).all() and (fq <= last).all()
     assert not ts.shf[first].any()  # each walk starts at a cluster's start
+    assert (first <= run).all() and (run <= last).all()  # the run inside it
     # the walks' bytes: three metadata bytes per covered slot, at least one
     # per query, at most the three metadata planes
     walked = chip_smoke.walked_bytes(_tplanes(ts), fq, fr)
@@ -177,7 +178,7 @@ def test_overflowed_state_marks_walks_past_the_end():
     ts = tqf.insert(tcfg, tqf.empty(tcfg, "cpu"), _t(keys))
     assert bool(ts.overflow)
     fq, fr = tqf.fingerprints(tcfg, _t(keys))
-    _, _, last = chip_smoke.walk_spans(_tplanes(ts), fq, fr)
+    _, _, last, _ = chip_smoke.walk_spans(_tplanes(ts), fq, fr)
     # walks that run off the planes stop at the last slot, so the bytes
     # counted for them stay inside the planes
     assert (last == tcfg.total_slots - 1).any()
@@ -322,3 +323,126 @@ def test_dispatch_follows_the_inputs_device():
         dispatch.require(cpu, "x", torch.int64)
     with pytest.raises(ValueError):
         dispatch.require(torch.zeros(4, 2)[:, 0], "x", torch.float32)
+
+
+# Shapes the tiled build (4096-slot tiles) and the bit-plane walk (32-slot
+# words) find hard: (q, slack, items / 2**q, valid items short of all).
+# Load 0.95 puts clusters across tile and word ends; a slack of 1000 gives
+# a slot count that is no multiple of 4096 or of 32; "fewer_valid" builds
+# from the first items only; "dropped_past_end" has more items than slots.
+HARD = {
+    "load_0.95": (13, 1024, 0.95, 0),
+    "ragged_slots": (12, 1000, 0.9, 0),
+    "fewer_valid": (13, 1024, 0.9, 700),
+    "dropped_past_end": (13, 16, 1.02, 0),
+}
+
+
+def _hard_items(q, slack, load, short, seed=11):
+    """Sorted (fq, fr) items at ``load``, 12 of them at bucket 4090 (a run
+    across slot 4096), the first ``items - short`` valid; numpy arrays,
+    and the numpy probe positions of the valid ones."""
+    rng = np.random.default_rng(seed)
+    n_items = int(load * 2**q)
+    fq = np.sort(np.concatenate([rng.integers(0, 2**q, n_items - 12), [4090] * 12]))
+    fr = rng.integers(0, 2**10, n_items)
+    o = np.lexsort((fr, fq))
+    fq, fr = fq[o], fr[o]
+    n = n_items - short
+    idx = np.arange(n_items)
+    pos = idx + np.maximum.accumulate(np.where(idx < n, fq - idx, -(2**31)))
+    return fq, fr, n, pos
+
+
+def _hard_build(case):
+    q, slack, load, short = HARD[case]
+    cfg = tqf.QFConfig(q=q, r=10, slack=slack)
+    fq, fr, n, pos = _hard_items(q, slack, load, short)
+    tq, tr = torch.from_numpy(fq), torch.from_numpy(fr)
+    nn, _, tpos, _ = tqf.probe_positions(cfg, tq, n)
+    np.testing.assert_array_equal(tpos[:n].numpy(), pos[:n])
+    planes = qf_build.qf_build_planes(_i32(tpos), _i32(tq), _i32(tr), nn, cfg.total_slots)
+    return cfg, (fq, fr, n, pos), planes
+
+
+@pytest.mark.parametrize("case", sorted(HARD))
+def test_build_plain_matches_oracle_at_hard_shapes(case):
+    cfg, (fq, fr, n, pos), planes = _hard_build(case)
+    t = cfg.total_slots
+    assert t % 4096 or case != "ragged_slots"
+    valid = np.arange(fq.shape[0]) < n
+    dropped = valid & (pos >= t)
+    assert dropped.any() == (case == "dropped_past_end")
+    # the JAX oracle, from numpy inputs
+    con_b = valid & (np.arange(fq.shape[0]) > 0) & (fq == np.roll(fq, 1))
+    shf_b = valid & (pos != fq)
+    j_rem, j_meta, j_occ = jref.build_ref(
+        t,
+        jnp.asarray(np.where(valid, pos, 2**31 - 1).astype(np.int32)),
+        jnp.asarray(np.where(valid, fq, 2**31 - 1).astype(np.int32)),
+        jnp.asarray(fr.astype(np.int32)),
+        jnp.asarray(con_b),
+        jnp.asarray(shf_b),
+    )
+    rem, occ, shf, con = planes
+    np.testing.assert_array_equal(np.asarray(j_rem), rem.numpy())
+    np.testing.assert_array_equal(
+        np.asarray(j_meta), (con.to(torch.int32) | (shf.to(torch.int32) << 1)).numpy()
+    )
+    np.testing.assert_array_equal(np.asarray(j_occ) > 0, occ.numpy())
+    # a dropped item's bucket is still occupied
+    assert occ[torch.from_numpy(fq[dropped])].all()
+    assert bool(shf[4096])  # the run at 4090 crosses the first tile's end
+    assert shf[torch.arange(32, t, 32)].any()  # clusters across word ends
+
+
+@pytest.mark.parametrize("case", sorted(HARD))
+def test_probe_plain_matches_oracle_at_hard_shapes(case):
+    cfg, (fq, fr, n, _), planes = _hard_build(case)
+    rng = np.random.default_rng(12)
+    members = rng.integers(0, n, 600)
+    pq = np.concatenate([fq[members], rng.integers(0, cfg.m, 600)])
+    pr = np.concatenate([fr[members], rng.integers(0, 2**10, 600)])
+    tq, tr = torch.from_numpy(pq), torch.from_numpy(pr)
+    present = qf_probe.qf_probe(*planes, _i32(tq), _i32(tr))
+    # the JAX package's exact lookup on the same planes
+    rem, occ, shf, con = (p.numpy() for p in planes)
+    jcfg = jqf.QFConfig(q=cfg.q, r=cfg.r, slack=cfg.slack)
+    jstate = jqf.QFState(
+        rem=jnp.asarray(rem.view(np.uint32)), occ=jnp.asarray(occ),
+        shf=jnp.asarray(shf), con=jnp.asarray(con), n=jnp.int32(n),
+        overflow=jnp.asarray(case == "dropped_past_end"),
+    )
+    exact = np.asarray(
+        jqf.lookup_exact(jcfg, jstate, jnp.asarray(pq.astype(np.int32)),
+                         jnp.asarray(pr.astype(np.uint32)))
+    )
+    np.testing.assert_array_equal(present.numpy(), exact)
+    # and the cluster walk the kernels run
+    walked, _, _, _ = chip_smoke.walk_spans(planes, tq, tr)
+    np.testing.assert_array_equal(walked.numpy(), exact)
+    if case != "dropped_past_end":  # an overflowed table may lose members
+        assert exact[:600].all()
+
+
+def test_chip_smoke_cases_reach_their_branches():
+    """The small phase-1 cases of the two QF kernels are what they claim."""
+    cases = dict(chip_smoke.build_cases("cpu"))
+    pos, fq, fr, nn, t = cases["load 0.95, across a tile's end"]
+    assert t % 4096 and t > 4096
+    rem, occ, shf, con = qf_build.qf_build_planes(pos, fq, fr, nn, t)
+    assert bool(shf[4096]) and bool(con[4096])  # a cluster and a run cross 4096
+    assert int(cases["fewer valid than items"][3]) < fq.shape[0]
+    assert int(cases["none valid"][3]) == 0
+    pos, fq, fr, nn, t = cases["items dropped past the last slot"]
+    assert bool((pos >= t).any())
+    probes = {label: (p, q) for label, p, q, _ in chip_smoke.probe_cases(
+        "cpu", cases["load 0.95, across a tile's end"])}
+    n_probes = {label: q.shape[0] for label, (_, q) in probes.items()}
+    assert n_probes["no query"] == 0 and n_probes["duplicates"] % 256
+    planes, q = probes["sparse queries"]
+    assert q.shape[0] * qf_probe.DENSE < planes[0].shape[0]  # the byte walk
+    planes, q = probes["planes off a 16-byte boundary"]
+    assert planes[1].storage_offset() == 1
+    planes, q = probes["overflowed state"]
+    assert planes[0].shape[0] % 32 and q.shape[0] * qf_probe.DENSE >= planes[0].shape[0]
