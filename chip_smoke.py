@@ -7,18 +7,23 @@ Run from the repository root with no arguments::
 
 Phases, each timed, any failure fatal (a traceback and exit code 1):
 
-1. build    nvcc builds the six CUDA kernels from ``src/repro_torch/csrc``;
+1. build    nvcc builds the seven CUDA kernels from ``src/repro_torch/csrc``;
             each is launched once on a small filter against its plain version,
             and the two quotient-filter kernels on small cases that reach
-            every branch of their kernels (``build_cases``, ``probe_cases``).
+            every branch of their kernels (``build_cases``, ``probe_cases``);
+            ``fingerprint`` on every (q, r) it takes, three seeds, int32 and
+            int64 keys and both output types (``fingerprint_grid``);
+            ``fuse_probe`` on small frozen filters of four cell widths at
+            five seeds (``fuse_cases``).
 2. kernels  each kernel against its plain PyTorch version on the card, bit
             for bit, at the main path's shapes (a q = 24 build of 12.6 M
-            fingerprints, 2**22 probes, the 7-structure cascade of phase 3
-            taken mid-stream, with its RAM structure Q0 partly full), timed
-            with CUDA events beside the plain version, a library call where
-            one computes the same function, and the kernel's bound.  The
-            probes' plain version is the exact decode-and-search lookup, not
-            a copy of the kernel's walk.
+            fingerprints, 2**22 probes and the fingerprints of their keys,
+            the 7-structure cascade of phase 3 taken mid-stream, with its
+            RAM structure Q0 partly full), timed with CUDA events beside the
+            plain version, a library call where one computes the same
+            function, and the kernel's bound.  The probes' plain version is
+            the exact decode-and-search lookup, not a copy of the kernel's
+            walk.
 3. main     the paper's 1:4 SSD experiment (``benchmarks/bench_ssd.py``) with
             its 2**13 scale-down undone: 50,331,648 keys into
             ``buffered_qf(ram_q=24, disk_q=27, p=39)`` and
@@ -27,10 +32,10 @@ Phases, each timed, any failure fatal (a traceback and exit code 1):
             partly full) and after the last, 2**21 probes of inserted keys
             (no false negative allowed) and 2**21 fresh keys (false-positive
             rate at most twice the union bound); every kernel must have
-            launched.  Probe times are the median of several calls by CUDA
-            events after the answered call.  The probes account their I/O
-            on a copy of the state, so the ingest's own I/O schedule stays
-            apart for phase 7.
+            launched (``fingerprint`` hashes every insert and probe).  Probe
+            times are the median of several calls by CUDA events after the
+            answered call.  The probes account their I/O on a copy of the
+            state, so the ingest's own I/O schedule stays apart for phase 7.
 4. backends the same stream under ``backend="reference"`` (the plain PyTorch
             path): planes, ``n``, ``overflow``, hits and I/O counters equal at
             both checkpoints.
@@ -66,12 +71,18 @@ Phases, each timed, any failure fatal (a traceback and exit code 1):
             ``xor_fuse`` family on its own: ``make(keys=...)`` at full load
             on the first ``XF_KEYS`` keys, ``grow``, and ``merge`` with a
             filter of the next ``XF_KEYS``; no overflow, no false negative,
-            fp rate at most twice 2**-14.  ``fuse_probe`` must have launched,
-            and is then held against its plain version on 2**22 queries.
+            fp rate at most twice 2**-14.  ``fuse_probe`` and ``fingerprint``
+            must have launched; ``fuse_probe`` is then held against its plain
+            version (``fuse_hash`` and three gathers) on 2**22 queries, and
+            the kernel path's ``ops.contains``, ``ops.cascade_lookup`` and
+            ``ops.fuse_lookup`` run once more under
+            ``torch.cuda.set_sync_debug_mode("error")``: no host sync.
 9. frozen backends  the frozen cascade's stream under ``backend="reference"``:
             every level (fuse tables, runs, ``n``, ``n_unique``,
             ``fuse_seed``, ``overflow``; QF planes), the I/O counters and the
-            hits equal to phase 8's at both checkpoints.
+            hits equal to phase 8's at both checkpoints.  Phases 4 and 9 so
+            hold the fingerprint kernel, which hashes the pallas side's keys,
+            to the plain chain of the reference side on every key.
 10. report  one JSON line of per-kernel results, then the card's name and
             power limit, then the result line.
 
@@ -101,7 +112,7 @@ try:
     from repro_torch.core import quotient_filter as qf
     from repro_torch.filters import bloom_filter
     from repro_torch.kernels import bloom_block, cascade_probe, cuda_lib, qf_build
-    from repro_torch.kernels import fuse_probe, qf_probe
+    from repro_torch.kernels import fingerprint, fuse_probe, ops, qf_probe
 except ModuleNotFoundError as e:  # run outside the repository
     if not (e.name or "").startswith("repro_torch"):
         raise
@@ -443,6 +454,61 @@ def probe_cases(device, build_args):
     return out
 
 
+def fingerprint_grid(device) -> None:
+    """``fingerprint`` against its plain version on 1,004 int32 keys (half
+    with the high bit set, and the edges) and 1,003 int64 keys (their high
+    words set), for every (q, r) with 1 <= q <= 30 and 1 <= r <= 32, seeds
+    0, 5 and 2**31 - 1, into int32 and into int64: 23,040 launches."""
+    rng = np.random.default_rng(3)
+    k32 = np.concatenate([rng.integers(-(2**31), 2**31, 1000),
+                          [0, -1, 2**31 - 1, -(2**31)]])
+    k64 = np.concatenate([rng.integers(-(2**62), 2**62, 1000),
+                          [2**32, -1, 2**40 + 5]])
+    keysets = [torch.from_numpy(k32.astype(np.int32)).to(device),
+               torch.from_numpy(k64.astype(np.int64)).to(device)]
+    cases, bad = [], []
+    for seed in (0, 5, 2**31 - 1):
+        for q in range(1, 31):
+            for r in range(1, 33):
+                for keys in keysets:
+                    want = fingerprint.fingerprint_plain(keys, q, r, seed, torch.int64)
+                    for dtype in (torch.int32, torch.int64):
+                        got = fingerprint.fingerprint(keys, q, r, seed, dtype)
+                        same = [torch.equal(g, w.to(dtype)) for g, w in zip(got, want)]
+                        cases.append((seed, q, r, keys.dtype, dtype))
+                        bad.append(not all(same))
+    if any(bad):
+        raise AssertionError(
+            f"fingerprint disagrees with its plain version at (seed, q, r, key "
+            f"dtype, out dtype) {cases[bad.index(True)]}"
+        )
+
+
+def fuse_cases(device) -> list:
+    """Small ``fuse_probe`` inputs: a frozen filter of 180 keys at p = 39
+    (its peel runs on the card too) for each cell width 1, 8, 14 and 28,
+    probed with its keys and 180 others at its own seed (a tensor; its keys
+    must all hit) and at seeds 0, 5 and 2**31 - 1 (host ints) and 12345 (a
+    tensor).  Returns ``(label, got, want)`` checks."""
+    keys = uint32_keys(np.random.default_rng(1), 360, device)
+    out = []
+    for fp_bits in (1, 8, 14, 28):
+        fcfg = fuse.make_config(180, p=P_BITS, fp_bits=fp_bits)
+        fstate = fuse.freeze_keys(fcfg, keys[:180])
+        fq, fr = map(i32, fuse.key_fingerprints(fcfg, keys))
+        geometry = (fcfg.segment_length, fcfg.segment_count, fp_bits)
+        other = torch.full((), 12345, dtype=torch.int32, device=device)
+        for seed in (fstate.fuse_seed, 0, 5, 2**31 - 1, other):
+            args = (fstate.table, fq, fr, seed, *geometry)
+            got = fuse_probe.fuse_probe(*args)
+            label = f"fuse_probe (fp_bits {fp_bits}, seed {int(seed)})"
+            out.append((label, (got,), (fuse_probe.fuse_probe_plain(*args),)))
+            if seed is fstate.fuse_seed and not bool(got[:180].all()):
+                raise AssertionError(f"{label}: a key of the small frozen filter "
+                                     "was lost")
+    return out
+
+
 def launch_check(device) -> None:
     """Launch each kernel once on a small filter and hold it to its plain version.
 
@@ -466,13 +532,6 @@ def launch_check(device) -> None:
     bidx = bidx.to(torch.int32)
     bcells = bloom_block.bloom_count(bidx, 256)
     pcases = bloom_probe_cases(np.random.default_rng(2), bcells > 1, device)
-    # a small frozen filter (its peel runs on the card too), half its keys probed
-    fcfg = fuse.make_config(180, p=20)
-    fkeys = uint32_keys(np.random.default_rng(1), 360, device)
-    fstate = fuse.freeze_keys(fcfg, fkeys[:180])
-    fq2, fr2 = fuse.key_fingerprints(fcfg, fkeys)
-    fargs = (fstate.table, *map(i32, fuse.fuse_hash(fcfg, fq2, fr2, fstate.fuse_seed)))
-    fhit = fuse_probe.fuse_probe(*fargs)
     checks = [
         (f"bloom_probe ({c.dtype}, k = {p.shape[1]})",
          (bloom_block.bloom_probe(c, p),), (bloom_block.bloom_probe_plain(c, p),))
@@ -486,7 +545,6 @@ def launch_check(device) -> None:
         for c, h in zip(cases, chits)
     ]
     checks += [
-        ("fuse_probe", (fhit,), (fuse_probe.fuse_probe_plain(*fargs),)),
         ("bloom_count", (bcells,), (bloom_block.bloom_count_plain(bidx, 256),)),
         ("qf_build_planes", planes, qf_build.build_planes_plain(*args)),
         ("qf_probe", (qf_probe.qf_probe(*qargs),), (qf_probe.probe_plain(*qargs),)),
@@ -505,12 +563,12 @@ def launch_check(device) -> None:
         checks.append((f"qf_probe's bit walk ({label})",
                        (qf_probe.walk(*p, q, r, bits),), want))
         checks.append((f"qf_probe's byte walk ({label})", (qf_probe.walk(*p, q, r),), want))
+    checks += fuse_cases(device)
     torch.cuda.synchronize()
     for name, got, want in checks:
         if max_abs_err(got, want) != 0:
             raise AssertionError(f"{name} disagrees with its plain version")
-    if not bool(fhit[:180].all()):
-        raise AssertionError("fuse_probe: a key of the small frozen filter was lost")
+    fingerprint_grid(device)
     # of the 32 levels, 0, 3, ..., 30 and 31 are live: every key hits them all
     live = sum(1 << lvl for lvl in range(0, 31, 3)) | 1 << 31
     if not bool((chits[1][:180] == live - 2**32).all()):
@@ -563,7 +621,8 @@ def check_probe(device, built):
     rng = np.random.default_rng(SEED + 1)
     half = PARITY_PROBES // 2
     hits = keys[torch.from_numpy(rng.integers(0, keys.shape[0], half)).to(device)]
-    fq, fr = qf.fingerprints(cfg, torch.cat([hits, uint32_keys(rng, half, device)]))
+    probes = torch.cat([hits, uint32_keys(rng, half, device)])
+    fq, fr = qf.fingerprints(cfg, probes)
     fq, fr = i32(fq), i32(fr)
     got = qf_probe.qf_probe(*planes, fq, fr)
     err = max_abs_err([got], [qf_probe.probe_plain(*planes, fq, fr)])
@@ -590,9 +649,33 @@ def check_probe(device, built):
         f"the {rem} rem sectors come from the card's memory: "
         f"{rem / walk_ms / 1e6:.4f} G sectors/s over the walk"
     )
-    return kernel_row(
+    row = kernel_row(
         "qf_probe", "qf_probe.cu", "src/repro/kernels/qf_probe.py:158",
         err, ms, plain_ms, bound_bytes, None,
+    )
+    return row, probes
+
+
+def check_fingerprint(cfg, keys):
+    """fingerprint of ``check_probe``'s 2**22 keys at p = 39 in the q = 24
+    split (24, 15), into int32 (the probes' pairs; the row) and into int64
+    (the inserts' pairs; logged)."""
+    args = (keys, cfg.q, cfg.r, cfg.seed)
+    err, times = 0, {}
+    for dtype in (torch.int64, torch.int32):
+        got = fingerprint.fingerprint(*args, dtype)
+        err = max(err, max_abs_err(got, fingerprint.fingerprint_plain(*args, dtype)))
+        ms = cuda_ms(lambda: fingerprint.fingerprint(*args, dtype), 20)
+        plain_ms = cuda_ms(lambda: fingerprint.fingerprint_plain(*args, dtype), 5)
+        times[dtype] = (ms, plain_ms)
+        bound = keys.shape[0] * (4 + 2 * got[0].element_size())
+        log(f"  fingerprint of {keys.shape[0]} int32 keys into {dtype}: {ms:.5f} ms, "
+            f"plain {plain_ms:.5f} ms, bound {bound / H100_BYTES_PER_S * 1e3:.6f} ms")
+    ms, plain_ms = times[torch.int32]
+    # a 4-byte key read, two 4-byte words written
+    return kernel_row(
+        "fingerprint", "fingerprint.cu", "src/repro/core/fingerprint.py:76",
+        err, ms, plain_ms, keys.shape[0] * 12, None,
     )
 
 
@@ -1060,7 +1143,9 @@ def drive_xor_fuse(keys, fresh):
 
 def check_fuse(device, cfg, state, keys):
     """fuse_probe on level 1 of the frozen cascade, 2**22 queries: half
-    keys of the 48 batches it holds, half uniform keys."""
+    keys of the 48 batches it holds, half uniform keys.  Its plain version
+    is the route of the kernel before it took the hash: ``fuse_hash`` in
+    PyTorch, then the three gathers."""
     fc, level = cfg.fuse_cfg(FROZEN_BELOW), state.levels[FROZEN_BELOW]
     held = keys.shape[0] // BATCHES * 48
     rng = np.random.default_rng(SEED + 4)
@@ -1068,31 +1153,65 @@ def check_fuse(device, cfg, state, keys):
     pick = torch.from_numpy(rng.integers(0, held, half)).to(device)
     probes = torch.cat([keys[pick], uint32_keys(rng, half, device)])
     fq, fr, _ = canonical_queries(cfg, probes)
-    args = (level.table, *map(i32, fuse.fuse_hash(fc, fq, fr, level.fuse_seed)))
+    args = (level.table, fq, fr, level.fuse_seed, fc.segment_length,
+            fc.segment_count, fc.fp_bits)
     got = fuse_probe.fuse_probe(*args)
     err = max_abs_err([got], [fuse_probe.fuse_probe_plain(*args)])
     if not bool(got[:half].all()):
         raise AssertionError("fuse_probe: an inserted key was not found")
     ms = cuda_ms(lambda: fuse_probe.fuse_probe(*args), 20)
     plain_ms = cuda_ms(lambda: fuse_probe.fuse_probe_plain(*args), 5)
-    # the hash a frozen level's lookup runs before the kernel, in PyTorch
+    # the hash alone, as the frozen lookups ran it in PyTorch before
     hash_ms = cuda_ms(lambda: fuse.fuse_hash(fc, fq, fr, level.fuse_seed), 5)
     log(
-        f"  fuse_hash of the same {PARITY_PROBES} queries: {hash_ms:.5f} ms "
-        f"(the kernel: {ms:.5f} ms)"
+        f"  fuse_probe of {PARITY_PROBES} queries, hash included: {ms:.5f} ms; "
+        f"fuse_hash alone in PyTorch {hash_ms:.5f} ms, plain (hash and "
+        f"gathers) {plain_ms:.5f} ms; {3 * PARITY_PROBES} random cell sectors"
     )
     log(
         f"  fuse_probe checked on level 1's {level.table.numel()} cells "
         f"({int(level.n)} fingerprints); {int(got[half:].sum())} of {half} "
         "uniform keys hit"
     )
-    # positions and fingerprint read (4 x 4 bytes), three int32 cells
-    # gathered, one byte written
-    bound_bytes = PARITY_PROBES * (16 + 12 + 1)
+    # fingerprint pair read (2 x 4 bytes), three int32 cells gathered, one
+    # byte written
+    bound_bytes = PARITY_PROBES * (8 + 12 + 1)
     return kernel_row(
         "fuse_probe", "fuse_probe.cu", "src/repro/kernels/fuse_probe.py:109",
         err, ms, plain_ms, bound_bytes, None,
     )
+
+
+def check_no_sync(cfg, state, keys) -> None:
+    """The kernel-path probes of ``keys`` on the frozen cascade ``state``:
+    ``ops.contains`` on its Q0, ``ops.cascade_lookup`` over its stack and
+    ``ops.fuse_lookup`` on level 1, each run once more under
+    ``torch.cuda.set_sync_debug_mode("error")``, where a host sync raises."""
+    qf_ix = [i for i in range(cfg.levels) if not cfg.is_frozen(i)]
+    fz_ix = [i for i in range(cfg.levels) if cfg.is_frozen(i)]
+    fc, level = cfg.fuse_cfg(FROZEN_BELOW), state.levels[FROZEN_BELOW]
+    fq, fr = fingerprint.fingerprint(keys, *fc.canon, fc.seed, torch.int32)
+    calls = {
+        "ops.contains": lambda: ops.contains(cfg.q0_cfg, state.q0, keys),
+        "ops.cascade_lookup": lambda: ops.cascade_lookup(
+            (cfg.q0_cfg,) + tuple(cfg.level_cfg(i) for i in qf_ix),
+            (state.q0,) + tuple(state.levels[i] for i in qf_ix),
+            tuple(cfg.fuse_cfg(i) for i in fz_ix),
+            tuple(state.levels[i] for i in fz_ix),
+            keys,
+        ),
+        "ops.fuse_lookup": lambda: ops.fuse_lookup(fc, level, fq, fr),
+    }
+    for name, call in calls.items():
+        call()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            call()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    log(f"  no host sync in {', '.join(calls)} (sync debug mode \"error\")")
 
 
 def main(device: str = "cuda") -> int:
@@ -1107,6 +1226,7 @@ def main(device: str = "cuda") -> int:
         "qf_build_planes": qf_build.qf_build_planes,
         "qf_probe": qf_probe.qf_probe,
         "cascade_probe": cascade_probe.cascade_probe,
+        "fingerprint": fingerprint.fingerprint,
     }
     bloom_kernels = {
         "bloom_count": bloom_block.bloom_count,
@@ -1116,6 +1236,7 @@ def main(device: str = "cuda") -> int:
         "qf_build_planes": qf_build.qf_build_planes,
         "cascade_probe": cascade_probe.cascade_probe,
         "fuse_probe": fuse_probe.fuse_probe,
+        "fingerprint": fingerprint.fingerprint,
     }
     kernels = {**qf_kernels, **bloom_kernels, **frozen_kernels}
     phase_s = {}
@@ -1133,15 +1254,16 @@ def main(device: str = "cuda") -> int:
     phase_s["build"] = time.perf_counter() - t0
     log(
         f"phase build: {len(logs)} kernels built in {build_s:.3f} s; each "
-        "launched once on a q = 8 filter and equal to its plain version"
+        "launched on small cases and equal to its plain version"
     )
 
     # 2. kernels (build and probe; the cascade probe runs on phase 3's state)
     t0 = time.perf_counter()
     rows = {}
     rows["qf_build_planes"], built = check_build(device)
-    rows["qf_probe"] = check_probe(device, built)
-    del built
+    rows["qf_probe"], probe_keys = check_probe(device, built)
+    rows["fingerprint"] = check_fingerprint(built[0], probe_keys)
+    del built, probe_keys
     phase_s["kernels"] = time.perf_counter() - t0
 
     # 3. main path at the paper's scale
@@ -1386,6 +1508,7 @@ def main(device: str = "cuda") -> int:
     phase_s["frozen"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     rows["fuse_probe"] = check_fuse(device, cfg, f_final, keys)
+    check_no_sync(cfg, f_final, sample)
     del f_final
     phase_s["kernels"] += time.perf_counter() - t0
 

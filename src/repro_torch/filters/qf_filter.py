@@ -5,8 +5,9 @@ keeps the JAX package's spelling so one spec dict drives both packages:
 ``"reference"`` runs the plain PyTorch bulk ops of
 :mod:`repro_torch.core.quotient_filter`; ``"pallas"`` runs the port's
 kernel path (:mod:`repro_torch.kernels.ops`: CUDA kernels for state on
-the card, their plain versions for state on the CPU).  Deletes always
-use the plain build, as in the JAX package.
+the card, their plain versions for state on the CPU), keys hashed by
+the ``fingerprint`` kernel on insert and probe.  Deletes keep the plain
+build, as in the JAX package, and the plain hash.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from typing import NamedTuple
 import torch
 
 from ..core import quotient_filter as qf
+from ..kernels import fingerprint as kfp
 from ..kernels import ops as kops
 from .registry import RESIZE_HINTS, FilterImpl, register
 
@@ -66,6 +68,17 @@ def build_fn(backend: str):
     return kops.build_sorted if backend == "pallas" else qf.build_sorted
 
 
+def _kernel_fingerprints(core: qf.QFConfig, keys):
+    return kfp.fingerprint(keys, core.q, core.r, core.seed, torch.int64)
+
+
+def fingerprint_fn(backend: str):
+    """The keys-to-fingerprints pass of a backend's inserts: the
+    ``fingerprint`` kernel (int64 out, the core's stream contract) or the
+    plain chain."""
+    return _kernel_fingerprints if backend == "pallas" else qf.fingerprints
+
+
 def insert_fingerprints(
     core: qf.QFConfig, backend: str, state: qf.QFState, fq, fr, valid
 ) -> qf.QFState:
@@ -78,7 +91,7 @@ def insert_fingerprints(
 def insert_keys(
     core: qf.QFConfig, backend: str, state: qf.QFState, keys, k=None
 ) -> qf.QFState:
-    fq, fr = qf.fingerprints(core, keys)
+    fq, fr = fingerprint_fn(backend)(core, keys)
     return insert_fingerprints(core, backend, state, fq, fr, valid_mask(keys, k))
 
 

@@ -30,6 +30,7 @@ SOURCES = (
     "bloom_count",
     "bloom_probe",
     "fuse_probe",
+    "fingerprint",
 )
 NVCC_FLAGS = (
     "-gencode",

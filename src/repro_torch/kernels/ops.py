@@ -12,9 +12,12 @@ The JAX wrappers settled window overflows with a ``lax.cond`` on
 fuse probe gathers its three cells directly, so there is nothing to
 settle and no host sync on a probe.  The Bloom kernels take
 indices in any order, so the JAX wrappers' sorts, un-permutes and
-overflow recounts have no counterpart either.  The kernels take int32
-fingerprints and indices, as the TPU kernels did; the wrappers narrow
-the int64 streams of ``core`` to them.
+overflow recounts have no counterpart either.  The JAX wrappers jit the
+key hash with each probe; here keys become int32 fingerprint pairs in
+one ``fingerprint`` launch, which the probe kernels take as they are,
+and the fuse probe hashes those pairs to cell positions itself.  Where
+a caller hands in the int64 streams of ``core``, the wrappers narrow
+them to int32, as the TPU kernels took them.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from ..core import fuse_filter as ffc
 from ..core import quotient_filter as qf
 from . import bloom_block
 from .cascade_probe import cascade_probe
+from .fingerprint import fingerprint
 from .fuse_probe import fuse_probe
 from .qf_build import qf_build_planes
 from .qf_probe import qf_probe
@@ -58,21 +62,25 @@ def lookup(cfg: qf.QFConfig, state: qf.QFState, fq, fr) -> torch.Tensor:
 
 
 def contains(cfg: qf.QFConfig, state: qf.QFState, keys) -> torch.Tensor:
-    fq, fr = qf.fingerprints(cfg, keys)
+    fq, fr = fingerprint(keys, cfg.q, cfg.r, cfg.seed, torch.int32)
     return lookup(cfg, state, fq, fr)
 
 
 def fuse_lookup(cfg: ffc.FuseConfig, state: ffc.FuseState, fq, fr) -> torch.Tensor:
     """Binary-fuse MAY-CONTAIN for canonical fingerprints, equal to
-    ``fuse_filter.lookup_fp``: the hash in PyTorch, the three gathers in
-    the ``fuse_probe`` kernel (queries in any order, no sort)."""
-    p0, p1, p2, fp = ffc.fuse_hash(cfg, fq, fr, state.fuse_seed)
-    hit = fuse_probe(state.table, _i32(p0), _i32(p1), _i32(p2), _i32(fp))
+    ``fuse_filter.lookup_fp``: the hash and the three gathers in one
+    ``fuse_probe`` launch (queries in any order, no sort, the seed read
+    on the card)."""
+    hit = fuse_probe(
+        state.table, _i32(fq), _i32(fr), state.fuse_seed, cfg.segment_length,
+        cfg.segment_count, cfg.fp_bits,
+    )
     return (state.n > 0) & hit
 
 
 def fuse_contains(cfg: ffc.FuseConfig, state: ffc.FuseState, keys) -> torch.Tensor:
-    fq, fr = ffc.key_fingerprints(cfg, keys)
+    qc, rc = cfg.canon
+    fq, fr = fingerprint(keys, qc, rc, cfg.seed, torch.int32)
     return fuse_lookup(cfg, state, fq, fr)
 
 
@@ -83,10 +91,11 @@ def cascade_lookup(qf_cfgs, qf_states, fuse_cfgs, fuse_states, keys):
     ``qf_cfgs``/``qf_states`` are the unfrozen structures top-down (Q0
     first), ``fuse_cfgs``/``fuse_states`` the frozen levels; all must
     share the fingerprint width ``p`` and seed.  Keys are hashed once in
-    the canonical split, which the QF kernel re-splits for each level
-    (requotienting is a bit move, so the fingerprint is the same) and
-    the frozen levels hash as they are.  Returns one bool (B,) hit array
-    per structure, QF structures first, in argument order.
+    the canonical split (one ``fingerprint`` launch), which the QF kernel
+    re-splits for each level (requotienting is a bit move, so the
+    fingerprint is the same) and the frozen levels hash as they are.
+    Returns one bool (B,) hit array per structure, QF structures first,
+    in argument order.
     """
     p = qf_cfgs[0].q + qf_cfgs[0].r
     seed = qf_cfgs[0].seed
@@ -97,14 +106,13 @@ def cascade_lookup(qf_cfgs, qf_states, fuse_cfgs, fuse_states, keys):
         if c.p != p or c.seed != seed:
             raise ValueError("frozen levels must share fingerprint bits and seed")
     qc, rc = ffc.canonical_split(p)
-    canon = qf.QFConfig(q=qc, r=rc, slack=0, seed=seed)
-    fqc, frc = qf.fingerprints(canon, keys)
+    fqc, frc = fingerprint(keys, qc, rc, seed, torch.int32)
     hitm = cascade_probe(
         [(s.rem, s.occ, s.shf, s.con) for s in qf_states],
         [s.n for s in qf_states],  # an empty level answers no, unread
         [c.r for c in qf_cfgs],
-        _i32(fqc),
-        _i32(frc),
+        fqc,
+        frc,
         rc,
     )
     qf_hits = tuple(((hitm >> lvl) & 1) > 0 for lvl in range(len(qf_states)))

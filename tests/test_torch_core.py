@@ -17,6 +17,7 @@ from repro.core import quotient_filter as jqf
 from repro_torch.core import fingerprint as tfp
 from repro_torch.core import fuse_filter as tfuse
 from repro_torch.core import quotient_filter as tqf
+from repro_torch.kernels import fingerprint as kfp
 
 
 def _keys(seed, n):
@@ -61,6 +62,51 @@ def test_every_split_of_p_matches(p):
         jr = jfp.extract_bits(hi, lo, q, p - q)
         tq, tr = tfp.fingerprint(_t(keys), q, p - q, seed=5)
         _same_stream(jq, jr, tq, tr)
+
+
+# (q, r) pairs for the fingerprint kernel's wrapper: remainders inside the
+# hi word (q + r <= 32, ending at bit 32 or before it) and straddling it
+# into lo (p = 39 at the main path's split and the canonical one, q + r =
+# 33 and 62), r = 32; fingerprint's q <= 30 never starts a slice in lo
+SPLITS = [(1, 1), (12, 10), (16, 16), (1, 31), (30, 2), (1, 32), (20, 13), (30, 3),
+          (24, 15), (7, 32), (30, 32), (29, 32), (13, 26)]
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("seed", [0, 5, 2**31 - 1])
+def test_fingerprint_kernel_wrapper_matches_jax(seed, dtype):
+    """The wrapper on CPU tensors (its plain version) against the JAX
+    ``fingerprint``, for int32 keys (half with the high bit set), uint32
+    keys and int64 keys whose low 32 bits are those keys."""
+    keys = _keys(seed % 97, 1000)
+    hi, lo = jfp.hash2(jnp.asarray(keys), seed)
+    wide = keys.astype(np.int64) + (np.arange(1000, dtype=np.int64) - 500) * 2**32
+    inputs = [_t(keys), torch.from_numpy(keys.copy()), torch.from_numpy(wide)]
+    assert inputs[0].dtype == torch.int32 and (inputs[0] < 0).any()
+    for q, r in SPLITS:
+        jq = np.asarray(jfp.extract_bits(hi, lo, 0, q)).astype(np.int32)
+        jr = np.asarray(jfp.extract_bits(hi, lo, q, r)).astype(np.uint32)
+        if dtype == torch.int64:
+            want = (jq.astype(np.int64), jr.astype(np.int64))
+        else:
+            want = (jq, jr.view(np.int32))
+        for k in inputs:
+            fq, fr = kfp.fingerprint(k, q, r, seed, dtype)
+            assert fq.dtype == fr.dtype == dtype
+            np.testing.assert_array_equal(fq.numpy(), want[0], err_msg=f"{q} {r}")
+            np.testing.assert_array_equal(fr.numpy(), want[1], err_msg=f"{q} {r}")
+    assert kfp.fingerprint.launches == 0  # CPU tensors: no launch
+
+
+def test_fingerprint_kernel_wrapper_refuses_what_the_kernel_cannot_take():
+    keys = _t(_keys(0, 10))
+    for q, r in ((0, 8), (31, 8), (8, 0), (8, 33)):
+        with pytest.raises(ValueError):
+            kfp.fingerprint(keys, q, r)
+    with pytest.raises(TypeError):
+        kfp.fingerprint(keys.to(torch.int16), 8, 8)
+    with pytest.raises(TypeError):
+        kfp.fingerprint(keys, 8, 8, dtype=torch.uint32)
 
 
 def test_fold_bytes_and_bad_slices():

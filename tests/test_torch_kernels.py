@@ -446,3 +446,69 @@ def test_chip_smoke_cases_reach_their_branches():
     assert planes[1].storage_offset() == 1
     planes, q = probes["overflowed state"]
     assert planes[0].shape[0] % 32 and q.shape[0] * qf_probe.DENSE >= planes[0].shape[0]
+
+
+# the kernel path's families, small: (family, spec, keys for make)
+HASHED = {
+    "qf": ("qf", dict(q=9, r=14)),
+    "buffered_qf": ("buffered_qf", dict(ram_q=7, disk_q=10, p=22)),
+    "cascade": ("cascade", dict(ram_q=6, p=22, fanout=2, levels=2)),
+    "frozen cascade": ("cascade", dict(ram_q=7, p=30, fanout=2, levels=3,
+                                       frozen_below=1)),
+    "xor_fuse": ("xor_fuse", dict(capacity=400, p=39)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(HASHED))
+def test_kernel_path_hashes_keys_through_the_fingerprint_kernel(name, monkeypatch):
+    """Under ``backend="pallas"`` every insert hashes its keys through the
+    ``fingerprint`` wrapper into int64 pairs, every probe into int32 pairs,
+    and a frozen level takes those pairs into ``fuse_probe``; the answers
+    and states equal the ``"reference"`` spelling's."""
+    from repro_torch import filters as tf
+    from repro_torch.kernels import fingerprint as kfp
+    from repro_torch.kernels import fuse_probe
+
+    family, spec = HASHED[name]
+    keys = _t(_keys(30, 480))
+    probes = torch.cat([keys[::3], _t(_keys(31, 300))])
+    make_kw = dict(keys=keys[:300]) if family == "xor_fuse" else {}
+    calls = []
+
+    def spy(fn, label):
+        def wrapped(*args, **kw):
+            out = fn(*args, **kw)
+            calls.append((label, out[0].dtype if label == "fingerprint" else None))
+            return out
+        return wrapped
+
+    seen = {}
+    for backend in ("reference", "pallas"):
+        if backend == "pallas":
+            fp_spy = spy(kfp.fingerprint, "fingerprint")
+            monkeypatch.setattr(kfp, "fingerprint", fp_spy)
+            monkeypatch.setattr(ops, "fingerprint", fp_spy)
+            monkeypatch.setattr(ops, "fuse_probe", spy(fuse_probe.fuse_probe, "fuse"))
+        cfg, st = tf.make(family, device="cpu", backend=backend, **spec, **make_kw)
+        if family != "xor_fuse":
+            for b in range(0, 480, 96):
+                st = tf.insert(cfg, st, keys[b : b + 96])
+        inserts = list(calls)
+        hit = tf.contains(cfg, st, probes)
+        seen[backend] = (tf.to_numpy(cfg, st), hit, inserts, calls[len(inserts):])
+    (ref_state, ref_hit, _, _), (state, hit, inserts, lookups) = seen.values()
+    members = 100 if family == "xor_fuse" else 160  # keys[::3] inserted
+    assert torch.equal(hit, ref_hit) and hit[:members].all()
+    for a, b in zip(ref_state, state):
+        np.testing.assert_array_equal(a, b)
+    if family == "xor_fuse":  # construction keeps the plain hash
+        assert inserts == []
+    else:
+        assert inserts and set(inserts) == {("fingerprint", torch.int64)}
+    want_probe = {"buffered_qf": 2}.get(name, 1)
+    assert lookups.count(("fingerprint", torch.int32)) == want_probe
+    frozen = {"frozen cascade": 2, "xor_fuse": 1}.get(name, 0)  # levels 1 and 2
+    assert lookups.count(("fuse", None)) == frozen
+    assert len(lookups) == want_probe + frozen
+    if name == "frozen cascade":  # the frozen level holds keys
+        assert int(tf.stats(cfg, st)["level_counts"][1]) > 0

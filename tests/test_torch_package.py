@@ -15,6 +15,7 @@ from repro_torch.kernels import (
     bloom_block,
     cascade_probe,
     cuda_lib,
+    fingerprint,
     fuse_probe,
     qf_build,
     qf_probe,
@@ -31,6 +32,7 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
         "import repro_torch.core.bloom, repro_torch.core.bf_variants\n"
         "import repro_torch.filters.bloom_filter, repro_torch.filters.xor_fuse\n"
         "import repro_torch.core.fuse_filter, repro_torch.kernels.fuse_probe\n"
+        "import repro_torch.kernels.fingerprint\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))\n"
         "assert not bad, bad\n"
     )
@@ -98,32 +100,50 @@ def test_keys_follow_the_state_onto_its_device():
     assert int(tf.stats(cfg, st)["n"]) == 40
 
 
-# each kernel module's wrappers, with the plain versions beside them
+# each kernel module's wrappers, with the plain versions beside them, and
+# the JAX package's file that computes the same: a Pallas kernel's module,
+# or (fingerprint) the XLA code of the key hash
 KERNELS = {
-    "qf_build": (qf_build, [("qf_build_planes", "build_planes_plain")]),
-    "qf_probe": (qf_probe, [("qf_probe", "probe_plain")]),
-    "cascade_probe": (cascade_probe, [("cascade_probe", "cascade_probe_plain")]),
+    "qf_build": (qf_build, [("qf_build_planes", "build_planes_plain")],
+                 "repro/kernels/qf_build.py"),
+    "qf_probe": (qf_probe, [("qf_probe", "probe_plain")], "repro/kernels/qf_probe.py"),
+    "cascade_probe": (cascade_probe, [("cascade_probe", "cascade_probe_plain")],
+                      "repro/kernels/cascade_probe.py"),
     "bloom_block": (
         bloom_block,
         [("bloom_count", "bloom_count_plain"), ("bloom_probe", "bloom_probe_plain")],
+        "repro/kernels/bloom_block.py",
     ),
-    "fuse_probe": (fuse_probe, [("fuse_probe", "fuse_probe_plain")]),
+    "fuse_probe": (fuse_probe, [("fuse_probe", "fuse_probe_plain")],
+                   "repro/kernels/fuse_probe.py"),
+    "fingerprint": (fingerprint, [("fingerprint", "fingerprint_plain")],
+                    "repro/core/fingerprint.py"),
+}
+# the JAX package's file each CUDA source computes
+CSRC = {
+    "qf_build": "repro/kernels/qf_build.py",
+    "qf_probe": "repro/kernels/qf_probe.py",
+    "cascade_probe": "repro/kernels/cascade_probe.py",
+    "bloom_count": "repro/kernels/bloom_block.py",
+    "bloom_probe": "repro/kernels/bloom_block.py",
+    "fuse_probe": "repro/kernels/fuse_probe.py",
+    "fingerprint": "repro/core/fingerprint.py",
 }
 
 
 @pytest.mark.parametrize("module", sorted(KERNELS))
 def test_kernel_module_has_plain_version_and_launch_counter(module):
-    mod, pairs = KERNELS[module]
+    mod, pairs, jax_file = KERNELS[module]
     for wrapper, plain in pairs:
         assert callable(getattr(mod, plain))
         assert isinstance(getattr(mod, wrapper).launches, int)
-    assert "repro/kernels/" in mod.__doc__  # names the TPU kernel it replaces
+    assert jax_file in mod.__doc__  # names the JAX code it replaces
 
 
 def test_csrc_holds_the_six_sources_cuda_lib_builds():
+    # seven since the fingerprint kernel joined the six Pallas kernels' ports
     sources = sorted(p.stem for p in cuda_lib.CSRC.glob("*.cu"))
-    assert sources == sorted(cuda_lib.SOURCES)
-    assert len(sources) == 6 and "fuse_probe" in sources
-    for name in sources:  # a plain C entry point, and the TPU kernel it replaces
+    assert sources == sorted(cuda_lib.SOURCES) == sorted(CSRC)
+    for name in sources:  # a plain C entry point, and the JAX code it computes
         text = (cuda_lib.CSRC / f"{name}.cu").read_text()
-        assert 'extern "C" int ' in text and "repro/kernels/" in text
+        assert 'extern "C" int ' in text and CSRC[name] in text

@@ -7,9 +7,11 @@ the CPU):
   ``freeze_stream`` with duplicates, a seed retry, a peel that fails
   every seed, and a stream over capacity;
 * the ``fuse_probe`` kernel's plain version (what its wrapper runs for
-  CPU tensors) against both packages' ``ref`` oracle, and the port's
-  ``ops.fuse_contains`` against the JAX Pallas kernel run by the
-  interpreter;
+  CPU tensors: the hash and the three gathers from canonical
+  fingerprints) against the JAX package's ``fuse_hash`` and both
+  packages' ``ref`` oracle at several seeds, cell widths and segment
+  geometries, and the port's ``ops.fuse_contains`` against the JAX
+  Pallas kernel run by the interpreter;
 * the ``xor_fuse`` family through make/contains/probe/extend/merge/
   grow/shrink, and the cascade's ``frozen_below`` mode through a 4:1
   ingest stream whose merge-downs re-expand and re-peel frozen levels,
@@ -199,6 +201,10 @@ def _frozen_pair(n=3000, seed=9):
     return jc, tc, js, tfuse.freeze_keys(tc, _tkeys(keys))
 
 
+def _geometry(cfg):
+    return cfg.segment_length, cfg.segment_count, cfg.fp_bits
+
+
 def test_fuse_probe_plain_matches_oracles():
     jc, tc, js, ts = _frozen_pair()
     probes = np.concatenate([_keys(7, 3000)[:600], _keys(8, 600)])
@@ -206,23 +212,67 @@ def test_fuse_probe_plain_matches_oracles():
     jp = jfuse.fuse_hash(jc, jq, jr, js.fuse_seed)
     tq, tr = tfuse.key_fingerprints(tc, _tkeys(probes))
     tp = [x.to(torch.int32) for x in tfuse.fuse_hash(tc, tq, tr, ts.fuse_seed)]
-    got = fuse_probe.fuse_probe(ts.table, *tp)
+    fq, fr = tq.to(torch.int32), tr.to(torch.int32)
+    args = (ts.fuse_seed, *_geometry(tc))
+    got = fuse_probe.fuse_probe(ts.table, fq, fr, *args)
     assert fuse_probe.fuse_probe.launches == 0  # CPU tensors: no launch
-    assert torch.equal(got, fuse_probe.fuse_probe_plain(ts.table, *tp))
+    assert torch.equal(got, fuse_probe.fuse_probe_plain(ts.table, fq, fr, *args))
     assert torch.equal(got, tref.fuse_probe_ref(ts.table, *tp))
     want = jref.fuse_probe_ref(js.table, *jp)
     np.testing.assert_array_equal(np.asarray(want), got.numpy())
     assert got[:600].all()
-    # positions in any order: a permuted batch gives the permuted answer
+    # queries in any order: a permuted batch gives the permuted answer
     perm = torch.randperm(1200, generator=torch.Generator().manual_seed(0))
-    permuted = fuse_probe.fuse_probe(ts.table, *(x[perm] for x in tp))
+    permuted = fuse_probe.fuse_probe(ts.table, fq[perm], fr[perm], *args)
     assert torch.equal(permuted, got[perm])
-    with pytest.raises(TypeError):  # the kernel takes int32 positions
-        fuse_probe.fuse_probe(ts.table, *(x.long() for x in tp))
+    with pytest.raises(TypeError):  # the kernel takes int32 fingerprints
+        fuse_probe.fuse_probe(ts.table, tq, tr, *args)
+    with pytest.raises(TypeError):  # and the state's int32 seed
+        fuse_probe.fuse_probe(ts.table, fq, fr, ts.fuse_seed.long(), *_geometry(tc))
     with pytest.raises(ValueError):
-        fuse_probe.fuse_probe(ts.table, tp[0], tp[1], tp[2][:5], tp[3])
+        fuse_probe.fuse_probe(ts.table, fq, fr[:5], *args)
+    with pytest.raises(ValueError):  # a table of another geometry
+        fuse_probe.fuse_probe(ts.table[:-1], fq, fr, *args)
+    L, C, f = _geometry(tc)
+    for bad in ((L + 1, C, f), (L, 1 << 15, f), (L, C, 29), (L, C, 0)):
+        with pytest.raises(ValueError):
+            fuse_probe.fuse_probe(ts.table, fq, fr, ts.fuse_seed, *bad)
 
 
+@functools.lru_cache(maxsize=None)
+def _frozen_at(fp_bits, capacity, segment_length):
+    """A port frozen filter at p = 39 (the main path's width) and its keys."""
+    tc = tfuse.make_config(capacity, p=39, fp_bits=fp_bits, seed=3,
+                           segment_length=segment_length)
+    keys = _keys(fp_bits + capacity, capacity)
+    return tc, tfuse.freeze_keys(tc, _tkeys(keys)), keys
+
+
+@pytest.mark.parametrize("fp_bits", [1, 8, 14, 28])
+@pytest.mark.parametrize("capacity,segment_length", [(3000, None), (500, 64)])
+def test_fuse_probe_hashes_as_jax(fp_bits, capacity, segment_length):
+    """The wrapper on CPU tensors, from canonical fingerprints, against the
+    JAX package's ``fuse_hash`` and its ``fuse_probe_ref`` oracle on the
+    same table, at the state's seed and at others, as tensors and ints."""
+    tc, ts, keys = _frozen_at(fp_bits, capacity, segment_length)
+    jc = jfuse.make_config(capacity, p=39, fp_bits=fp_bits, seed=3,
+                           segment_length=segment_length)
+    assert tuple(jc) == tuple(tc)
+    assert not bool(ts.overflow)
+    probes = np.concatenate([keys, _keys(99, 700)])
+    jq, jr = jfuse.key_fingerprints(jc, jnp.asarray(probes))
+    tq, tr = tfuse.key_fingerprints(tc, _tkeys(probes))
+    fq, fr = tq.to(torch.int32), tr.to(torch.int32)  # fr: the uint32 bit pattern
+    jtable = jnp.asarray(ts.table.numpy().view(np.uint32))
+    own = int(ts.fuse_seed)
+    seeds = [ts.fuse_seed, own, 0, 5, 2**31 - 1, torch.tensor(12345, dtype=torch.int32)]
+    for seed in seeds:
+        got = fuse_probe.fuse_probe(ts.table, fq, fr, seed, *_geometry(tc))
+        jseed = jnp.int32(int(seed))
+        want = jref.fuse_probe_ref(jtable, *jfuse.fuse_hash(jc, jq, jr, jseed))
+        np.testing.assert_array_equal(np.asarray(want), got.numpy(), err_msg=str(seed))
+        if int(seed) == own:
+            assert got[:capacity].all()
 @pytest.mark.parametrize(
     "nq,empty", [(16, False), (777, False), (4096, False), (300, True)]
 )
