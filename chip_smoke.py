@@ -7,10 +7,12 @@ Run from the repository root with no arguments::
 
 Phases, each timed, any failure fatal (a traceback and exit code 1):
 
-1. build    nvcc builds the seven CUDA kernels from ``src/repro_torch/csrc``;
-            each is launched once on a small filter against its plain version,
-            and the two quotient-filter kernels on small cases that reach
-            every branch of their kernels (``build_cases``, ``probe_cases``);
+1. build    nvcc builds the seven CUDA sources from ``src/repro_torch/csrc``
+            (eight kernels: ``qf_build.cu`` holds ``qf_build_planes`` and the
+            migration's ``qf_build_span``); each is launched once on a small
+            filter against its plain version, and the quotient-filter kernels
+            on small cases that reach every branch of their kernels
+            (``build_cases``, ``probe_cases``, ``span_cases``);
             ``fingerprint`` on every (q, r) it takes, three seeds, int32 and
             int64 keys and both output types (``fingerprint_grid``);
             ``fuse_probe`` on small frozen filters of four cell widths at
@@ -19,7 +21,9 @@ Phases, each timed, any failure fatal (a traceback and exit code 1):
             for bit, at the main path's shapes (a q = 24 build of 12.6 M
             fingerprints, 2**22 probes and the fingerprints of their keys,
             the 7-structure cascade of phase 3 taken mid-stream, with its
-            RAM structure Q0 partly full), timed with CUDA events beside the
+            RAM structure Q0 partly full; a migration chunk of 61,440 and a
+            drain of 12,582,912 fingerprints appended to a q = 25 table),
+            timed with CUDA events beside the
             plain version, a library call where one computes the same
             function, and the kernel's bound.  The probes' plain version is
             the exact decode-and-search lookup, not a copy of the kernel's
@@ -83,8 +87,35 @@ Phases, each timed, any failure fatal (a traceback and exit code 1):
             hits equal to phase 8's at both checkpoints.  Phases 4 and 9 so
             hold the fingerprint kernel, which hashes the pallas side's keys,
             to the plain chain of the reference side on every key.
-10. report  one JSON line of per-kernel results, then the card's name and
-            power limit, then the result line.
+10. inram   Table 1(a) (``benchmarks/bench_inram.py``) at q = 26: ``qf`` and
+            ``bloom`` at r = k = 6, 9, 12, filled to 75%, their insert,
+            uniform-lookup and successful-lookup rates and the QF/BF ratios
+            (see ``drive_inram``).
+11. resize  the resize slice at full width (``blocking_steps``,
+            ``p99_experiment``): ``qf`` q = 24 at capacity through
+            ``auto_grow`` and ``shrink``; phase 3's ``buffered_qf`` ``grow``
+            (disk_q 27 -> 28); ``auto_grow`` of a one-level cascade over the
+            64 batches, then ``resize(fanout=4)``; phase 8's frozen cascade
+            after its batch-48 freeze ``resize(levels=2)`` (a re-peel); each
+            step with no false negative, an fp rate at most twice the bound,
+            no overflow, its I/O counters and seconds, and again under
+            ``backend="reference"`` with equal states and hits.  The two
+            restructures (``begin_restructure`` of the ``buffered_qf`` and of
+            the grown cascade, fresh batches inserted while they migrate,
+            ``finish``) must answer as their blocking counterparts.  Then
+            ``benchmarks/bench_incremental.py`` scaled by 2**8 to q = 24:
+            per-call p99 of ``auto_grow`` against ``auto_scale`` over the
+            growth window and their ratio (the repo's bar is 5; recorded,
+            not gated), ``finish`` seconds, the settled table equal to the
+            blocking grow's bit for bit, the same under ``"reference"``;
+            and one migrating insert under ``set_sync_debug_mode("error")``.
+            ``qf_build_span`` and ``qf_build_planes`` (and the probes) must
+            have launched in this phase.
+12. report  one JSON line of per-kernel results (eight rows), then the
+            card's name and power limit, then the result line.
+
+The whole run takes about four minutes of command time on one H100, and
+must stay within 1200 s.
 
 The last line of standard output is the result,
 ``{"ok": true, "device": {"platform": "gpu", ...}}``; nothing is printed
@@ -110,7 +141,7 @@ try:
     from repro_torch.core import bf_variants, bloom, cost_model
     from repro_torch.core import fuse_filter as fuse
     from repro_torch.core import quotient_filter as qf
-    from repro_torch.filters import bloom_filter
+    from repro_torch.filters import bloom_filter, incremental_resize
     from repro_torch.kernels import bloom_block, cascade_probe, cuda_lib, qf_build
     from repro_torch.kernels import fingerprint, fuse_probe, ops, qf_probe
 except ModuleNotFoundError as e:  # run outside the repository
@@ -143,6 +174,24 @@ FROZEN_LEVELS = 3
 FROZEN_BELOW = 1  # bench_xor_fuse.py's value: level 1 frozen at load 0.75
 XF_KEYS = 1 << 23  # the standalone xor_fuse filter, built at full load
 XF_FP_BITS = 14  # level 1's cell width (cost_model.fuse_fp_bits_for(13))
+
+# phase inram: bench_inram.py's Table 1(a) with its container scale undone as
+# far as int32 positions allow (q = 26; the paper has 2**31 buckets)
+INRAM_Q = 26
+INRAM_CASES = ((1 / 64, 6), (1 / 512, 9), (1 / 4096, 12))  # (fp rate, r)
+INRAM_INSERT_BATCH = 1 << 22  # bench_inram's 2**14, times 2**8
+INRAM_LOOKUP_BATCH = 1 << 24  # its 2**16, times 2**8
+TIMED_REPS = 5  # timed calls per measurement; their median is reported
+
+# phase resize: bench_incremental.py's experiment with its geometry scaled
+# by 2**8 to the main path's q = 24
+INC_Q = RAM_Q
+INC_CHUNK = 61440  # 240 * 2**8: the growth window stays about 205 batches
+INC_BATCH = 2048  # 8 * 2**8
+INC_BUF_Q = 20  # 12 + 8
+INC_REPS = 4  # replays per variant; each call's minimum is kept
+INC_CHECK_EVERY = 16  # calls between no-false-negative checks
+RESTRUCTURE_BATCHES = 8  # fresh batches inserted while a restructure migrates
 
 
 def log(*args) -> None:
@@ -387,6 +436,75 @@ def build_cases(device):
     return out
 
 
+def span_args(cfg, fq, fr, start, span, k, device):
+    """A partly built table and the next span's ``qf_build_span`` inputs.
+
+    The table holds the sorted stream's first ``start`` items (appended by
+    ``ops.build_span``); the span is the next ``span`` items, padded with
+    sentinels past the stream's end, the first ``k`` valid.  Returns
+    ``(pos, fq, fr, k, last_fq, planes)``.
+    """
+    st = qf.empty(cfg, device)
+    lp = torch.full((), -1, dtype=torch.int32, device=device)
+    lf = lp.clone()
+    if start:
+        st, lp, lf = ops.build_span(cfg, st, fq[:start], fr[:start], start, lp, lf)
+    def pad(x, v):
+        return torch.cat([x[start : start + span], x.new_full((span,), v)])[:span]
+
+    seg_q, seg_r = pad(fq, qf.INT32_MAX), pad(fr, qf.UINT32_MAX)
+    kk, pos, _, _, _ = ops._span_math(cfg, seg_q, k, lp, lf)
+    planes = (st.rem, st.occ, st.shf, st.con)
+    return i32(pos), i32(seg_q), i32(seg_r), kk, lf, planes
+
+
+def span_cases(device):
+    """Small ``qf_build_span`` inputs that reach every branch of its kernel.
+
+    Returns ``(label, args, want)``: ``args`` as ``span_args`` gives them,
+    and the planes ``quotient_filter.build_sorted`` writes for the stream's
+    items up to the span's last valid one, which the append must equal.
+    On a q = 13 table at load 0.95 with a run of 40 items at bucket 4070:
+    a span of 1,000 right after 3,000 appended items; a span that starts
+    inside a run (its first quotient is the carried ``last_fq``); ``k = 0``;
+    ``k`` the whole span (1,001 items, not a multiple of the 256-thread
+    block); and a span from item 0.  On a table with 16 slots of slack
+    packed at its end: the last items dropped past the last slot.
+    """
+    rng = np.random.default_rng(7)
+
+    def stream(cfg, fq):
+        fq = np.sort(fq)
+        fr = rng.integers(0, 1 << cfg.r, fq.shape[0])
+        o = np.lexsort((fr, fq))
+        return (torch.from_numpy(a[o]).to(device) for a in (fq, fr))
+
+    out = []
+
+    def case(label, cfg, fq, fr, start, span, k):
+        args = span_args(cfg, fq, fr, start, span, k, device)
+        n = start + k
+        want = qf.build_sorted(cfg, fq[:n], fr[:n], n)
+        out.append((label, args, (want.rem, want.occ, want.shf, want.con)))
+
+    cfg = qf.QFConfig(q=13, r=10)
+    fq, fr = stream(cfg, np.concatenate(
+        [rng.integers(0, cfg.m, int(0.95 * cfg.m) - 40), [4070] * 40]
+    ))
+    inside = int(torch.nonzero(fq[1:] == fq[:-1])[200]) + 1  # fq[i] == fq[i - 1]
+    run = int(torch.nonzero(fq == 4070)[20])  # the middle of the run of 40
+    case("right after 3000 appended items", cfg, fq, fr, 3000, 1000, 1000)
+    case("first quotient continues last_fq", cfg, fq, fr, inside, 700, 700)
+    case("inside the run of 40 across a tile's end", cfg, fq, fr, run, 300, 300)
+    case("k = 0", cfg, fq, fr, 5000, 512, 0)
+    case("k the whole span", cfg, fq, fr, 2000, 1001, 1001)
+    case("from item 0, fewer valid than the span", cfg, fq, fr, 0, 4096, 3333)
+    cfg = qf.QFConfig(q=13, r=10, slack=16)
+    fq, fr = stream(cfg, rng.integers(cfg.m - 700, cfg.m, 760))
+    case("items dropped past the last slot", cfg, fq, fr, 300, 460, 460)
+    return out
+
+
 def probe_cases(device, build_args):
     """Small ``qf_probe`` inputs that reach every branch of its kernels.
 
@@ -564,6 +682,13 @@ def launch_check(device) -> None:
                        (qf_probe.walk(*p, q, r, bits),), want))
         checks.append((f"qf_probe's byte walk ({label})", (qf_probe.walk(*p, q, r),), want))
     checks += fuse_cases(device)
+    for label, (pos, fq, fr, k, lf, planes), want in span_cases(device):
+        got = tuple(p.clone() for p in planes)
+        plain = tuple(p.clone() for p in planes)
+        qf_build.qf_build_span(pos, fq, fr, k, lf, *got)
+        qf_build.build_span_plain(pos, fq, fr, k, lf, *plain)
+        checks.append((f"qf_build_span ({label})", got, plain))
+        checks.append((f"qf_build_span ({label}) against build_sorted", got, want))
     torch.cuda.synchronize()
     for name, got, want in checks:
         if max_abs_err(got, want) != 0:
@@ -613,6 +738,64 @@ def check_build(device):
         err, ms, plain_ms, bound_bytes, library_ms,
     )
     return row, (cfg, got, keys)
+
+
+def check_span(device):
+    """qf_build_span at the main path's shapes into a q = 25 table: the
+    drain of a full q = 24 table's 12,582,912 fingerprints (``finish``'s
+    span, from an empty table) and one migration chunk of ``INC_CHUNK``
+    appended half way through it.  The row is the chunk, the per-insert
+    launch; the drain is logged beside it.  The library call is the same
+    four ``index_put_`` as the plain version, on precomputed indices."""
+    cfg = qf.QFConfig(q=RAM_Q + 1, r=P_BITS - RAM_Q - 1)
+    n = qf.QFConfig(q=RAM_Q, r=1).capacity
+    keys = uint32_keys(np.random.default_rng(SEED), n, device)
+    fq, fr = sorted_stream(cfg, keys)
+    err, times = 0, {}
+    for label, start, span in (("drain", 0, n), ("chunk", n // 2, INC_CHUNK)):
+        pos, sq, sr, k, lf, planes = span_args(cfg, fq, fr, start, span, span, device)
+        args = (pos, sq, sr, k, lf)
+        got = tuple(p.clone() for p in planes)
+        plain = tuple(p.clone() for p in planes)
+        qf_build.qf_build_span(*args, *got)
+        qf_build.build_span_plain(*args, *plain)
+        err = max(err, max_abs_err(got, plain))
+        if label == "drain":
+            want = ops.build_sorted(cfg, fq, fr, n)
+            err = max(err, max_abs_err(got, (want.rem, want.occ, want.shf, want.con)))
+            del want
+        # appending the same span again writes the same bytes: time in place
+        ms = cuda_ms(lambda: qf_build.qf_build_span(*args, *got), 20)
+        plain_ms = cuda_ms(lambda: qf_build.build_span_plain(*args, *plain), 3)
+        t = cfg.total_slots
+        keep = pos < t  # every item of these spans is valid
+        slot = pos[keep].to(torch.int64)
+        bucket = sq.to(torch.int64)
+        prev = torch.cat([lf.reshape(1), sq[:-1]])
+        values = (sr[keep], (pos != sq)[keep], (sq == prev)[keep])
+        true = torch.ones((), dtype=torch.bool, device=device)
+        rem, occ, shf, con = plain
+
+        def library():
+            rem.index_put_((slot,), values[0])
+            occ.index_put_((bucket,), true)
+            shf.index_put_((slot,), values[1])
+            con.index_put_((slot,), values[2])
+
+        library_ms = cuda_ms(library, 10)
+        bound = span * (12 + 7)  # pos/fq/fr read; rem, shf, con, occ written
+        times[label] = (ms, plain_ms, bound, library_ms)
+        log(
+            f"  qf_build_span {label} of {span} items into {t} slots: {ms:.5f} ms, "
+            f"plain {plain_ms:.5f} ms, four index_put_ {library_ms:.5f} ms, bound "
+            f"{bound / H100_BYTES_PER_S * 1e3:.6f} ms"
+        )
+        del got, plain, planes, rem, occ, shf, con
+    ms, plain_ms, bound, library_ms = times["chunk"]
+    return kernel_row(
+        "qf_build_span", "qf_build.cu", "src/repro/kernels/qf_build.py:88",
+        err, ms, plain_ms, bound, library_ms,
+    )
 
 
 def check_probe(device, built):
@@ -786,7 +969,8 @@ def drive(name, spec, keys, checkpoints, on_batch=None):
     state, not on the one the ingest goes on with.  ``on_batch(b,
     seconds)`` is called after each insert.  Returns the config, the
     ingest wall time, per checkpoint ``(probed state, hits, probe ms)``,
-    and the state after the last batch.
+    and the state after the last batch.  ``on_batch(b, seconds, state)``
+    sees each batch's state.
     """
     cfg, state = filters.make(name, **spec)
     step = keys.shape[0] // BATCHES
@@ -799,7 +983,7 @@ def drive(name, spec, keys, checkpoints, on_batch=None):
         seconds = time.perf_counter() - t0
         ingest_s += seconds
         if on_batch is not None:
-            on_batch(b, seconds)
+            on_batch(b, seconds, state)
         if b + 1 in checkpoints:
             probed, hits, probe_ms = state, [], []
             for probes in checkpoints[b + 1]:
@@ -818,6 +1002,8 @@ def union_bound(cfg, state) -> float:
             (cfg.fuse_cfg(i) if cfg.is_frozen(i) else cfg.level_cfg(i), s)
             for i, s in enumerate(state.levels)
         ]
+    elif hasattr(cfg, "core"):
+        parts = [(cfg.core, state)]
     else:
         parts = [(cfg.ram, state.ram), (cfg.disk, state.disk)]
 
@@ -1064,26 +1250,28 @@ def peel_delta(before: dict) -> dict:
 
 def freeze_watch():
     """A ``drive`` callback that records each insert batch that ran a peel:
-    its batch, wall seconds, and the peel's attempts, rounds, host reads."""
-    freezes, last = [], dict(fuse.peel_counts)
+    its batch, wall seconds, and the peel's attempts, rounds, host reads;
+    and the state right after each such batch, by batch."""
+    freezes, after, last = [], {}, dict(fuse.peel_counts)
 
-    def on_batch(b, seconds):
+    def on_batch(b, seconds, state):
         d = peel_delta(last)
         if d["freezes"]:
             freezes.append(dict(batch=b + 1, seconds=seconds, **d))
+            after[b + 1] = state
         last.update(fuse.peel_counts)
 
-    return freezes, on_batch
+    return freezes, after, on_batch
 
 
 def drive_frozen(backend, keys, checkpoints):
-    """Phase 3's stream into the frozen cascade; ``drive``'s results and
-    the freezes it ran."""
-    freezes, on_batch = freeze_watch()
+    """Phase 3's stream into the frozen cascade; ``drive``'s results, the
+    freezes it ran and the state right after each."""
+    freezes, after, on_batch = freeze_watch()
     cfg, ingest_s, out, final = drive(
         "cascade", frozen_spec(backend), keys, checkpoints, on_batch
     )
-    return cfg, ingest_s, out, final, freezes
+    return cfg, ingest_s, out, final, freezes, after
 
 
 def timed_host(fn):
@@ -1214,6 +1402,431 @@ def check_no_sync(cfg, state, keys) -> None:
     log(f"  no host sync in {', '.join(calls)} (sync debug mode \"error\")")
 
 
+# ---------------------------------------------------------------------------
+# phase inram: Table 1(a)
+# ---------------------------------------------------------------------------
+
+
+def median_ms(fn, reps: int = TIMED_REPS) -> float:
+    """Median milliseconds of ``reps`` calls of ``fn``, each timed by CUDA
+    events, after one untimed call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def members(inserted_sorted, probes):
+    """Which probes are among the inserted keys (sorted as uint32 in int64)."""
+    cand = probes.to(torch.int64) & 0xFFFFFFFF
+    last = inserted_sorted.shape[0] - 1
+    pos = torch.searchsorted(inserted_sorted, cand).clamp(max=last)
+    return inserted_sorted[pos] == cand
+
+
+def drive_inram(device):
+    """``benchmarks/bench_inram.py`` (Table 1(a)) at q = ``INRAM_Q``.
+
+    For r = 6, 9 and 12: a ``qf(q, r, slack=2048)`` and a ``bloom`` with
+    k = r and m = n k / ln 2, both under ``backend="pallas"``, both filled
+    with the same n = 0.75 * 2**q keys drawn as the bench draws them
+    (``default_rng(0)``: the fill, an insert batch, uniform lookups from
+    [2**31, 2**32)); the bench's batch sizes are 2**8 times its own, as
+    q is 2**8 times its 2**18 buckets.  The reduction from the paper's
+    2**31 buckets to 2**26 is forced: the kernel path holds slot positions
+    in int32, and both packages cap q at 30.  Timed by CUDA events (median
+    of ``TIMED_REPS`` calls): an insert of the batch into the filled
+    filter, a lookup of the uniform keys and one of ``INRAM_LOOKUP_BATCH``
+    inserted keys.  Checked: no false negative; over the uniform keys that
+    were not inserted, an fp rate at most twice the QF union bound
+    0.75 * 2**-r or the Bloom bound (1 - e**(-k n / m))**k; no overflow.
+    Returns one result dict per r; the QF/BF ratios are printed, not gated.
+    """
+    rng = np.random.default_rng(0)
+    n = int((1 << INRAM_Q) * 0.75)
+    out = []
+    for fp, r in INRAM_CASES:
+        keys = uint32_keys(rng, n, device)
+        k = max(1, round(-np.log2(fp)))
+        m_bits = int(n * k / np.log(2))
+        cfg, qst = filters.make("qf", q=INRAM_Q, r=r, slack=2048, backend="pallas")
+        (qst), fill_s, _ = timed_host(lambda: filters.insert(cfg, qst, keys))
+        bcfg, bst = filters.make("bloom", m_bits=m_bits, k=k, backend="pallas")
+        for i in range(0, n, INRAM_INSERT_BATCH):
+            bst = filters.insert(bcfg, bst, keys[i : i + INRAM_INSERT_BATCH])
+        batch = uint32_keys(rng, INRAM_INSERT_BATCH, device)
+        uni = rng.integers(2**31, 2**32, INRAM_LOOKUP_BATCH, dtype=np.int64)
+        uniform = torch.from_numpy(uni.astype(np.uint32).view(np.int32)).to(device)
+        hits = keys[:INRAM_LOOKUP_BATCH]
+        fresh = ~members(torch.sort(keys.to(torch.int64) & 0xFFFFFFFF).values, uniform)
+        res = {"r": r, "k": k, "n": n, "m_bits": m_bits, "qf_fill_s": fill_s}
+        bounds = {"qf": 0.75 * 2.0**-r, "bf": (1 - math.exp(-k * n / m_bits)) ** k}
+        for name, c, st in (("qf", cfg, qst), ("bf", bcfg, bst)):
+            ins_ms = median_ms(lambda: filters.insert(c, st, batch))
+            uni_ms = median_ms(lambda: filters.contains(c, st, uniform))
+            hit_ms = median_ms(lambda: filters.contains(c, st, hits))
+            if not bool(filters.contains(c, st, hits).all()):
+                raise AssertionError(f"inram {name} r={r}: false negative")
+            fp_rate = float(filters.contains(c, st, uniform)[fresh].float().mean())
+            if fp_rate > 2 * bounds[name]:
+                raise AssertionError(
+                    f"inram {name} r={r}: fp {fp_rate} > 2 x {bounds[name]}"
+                )
+            res[name] = {
+                "insert_ops_per_s": INRAM_INSERT_BATCH / ins_ms * 1e3,
+                "lookup_uniform_ops_per_s": INRAM_LOOKUP_BATCH / uni_ms * 1e3,
+                "lookup_success_ops_per_s": INRAM_LOOKUP_BATCH / hit_ms * 1e3,
+                "insert_ms": ins_ms, "lookup_uniform_ms": uni_ms,
+                "lookup_success_ms": hit_ms, "fp_rate": fp_rate,
+                "fp_bound": bounds[name],
+            }
+        if bool(filters.stats(cfg, qst)["overflow"]):
+            raise AssertionError(f"inram qf r={r}: overflow")
+        res["qf_over_bf"] = {
+            what: res["qf"][f"{what}_ops_per_s"] / res["bf"][f"{what}_ops_per_s"]
+            for what in ("insert", "lookup_uniform", "lookup_success")
+        }
+        res["uniform_fresh"] = int(fresh.sum())
+        log(f"phase inram r={r}: {json.dumps(res)}")
+        out.append(res)
+        del qst, bst, keys, hits, uniform, batch
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase resize: blocking and incremental resizing at the main path's width
+# ---------------------------------------------------------------------------
+
+
+def check_resized(label, cfg, state, inserted, fresh, seconds):
+    """No false negative over every inserted key, an fp rate on ``fresh``
+    at most twice the bound, no overflow; logs the step."""
+    if not bool(filters.contains(cfg, state, inserted).all()):
+        raise AssertionError(f"resize {label}: false negative")
+    fp_rate = float(filters.contains(cfg, state, fresh).float().mean())
+    bound = union_bound(cfg, state)
+    if fp_rate > 2 * bound:
+        raise AssertionError(f"resize {label}: fp rate {fp_rate} > 2 x {bound}")
+    st = filters.stats(cfg, state)
+    if bool(st["overflow"]):
+        raise AssertionError(f"resize {label}: overflow")
+    io = ""
+    if hasattr(state, "io"):
+        io = f"; io {json.dumps({k: float(v) for k, v in state.io._asdict().items()})}"
+    shape = {k: v for k, v in cfg._asdict().items() if k in (
+        "q", "r", "disk_q", "levels", "fanout", "frozen_below")}
+    counts = st["level_counts"].tolist() if "level_counts" in st else int(st["n"])
+    log(
+        f"  {cfg.backend} {label}: {seconds:.5f} s; now {json.dumps(shape)}, "
+        f"n {counts}; {inserted.shape[0]} inserted keys hit; fp rate "
+        f"{fp_rate:.4e} (bound {bound:.4e}){io}"
+    )
+
+
+def restructure(label, cfg, state, blocking, batches, **target):
+    """``begin_restructure`` of ``(cfg, state)`` toward ``target``, the
+    ``batches`` inserted while it migrates (and into the blocking
+    counterpart ``(cfg, state)`` too), then ``finish``.  Returns the
+    finished pair, the blocking pair with the batches, and the seconds of
+    ``finish`` (those of begin and of the inserts are logged)."""
+    (mcfg, ms), begin_s, _ = timed_host(lambda: incremental_resize.begin_restructure(
+        cfg, state, chunk=INC_CHUNK, buf_q=INC_BUF_Q, **target
+    ))
+    bcfg, bst = blocking
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches:
+        ms = filters.insert(mcfg, ms, b)
+    torch.cuda.synchronize()
+    insert_s = time.perf_counter() - t0
+    for b in batches:
+        bst = filters.insert(bcfg, bst, b)
+    (fcfg, fst), finish_s, _ = timed_host(lambda: incremental_resize.finish(mcfg, ms))
+    if fcfg != bcfg:
+        raise AssertionError(f"{label}: restructured to {fcfg}, blocking {bcfg}")
+    log(
+        f"  {cfg.backend} {label} restructure: begin {begin_s:.5f} s, "
+        f"{len(batches)} migrating inserts {insert_s:.5f} s, finish {finish_s:.5f} s"
+    )
+    return (fcfg, fst), (bcfg, bst), finish_s
+
+
+def same_membership(label, a, b, probes) -> None:
+    """Two ``(cfg, state)`` pairs answer every probe alike."""
+    if not torch.equal(filters.contains(*a, probes), filters.contains(*b, probes)):
+        raise AssertionError(f"{label}: membership differs from the blocking resize")
+
+
+def blocking_steps(backend, keys, fresh, buffered, frozen48):
+    """Phase resize (a): the blocking steps, and (b)'s two restructures.
+
+    Yields ``(label, cfg, state, seconds, inserted keys)`` after each step,
+    states on the card.  ``buffered`` is phase 3's (or 4's) final
+    ``buffered_qf`` pair, ``frozen48`` phase 8's (or 9's) frozen cascade
+    right after its batch-48 freeze.
+    """
+    step = keys.shape[0] // BATCHES
+    cfg, st = filters.make("qf", q=RAM_Q, r=P_BITS - RAM_Q, backend=backend)
+    cap = cfg.core.capacity
+    st = filters.insert(cfg, st, keys[:cap])
+    inserted = keys[: cap + step]
+    nxt = keys[cap : cap + step]
+    (cfg, st), s, _ = timed_host(lambda: filters.auto_grow(cfg, st, nxt))
+    yield "qf auto_grow", cfg, st, s, inserted
+    (cfg, st), s, _ = timed_host(lambda: filters.shrink(cfg, st))
+    yield "qf shrink", cfg, st, s, inserted
+    del st
+
+    bcfg, bst = buffered
+    (gcfg, gst), s, _ = timed_host(lambda: filters.grow(bcfg, bst))
+    yield "buffered_qf grow", gcfg, gst, s, keys
+    extra = [
+        uint32_keys(np.random.default_rng(SEED + 5 + b), INC_BATCH, keys.device)
+        for b in range(RESTRUCTURE_BATCHES)
+    ]
+    everything = torch.cat([keys] + extra)
+    (fcfg, fst), (gcfg, gst), s = restructure(
+        "buffered_qf", bcfg, bst, (gcfg, gst), extra, disk_q=RAM_Q + 4
+    )
+    if backend == "pallas":  # the reference's states are held equal to these
+        same_membership(
+            "buffered_qf", (fcfg, fst), (gcfg, gst), torch.cat([everything, fresh])
+        )
+    yield "buffered_qf restructure(disk_q+1)", fcfg, fst, s, everything
+    del fst, gst, bst, buffered
+
+    ccfg, cst = filters.make(
+        "cascade", ram_q=RAM_Q, p=P_BITS, fanout=2, levels=1, backend=backend
+    )
+    grow_s = []
+    for b in range(BATCHES):
+        levels = ccfg.levels
+        (ccfg, cst), s, _ = timed_host(
+            lambda: filters.auto_grow(ccfg, cst, keys[b * step : (b + 1) * step])
+        )
+        if ccfg.levels != levels:
+            grow_s.append((b + 1, ccfg.levels, s))
+    log(f"  {backend} cascade auto_grow: (batch, levels, s of that call) {grow_s}")
+    yield "cascade auto_grow", ccfg, cst, sum(g[2] for g in grow_s), keys
+    (rcfg, rst), s, _ = timed_host(lambda: filters.resize(ccfg, cst, fanout=4))
+    yield "cascade resize(fanout=4)", rcfg, rst, s, keys
+    (fcfg, fst), (rcfg, rst), s = restructure(
+        "cascade", ccfg, cst, (rcfg, rst), extra, fanout=4
+    )
+    if backend == "pallas":
+        same_membership(
+            "cascade", (fcfg, fst), (rcfg, rst), torch.cat([everything, fresh])
+        )
+    yield "cascade restructure(fanout=4)", fcfg, fst, s, everything
+    del fst, rst, cst
+
+    zcfg, zst = frozen48
+    (zcfg, zst), s, d = timed_host(lambda: filters.resize(zcfg, zst, levels=2))
+    log(f"  {backend} frozen cascade resize(levels=2) peel: {json.dumps(d)}")
+    yield "frozen cascade resize(levels=2)", zcfg, zst, s, keys[: 48 * step]
+
+
+def drive_calls(cfg, st, stream, step, stop_after_growth=None, check=None):
+    """bench_incremental's ``_drive``: each call's wall latency (the card
+    synchronised after it) and whether it lies in the growth window.
+    ``check(i, cfg, state)`` runs after every ``INC_CHECK_EVERY``-th call,
+    outside the timing."""
+    lats, growth, tail = [], [], None
+    for i, batch in enumerate(stream):
+        was = incremental_resize.is_migrating(cfg)
+        q_before = getattr(cfg, "q", None)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cfg, st = step(cfg, st, batch)
+        torch.cuda.synchronize()
+        lats.append(time.perf_counter() - t0)
+        now = incremental_resize.is_migrating(cfg)
+        grew = not was and not now and getattr(cfg, "q", None) != q_before
+        growth.append(was or now or grew)
+        if check is not None and (i + 1) % INC_CHECK_EVERY == 0:
+            check(i, cfg, st)
+        if stop_after_growth is not None and grew and tail is None:
+            tail = stop_after_growth
+        if tail is not None:
+            tail -= 1
+            if tail <= 0:
+                break
+    return np.asarray(lats), np.asarray(growth), cfg, st
+
+
+def p99_experiment(backend, keys, reps, checked):
+    """Phase resize (b): ``benchmarks/bench_incremental.py`` at q = ``INC_Q``.
+
+    A ``qf(q, r=P_BITS - q)`` filled with phase 3's first capacity -
+    ``INC_BATCH`` keys takes the bench's stream (``default_rng(7)``,
+    batches of ``INC_BATCH`` keys from [2**31, 2**32)) through
+    ``auto_grow`` (blocking) and ``auto_scale`` (incremental, chunk
+    ``INC_CHUNK``, buffer q ``INC_BUF_Q``), ``reps`` replays each, each
+    call's minimum kept.  With ``checked``, the first incremental replay
+    checks every ``INC_CHECK_EVERY`` calls that no inserted key is missed,
+    and the settled table that none is missed at the end.  One more
+    blocking run takes the whole stream; its table must equal the settled
+    incremental one bit for bit.  Returns the numbers and both final pairs.
+    """
+    cap = qf.QFConfig(q=INC_Q, r=1).capacity
+    fill = keys[: cap - INC_BATCH]
+    rng = np.random.default_rng(7)
+    n_batches = cap // INC_CHUNK + 16
+    stream = [
+        torch.from_numpy(
+            rng.integers(2**31, 2**32, INC_BATCH, dtype=np.int64).astype(np.uint32)
+            .view(np.int32)
+        ).to(fill.device)
+        for _ in range(n_batches)
+    ]
+    spec = dict(q=INC_Q, r=P_BITS - INC_Q, backend=backend)
+
+    def filled():
+        cfg, st = filters.make("qf", **spec)
+        st = filters.insert(cfg, st, fill)
+        torch.cuda.synchronize()
+        return cfg, st
+
+    blocking = lambda c, s, b: filters.auto_grow(c, s, b)
+    incremental = lambda c, s, b: filters.auto_scale(
+        c, s, b, chunk=INC_CHUNK, buf_q=INC_BUF_Q
+    )
+
+    def check(i, cfg, st):
+        inserted = torch.cat([fill] + stream[: i + 1])
+        if not bool(filters.contains(cfg, st, inserted).all()):
+            raise AssertionError(f"incremental call {i}: false negative")
+
+    def min_of_reps(step, stop=None, checked=False):
+        best = win = final = None
+        for rep in range(reps):
+            lats, growth, cfg, st = drive_calls(
+                *filled(), stream, step, stop, check if checked and rep == 0 else None
+            )
+            if best is None:
+                best, win = lats, growth
+            else:
+                n = min(len(best), len(lats))
+                if not (win[:n] == growth[:n]).all():
+                    raise AssertionError("replays diverged")
+                best, win = np.minimum(best[:n], lats[:n]), win[:n]
+            final = (cfg, st)
+        return best, win, final
+
+    lat_b, win_b, _ = min_of_reps(blocking, stop=3)
+    lat_i, win_i, inc = min_of_reps(incremental, checked=checked)
+    if not (win_b.any() and win_i.any()):
+        raise AssertionError("the experiment never grew")
+    inc = filters.settle(*inc)
+    _, _, cfg, st = drive_calls(*filled(), stream, blocking)
+    blk = (cfg, st)
+    diff = differing_fields(inc[1], blk[1])
+    if inc[0] != blk[0] or diff:
+        raise AssertionError(f"settled incremental table != blocking grow: {diff}")
+    if checked:
+        check(len(stream) - 1, *inc)
+    # finish alone, on a migration half drained (second call timed)
+    finish_s = []
+    for _ in range(2):
+        mcfg, ms = incremental_resize.begin(*filled(), chunk=INC_CHUNK, buf_q=INC_BUF_Q)
+        for b in stream[: n_batches // 2]:
+            ms = filters.insert(mcfg, ms, b)
+        _, s, _ = timed_host(lambda: incremental_resize.finish(mcfg, ms))
+        finish_s.append(s)
+    p99_b = float(np.percentile(lat_b[win_b], 99))
+    p99_i = float(np.percentile(lat_i[win_i], 99))
+    res = {
+        "backend": backend,
+        "replays": reps,
+        "p99_blocking_s": p99_b,
+        "p99_incremental_s": p99_i,
+        "ratio": p99_b / p99_i,
+        "bar": 5,
+        "p50_blocking_s": float(np.percentile(lat_b[win_b], 50)),
+        "p50_incremental_s": float(np.percentile(lat_i[win_i], 50)),
+        "max_blocking_s": float(lat_b[win_b].max()),
+        "max_incremental_s": float(lat_i[win_i].max()),
+        "window_blocking": int(win_b.sum()),
+        "window_incremental": int(win_i.sum()),
+        "finish_s": finish_s[-1],
+        "calls": len(stream),
+    }
+    log(f"  p99 experiment: {json.dumps(res)}")
+    return res, inc, blk, stream
+
+
+def bulk_breakdown(keys) -> dict:
+    """Where a blocking growth call's time goes: the steps of ``grow`` and
+    of the insert after it, on a ``qf`` at q = ``INC_Q`` filled to its
+    capacity, each the median of ``TIMED_REPS`` calls by CUDA events."""
+    cfg, st = filters.make("qf", q=INC_Q, r=P_BITS - INC_Q, backend="pallas")
+    cap = cfg.core.capacity
+    st = filters.insert(cfg, st, keys[:cap])
+    batch = keys[cap : cap + INC_BATCH]
+    core = cfg.core
+    wide = core._replace(q=core.q + 1, r=core.r - 1)
+    qs, rs, n = qf.extract(core, st)
+    wq, wr = qf._requotient(qs, rs, core, wide)
+    pad = wide.total_slots - wq.shape[0]
+    wq = torch.cat([wq, wq.new_full((pad,), qf.INT32_MAX)])
+    wr = torch.cat([wr, wr.new_full((pad,), qf.UINT32_MAX)])
+    gcfg, grown = filters.grow(cfg, st)
+    fq, fr = fingerprint.fingerprint(batch, wide.q, wide.r, wide.seed, torch.int64)
+    allq, allr = torch.cat([wq, fq]), torch.cat([wr, fr])
+    valid = torch.cat([
+        torch.arange(wq.shape[0], device=wq.device) < n,
+        torch.ones_like(fq, dtype=torch.bool),
+    ])
+    nn, _, pos, _ = qf.probe_positions(wide, wq, n)
+    idx = torch.arange(wq.shape[0], device=wq.device)
+    d = torch.where(idx < nn, wq - idx, -qf.INT32_MAX)
+    planes_args = (i32(pos), i32(wq), i32(wr), nn, wide.total_slots)
+    out = {
+        "extract q": median_ms(lambda: qf.extract(core, st)),
+        "requotient and pad": median_ms(lambda: qf._requotient(qs, rs, core, wide)),
+        "build q+1": median_ms(lambda: ops.build_sorted(wide, wq, wr, n)),
+        "of which probe_positions": median_ms(lambda: qf.probe_positions(wide, wq, n)),
+        "of which torch.cummax": median_ms(lambda: torch.cummax(d, 0)),
+        "of which qf_build_planes": median_ms(
+            lambda: qf_build.qf_build_planes(*planes_args)
+        ),
+        "grow": median_ms(lambda: filters.grow(cfg, st)),
+        "extract q+1": median_ms(lambda: qf.extract(wide, grown)),
+        "sort q+1 and a batch": median_ms(lambda: qf._pad_sort(allq, allr, valid)),
+        "insert a batch at q+1": median_ms(lambda: filters.insert(gcfg, grown, batch)),
+    }
+    log(f"  blocking growth call's steps at q = {INC_Q} (ms): {json.dumps(out)}")
+    return out
+
+
+def check_migrating_no_sync(keys) -> None:
+    """One migrating ``incremental_resize.insert`` (a chunk moved, a batch
+    into the side buffer) under ``torch.cuda.set_sync_debug_mode("error")``."""
+    cfg, st = filters.make("qf", q=INC_Q, r=P_BITS - INC_Q, backend="pallas")
+    cap = cfg.core.capacity
+    st = filters.insert(cfg, st, keys[:cap])
+    mcfg, ms = incremental_resize.begin(cfg, st, chunk=INC_CHUNK, buf_q=INC_BUF_Q)
+    batch = keys[cap : cap + INC_BATCH]
+    ms = filters.insert(mcfg, ms, batch)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ms = filters.insert(mcfg, ms, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log("  no host sync in a migrating incremental_resize.insert "
+        "(sync debug mode \"error\")")
+
+
 def main(device: str = "cuda") -> int:
     if filters is None:
         print("chip_smoke.py: src/repro_torch is missing", file=sys.stderr)
@@ -1238,7 +1851,15 @@ def main(device: str = "cuda") -> int:
         "fuse_probe": fuse_probe.fuse_probe,
         "fingerprint": fingerprint.fingerprint,
     }
-    kernels = {**qf_kernels, **bloom_kernels, **frozen_kernels}
+    inram_kernels = {
+        n: k for n, k in {**qf_kernels, **bloom_kernels}.items() if n != "cascade_probe"
+    }
+    resize_kernels = {
+        **qf_kernels,
+        "qf_build_span": qf_build.qf_build_span,
+        "fuse_probe": fuse_probe.fuse_probe,
+    }
+    kernels = {**qf_kernels, **bloom_kernels, **frozen_kernels, **resize_kernels}
     phase_s = {}
     log(f"card: {card_line()}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
@@ -1261,6 +1882,7 @@ def main(device: str = "cuda") -> int:
     t0 = time.perf_counter()
     rows = {}
     rows["qf_build_planes"], built = check_build(device)
+    rows["qf_build_span"] = check_span(device)
     rows["qf_probe"], probe_keys = check_probe(device, built)
     rows["fingerprint"] = check_fingerprint(built[0], probe_keys)
     del built, probe_keys
@@ -1295,6 +1917,8 @@ def main(device: str = "cuda") -> int:
         cfg, ingest_s, out, final = drive(name, spec, keys, checkpoints)
         results[name] = (cfg, out)
         paper_logs[name] = qf_io(cfg, final, paper_lookups)
+        if name == "buffered_qf":  # phase resize grows it
+            buffered = {"pallas": (cfg, final)}
         del final
         log(
             f"phase main {name}: {n_total} keys ingested at "
@@ -1343,7 +1967,10 @@ def main(device: str = "cuda") -> int:
     # 4. the reference backend on the same stream
     t0 = time.perf_counter()
     for name, spec in specs("reference").items():
-        _, ingest_s, out, _ = drive(name, spec, keys, checkpoints)
+        r_cfg, ingest_s, out, r_final = drive(name, spec, keys, checkpoints)
+        if name == "buffered_qf":
+            buffered["reference"] = (r_cfg, r_final)
+        del r_final
         _, k_out = results.pop(name)
         for batches, (state, hits, probe_ms) in out.items():
             k_state, k_hits, _ = k_out[batches]
@@ -1463,7 +2090,10 @@ def main(device: str = "cuda") -> int:
     t0 = time.perf_counter()
     for k in kernels.values():
         k.launches = 0
-    cfg, ingest_s, f_out, f_final, freezes = drive_frozen("pallas", keys, checkpoints)
+    cfg, ingest_s, f_out, f_final, freezes, f_after = drive_frozen(
+        "pallas", keys, checkpoints
+    )
+    frozen48 = {"pallas": (cfg, f_after[48])}  # phase resize re-shapes it
     fc = cfg.fuse_cfg(FROZEN_BELOW)
     qf_bytes = cfg.level_cfg(FROZEN_BELOW).size_bytes
     log(
@@ -1514,7 +2144,11 @@ def main(device: str = "cuda") -> int:
 
     # 9. the frozen cascade under the reference backend
     t0 = time.perf_counter()
-    _, ingest_s, r_out, _, r_freezes = drive_frozen("reference", keys, checkpoints)
+    r_cfg, ingest_s, r_out, _, r_freezes, r_after = drive_frozen(
+        "reference", keys, checkpoints
+    )
+    frozen48["reference"] = (r_cfg, r_after[48])
+    del f_after, r_after
     for batches, (state, hits, probe_ms) in r_out.items():
         k_state, k_hits, _ = f_out[batches]
         diff = differing_fields(k_state, state)
@@ -1540,7 +2174,77 @@ def main(device: str = "cuda") -> int:
     torch.cuda.empty_cache()
     phase_s["frozen_backends"] = time.perf_counter() - t0
 
-    # 10. report
+    # 10. Table 1(a): the in-RAM QF against the Bloom filter
+    t0 = time.perf_counter()
+    for k in kernels.values():
+        k.launches = 0
+    inram = drive_inram(device)
+    inram_launches = {n: k.launches for n, k in inram_kernels.items()}
+    log(f"  inram-path launches: {inram_launches}")
+    for n, c in inram_launches.items():
+        if c <= 0:
+            raise AssertionError(f"{n} was not launched on the inram path")
+    log("inram: " + json.dumps({
+        f"r={res['r']}": {"qf_over_bf": res["qf_over_bf"], "paper": {
+            "insert": "1.3-2.5", "lookup": "0.6-0.7"}} for res in inram
+    }))
+    phase_s["inram"] = time.perf_counter() - t0
+
+    # 11. resizing: blocking steps and restructures under both backends,
+    # then bench_incremental's experiment
+    t0 = time.perf_counter()
+    for k in kernels.values():
+        k.launches = 0
+    probe_set = torch.cat([keys[:PROBES], fresh])
+    steps = {
+        b: blocking_steps(b, keys, fresh, buffered[b], frozen48[b])
+        for b in ("pallas", "reference")
+    }
+    del buffered, frozen48
+    for (label, kc, ks, sec, inserted), (_, rc, rs, _, _) in zip(
+        steps["pallas"], steps["reference"]
+    ):
+        check_resized(label, kc, ks, inserted, fresh, sec)
+        diff = differing_fields(ks, rs)
+        if rc._replace(backend="pallas") != kc or diff:
+            raise AssertionError(f"resize {label}: backends differ in {diff or 'cfg'}")
+        if not torch.equal(filters.contains(kc, ks, probe_set),
+                           filters.contains(rc, rs, probe_set)):
+            raise AssertionError(f"resize {label}: backends differ in hits")
+        del ks, rs
+        torch.cuda.empty_cache()
+    del steps
+    log("phase resize: every blocking step and restructure held; reference "
+        "equals pallas in planes, fuse tables, n, overflow, io and hits")
+    p99, inc, blk, _ = p99_experiment("pallas", keys, INC_REPS, checked=True)
+    r_p99, r_inc, r_blk, _ = p99_experiment("reference", keys, 1, checked=False)
+    for label, a, b in (("incremental", inc, r_inc), ("blocking", blk, r_blk)):
+        diff = differing_fields(a[1], b[1])
+        if b[0]._replace(backend="pallas") != a[0] or diff:
+            raise AssertionError(f"p99 {label}: backends differ in {diff or 'cfg'}")
+        if not torch.equal(filters.contains(*a, probe_set),
+                           filters.contains(*b, probe_set)):
+            raise AssertionError(f"p99 {label}: backends differ in hits")
+    del inc, blk, r_inc, r_blk
+    torch.cuda.empty_cache()
+    log(
+        f"phase resize p99 (bench_incremental at q = {INC_Q}): blocking "
+        f"{p99['p99_blocking_s']:.6f} s, incremental {p99['p99_incremental_s']:.6f} s, "
+        f"ratio {p99['ratio']:.3f} against the repo's bar of 5 (recorded, not "
+        f"gated); finish {p99['finish_s']:.5f} s; the reference backend's "
+        "settled and blocking tables equal these"
+    )
+    resize_launches = {n: k.launches for n, k in resize_kernels.items()}
+    log(f"  resize-path launches: {resize_launches}")
+    for n, c in resize_launches.items():
+        if c <= 0:
+            raise AssertionError(f"{n} was not launched on the resize path")
+    launches["qf_build_span"] = resize_launches["qf_build_span"]
+    check_migrating_no_sync(keys)
+    bulk_breakdown(keys)
+    phase_s["resize"] = time.perf_counter() - t0
+
+    # 12. report
     for n, row in rows.items():
         row["launches"] = launches[n]
         if row["max_abs_err"] != 0:

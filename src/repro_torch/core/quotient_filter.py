@@ -495,6 +495,34 @@ def merge_streams_many(parts):
     return aq, ar, na
 
 
+def resize(
+    cfg: QFConfig, state: QFState, new_q: int, build=None
+) -> tuple[QFConfig, QFState]:
+    """Dynamically resize (paper §3 'Resizing'): move bits between the
+    remainder and the quotient, keeping every fingerprint.
+
+    One decode, one requotient (monotone, so the stream stays sorted),
+    padding to the new slot count or a sort and cut when shrinking, then
+    one build; ``build`` swaps the rebuild pass as in :func:`multi_merge`.
+    """
+    if build is None:
+        build = build_sorted
+    new_cfg = cfg._replace(q=new_q, r=cfg.q + cfg.r - new_q)
+    qs, rs, n = extract(cfg, state)
+    qs, rs = _requotient(qs, rs, cfg, new_cfg)
+    dev = qs.device
+    pad = new_cfg.total_slots - qs.shape[0]
+    if pad > 0:
+        qs = torch.cat([qs, torch.full((pad,), INT32_MAX, dtype=qs.dtype, device=dev)])
+        rs = torch.cat([rs, torch.full((pad,), UINT32_MAX, dtype=rs.dtype, device=dev)])
+    elif pad < 0:
+        # shrinking: all valid entries must fit; the sort pushes pads last
+        qs, rs = _pad_sort(qs, rs, torch.arange(qs.shape[0], device=dev) < n)
+        qs, rs = qs[: new_cfg.total_slots], rs[: new_cfg.total_slots]
+    new = build(new_cfg, qs, rs, n)
+    return new_cfg, new._replace(overflow=new.overflow | state.overflow)
+
+
 # ---------------------------------------------------------------------------
 # Item-at-a-time parity wrappers (paper semantics; used by tests)
 # ---------------------------------------------------------------------------

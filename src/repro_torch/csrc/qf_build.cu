@@ -20,6 +20,11 @@
 // fell off the end).  Each search is 32-way: a warp tests 32 points at once,
 // so 12.6 M items take 5 dependent rounds.  n_valid is read on the card.
 //
+// The second entry, qf_build_span, appends a sorted span to a partly built
+// table in place (the incremental migration's step; the JAX package runs
+// the TPU kernel over whole planes and ORs them in, repro/kernels/ops.py
+// ::_build_span).  See its comment below.
+//
 // Contract: the first min(n_items, *n_valid) items are valid; over them
 // fq does not decrease and pos increases strictly as uint32 (the int32 cast
 // of an int64 position past INT32_MAX wraps negative, and is dropped like
@@ -138,6 +143,50 @@ extern "C" int qf_build_planes(const void* pos, const void* fq, const void* fr,
         (const int32_t*)pos, (const int32_t*)fq, (const int32_t*)fr,
         (const int32_t*)n_valid, n_items, total, (int32_t*)rem, (uint8_t*)occ,
         (uint8_t*)shf, (uint8_t*)con);
+  }
+  return (int)cudaGetLastError();
+}
+
+// Span append: one thread per item.  Probe positions strictly increase past
+// every slot the earlier appends wrote, so the rem/shf/con stores of a span
+// touch only fresh slots; occ stores can land on a bucket an earlier append
+// marked, and they all write 1.  The first item's predecessor for the
+// continuation bit is *last_fq, carried across calls; *k (valid items) is
+// read on the card.  A position outside [0, total) is dropped, and its
+// bucket is still marked.  O(span) work: no pass over the table.
+__global__ void __launch_bounds__(THREADS)
+    qf_build_span_kernel(const int32_t* __restrict__ pos,
+                         const int32_t* __restrict__ fq,
+                         const int32_t* __restrict__ fr,
+                         const int32_t* __restrict__ k,
+                         const int32_t* __restrict__ last_fq, long long n_items,
+                         long long total, int32_t* __restrict__ rem,
+                         uint8_t* __restrict__ occ, uint8_t* __restrict__ shf,
+                         uint8_t* __restrict__ con) {
+  const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (i >= n_items || i >= (long long)*k) return;
+  const int32_t p = pos[i], q = fq[i];
+  if (q >= 0 && q < total) occ[q] = 1;
+  if (p >= 0 && p < total) {
+    const int32_t prev = i > 0 ? fq[i - 1] : *last_fq;
+    rem[p] = fr[i];
+    shf[p] = p != q;
+    con[p] = q == prev;
+  }
+}
+
+// Writes the span's slots and buckets into the given planes.  Returns
+// cudaGetLastError().
+extern "C" int qf_build_span(const void* pos, const void* fq, const void* fr,
+                             const void* k, const void* last_fq,
+                             long long n_items, long long total, void* rem,
+                             void* occ, void* shf, void* con, void* stream) {
+  if (n_items > 0) {
+    long long blocks = (n_items + THREADS - 1) / THREADS;
+    qf_build_span_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
+        (const int32_t*)pos, (const int32_t*)fq, (const int32_t*)fr,
+        (const int32_t*)k, (const int32_t*)last_fq, n_items, total,
+        (int32_t*)rem, (uint8_t*)occ, (uint8_t*)shf, (uint8_t*)con);
   }
   return (int)cudaGetLastError();
 }

@@ -18,6 +18,13 @@ Registry name -> implementation -> paper section:
                           re-peel, insert/delete raise.
 ========================  =======================================================
 
+Every family resizes (the paper's §3 "dynamic resizing"): ``grow``,
+``resize``, ``shrink`` and the ``needs_resize``/``needs_shrink``
+predicates.  :func:`auto_grow` composes them with ``insert`` by the
+blocking ``grow``; :func:`auto_scale` grows a ``qf`` or ``buffered_qf``
+incrementally instead (``filters.incremental_resize``: each batch moves
+one bounded chunk into the wider table) and shrinks on a low watermark.
+
 Quickstart::
 
     from repro_torch import filters
@@ -33,8 +40,8 @@ without a card.  ``backend="pallas"`` runs the port's CUDA kernels on
 card state.  :func:`from_numpy` and :func:`to_numpy` carry a state
 across from the JAX package and back as its pytree leaves: ``rem``
 planes and fuse tables as uint32, counting Bloom cells (int16 here) as
-uint16, a frozen level's int64 run as int32 quotients and uint32
-remainders.
+uint16, a frozen level's int64 run and a migration's int64 source
+stream as int32 quotients and uint32 remainders.
 """
 
 from __future__ import annotations
@@ -44,13 +51,16 @@ import torch
 
 from ..core import quotient_filter as qf
 from . import (  # noqa: F401 (registration)
+    auto_scale as _auto_scale,
     bloom_filter,
     buffered,
     cascade,
+    incremental_resize,
     iostats,
     qf_filter,
     xor_fuse,
 )
+from .auto_scale import settle
 from .iostats import IOCounters, to_iolog
 from .registry import FilterImpl, UnsupportedOpError, by_cfg, by_name, names, register
 
@@ -169,6 +179,43 @@ def shrink(cfg, state):
     return by_cfg(cfg).require("shrink")(cfg, state)
 
 
+def auto_grow(cfg, state, keys, k=None, max_steps: int = 32):
+    """Insert with automatic growth: the dynamic-resizing ingest driver.
+
+    Applies ``grow`` steps before and after the insert until
+    ``needs_resize`` clears, so an unbounded stream goes through a filter
+    that started at any size.  Returns the new ``(cfg, state)`` pair.
+    Each predicate is one host read: a driver for host-driven loops.
+    """
+    impl = by_cfg(cfg)
+    can = impl.needs_resize is not None and impl.grow is not None
+    keys = _keys(state, keys)
+
+    def settle_up(cfg, state):
+        for _ in range(max_steps):
+            if not bool(impl.needs_resize(cfg, state)):
+                return cfg, state
+            cfg, state = impl.grow(cfg, state)
+        raise RuntimeError(
+            f"{impl.name}: still over capacity after {max_steps} grow steps"
+        )
+
+    if can:
+        cfg, state = settle_up(cfg, state)
+    state = impl.require("insert")(cfg, state, keys, k)
+    if can:
+        cfg, state = settle_up(cfg, state)
+    return cfg, state
+
+
+def auto_scale(cfg, state, keys, k=None, **kw):
+    """Insert with watermark-driven growth (incremental where the family
+    can) and shrinkage; see :mod:`repro_torch.filters.auto_scale`.
+    Returns the new ``(cfg, state)`` pair, mid-migration the migrating
+    wrapper's."""
+    return _auto_scale.auto_scale(cfg, state, _keys(state, keys), k, **kw)
+
+
 def supports(name_or_cfg, op: str) -> bool:
     """Does filter ``name_or_cfg`` implement op ``op``?  Unknown op names raise."""
     if op not in _OPS:
@@ -189,6 +236,8 @@ _JAX_DTYPES = {
     ("table", "int32"): "uint32",  # fuse cells, as bit patterns
     ("run_q", "int64"): "int32",  # a frozen level's run, held as int64
     ("run_r", "int64"): "uint32",
+    ("src_fq", "int64"): "int32",  # a migration's source stream
+    ("src_fr", "int64"): "uint32",
 }
 
 
@@ -197,7 +246,8 @@ def _jax_dtype(name: str, dtype: np.dtype) -> np.dtype:
 
     The port keeps unsigned leaves as signed bit patterns (``rem`` planes
     and fuse tables as int32, counting Bloom cells as int16) and a
-    frozen level's run in its int64 stream convention.
+    frozen level's run and a migration's source stream in its int64
+    stream convention.
     """
     if dtype == np.int16:
         return np.dtype(np.uint16)
@@ -215,14 +265,16 @@ def to_numpy(cfg, state) -> list:
     """The state as the JAX package's pytree leaves, as numpy arrays.
 
     ``rem`` planes and fuse tables come back as uint32, counting Bloom
-    cells as uint16, frozen runs as int32/uint32, every other leaf in
+    cells as uint16, frozen runs and migration streams as int32/uint32,
+    every other leaf in
     its dtype; ``jax.tree_util.tree_unflatten`` of the JAX state's
     treedef over this list rebuilds the JAX state.
     """
     by_cfg(cfg)  # a registered config
     out = []
     for name, t in _leaves(state):
-        a = t.detach().cpu().numpy()
+        # a copy: a migration's insert writes the state's planes in place
+        a = t.detach().to("cpu", copy=True).numpy()
         out.append(_cast(a, _jax_dtype(name, a.dtype)))
     return out
 
@@ -236,7 +288,10 @@ def from_numpy(cfg, leaves, device=None):
     runs as int32/uint32).
     """
     device = qf.resolve_device(device)
-    _, template = by_cfg(cfg).make(device="meta", **cfg._asdict())  # no memory
+    if incremental_resize.is_migrating(cfg):
+        template = incremental_resize.blank(cfg, device="meta")
+    else:
+        _, template = by_cfg(cfg).make(device="meta", **cfg._asdict())  # no memory
     fields = list(_leaves(template))
     leaves = list(leaves)
     if len(leaves) != len(fields):
@@ -273,12 +328,15 @@ __all__ = [
     "FilterImpl",
     "IOCounters",
     "UnsupportedOpError",
+    "auto_grow",
+    "auto_scale",
     "by_cfg",
     "by_name",
     "contains",
     "delete",
     "from_numpy",
     "grow",
+    "incremental_resize",
     "insert",
     "iostats",
     "make",
@@ -289,6 +347,7 @@ __all__ = [
     "probe",
     "register",
     "resize",
+    "settle",
     "shrink",
     "stats",
     "supports",

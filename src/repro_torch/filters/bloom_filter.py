@@ -263,10 +263,13 @@ def make_impl(cfg_cls, name: str, paper_section: str):
 
     def stats(cfg, state):
         set_ = state.cells != 0
+        # the JAX package's float32 mean: the sum times the float32
+        # reciprocal of the count (a true division can round one ulp away)
+        one = torch.ones((), dtype=torch.float32, device=set_.device)
         return {
             "n": state.n,
             "cells_set": set_.sum(dtype=torch.int32),
-            "fill": set_.to(torch.float32).mean(),
+            "fill": set_.sum(dtype=torch.float32) * (one / set_.numel()),
             "load": state.n.to(torch.float32) / _capacity(cfg),
             "size_bytes": cfg.size_bytes
             if hasattr(cfg, "size_bytes")

@@ -20,7 +20,7 @@ import torch
 from ..core import quotient_filter as qf
 from . import iostats, qf_filter
 from .iostats import IOCounters
-from .registry import RESIZE_HINTS, FilterImpl, register
+from .registry import FilterImpl, register
 
 
 class BufferedQFConfig(NamedTuple):
@@ -32,7 +32,7 @@ class BufferedQFConfig(NamedTuple):
     seed: int = 0
     max_load: float = 0.75
     backend: str = "reference"
-    shrink_load: float = 0.4  # kept for spec parity; shrink is not bound yet
+    shrink_load: float = 0.4  # low watermark vs the halved disk QF
 
     @property
     def ram(self) -> qf.QFConfig:
@@ -165,6 +165,64 @@ def merge(cfg: BufferedQFConfig, sa, sb) -> BufferedQFState:
     return BufferedQFState(ram=sa.ram, disk=disk, io=io)
 
 
+def needs_resize(cfg: BufferedQFConfig, state):
+    """Bool scalar: the disk QF's load crossed ``max_load``, so the next
+    flush would push it past the paper's operating point."""
+    return qf.load(cfg.disk, state.disk) >= cfg.max_load
+
+
+def _restream(cfg: BufferedQFConfig, new_disk: qf.QFConfig, disk_state):
+    """One streaming requotient pass of the disk QF into a new geometry."""
+    return qf.multi_merge(
+        new_disk, [(cfg.disk, disk_state)], build=qf_filter.build_fn(cfg.backend)
+    )
+
+
+def resize(cfg: BufferedQFConfig, state, disk_q: int):
+    """Re-split the disk QF at ``disk_q``.
+
+    The disk QF is re-streamed once, a sequential read of the old
+    structure and a sequential write of the new one, charged to
+    ``IOCounters`` as the paper's merge schedule.
+    """
+    if not (cfg.ram_q < disk_q < cfg.p):
+        raise ValueError(
+            f"disk_q={disk_q} must lie strictly between ram_q={cfg.ram_q} "
+            f"and p={cfg.p}"
+        )
+    new_cfg = cfg._replace(disk_q=disk_q)
+    disk = _restream(cfg, new_cfg.disk, state.disk)
+    io = state.io._replace(
+        seq_read_bytes=state.io.seq_read_bytes + cfg.disk.size_bytes,
+        seq_write_bytes=state.io.seq_write_bytes + new_cfg.disk.size_bytes,
+        resizes=state.io.resizes + 1,
+    )
+    return new_cfg, BufferedQFState(ram=state.ram, disk=disk, io=io)
+
+
+def grow(cfg: BufferedQFConfig, state):
+    """One doubling step of the disk QF (steal one remainder bit)."""
+    return resize(cfg, state, cfg.disk_q + 1)
+
+
+def needs_shrink(cfg: BufferedQFConfig, state):
+    """Bool scalar: the disk population fits the halved disk QF at the
+    low watermark, so one narrower re-stream reclaims half the flash."""
+    if cfg.disk_q - 1 <= cfg.ram_q:
+        return torch.zeros((), dtype=torch.bool, device=state.disk.n.device)
+    halved = cfg.disk._replace(q=cfg.disk_q - 1, r=cfg.disk.r + 1)
+    return state.disk.n <= int(cfg.shrink_load * halved.capacity)
+
+
+def shrink(cfg: BufferedQFConfig, state):
+    """One halving step of the disk QF (re-merge a remainder bit)."""
+    if cfg.disk_q - 1 <= cfg.ram_q:
+        raise ValueError(
+            f"cannot shrink disk_q={cfg.disk_q}: must stay above ram_q={cfg.ram_q}"
+        )
+    return resize(cfg, state, cfg.disk_q - 1)
+
+
 def stats(cfg: BufferedQFConfig, state):
     return {
         "n": state.ram.n + state.disk.n,
@@ -188,6 +246,10 @@ IMPL = register(
         delete=delete,
         merge=merge,
         probe=probe,
-        op_hints=RESIZE_HINTS,
+        needs_resize=needs_resize,
+        grow=grow,
+        resize=resize,
+        needs_shrink=needs_shrink,
+        shrink=shrink,
     )
 )

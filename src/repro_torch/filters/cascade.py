@@ -36,7 +36,7 @@ from ..core import quotient_filter as qf
 from ..kernels import ops as kernel_ops
 from . import iostats, qf_filter
 from .iostats import IOCounters
-from .registry import RESIZE_HINTS, FilterImpl, UnsupportedOpError, register
+from .registry import FilterImpl, UnsupportedOpError, register
 
 
 class CascadeConfig(NamedTuple):
@@ -47,7 +47,7 @@ class CascadeConfig(NamedTuple):
     seed: int = 0
     max_load: float = 0.75
     backend: str = "reference"
-    shrink_load: float = 0.5  # kept for spec parity; shrink is not bound yet
+    shrink_load: float = 0.5  # low watermark vs the one-shallower stack
     frozen_below: Optional[int] = None  # demote levels >= this depth to fuse form
     fuse_bits: Optional[int] = None  # frozen cell width override (default: match QF fp)
 
@@ -186,16 +186,19 @@ def _build_level(cfg: CascadeConfig, i: int, allq, allr, total):
     return qf_filter.build_fn(cfg.backend)(tgt, tq, tr, total)
 
 
-def _level_read(cfg: CascadeConfig, levels, j: int) -> torch.Tensor:
-    """Merge-path read bytes of level j if it is non-empty: a QF level
-    streams its table, a frozen level only its run."""
-    s = levels[j]
-    dev = s.n.device
+def _level_read_bytes(cfg: CascadeConfig, j: int) -> int:
+    """Merge-path read bytes of consuming level j: a QF level streams its
+    table, a frozen level only its run."""
     if cfg.is_frozen(j):
-        size = cfg.fuse_cfg(j).run_bytes
-    else:
-        size = cfg.level_cfg(j).size_bytes
-    return torch.where(s.n > 0, iostats.f32(size, dev), iostats.f32(0, dev))
+        return cfg.fuse_cfg(j).run_bytes
+    return cfg.level_cfg(j).size_bytes
+
+
+def _level_read(cfg: CascadeConfig, levels, j: int) -> torch.Tensor:
+    """:func:`_level_read_bytes` of level j if it is non-empty, else 0."""
+    dev = levels[j].n.device
+    size = iostats.f32(_level_read_bytes(cfg, j), dev)
+    return torch.where(levels[j].n > 0, size, iostats.f32(0, dev))
 
 
 def _level_write_bytes(cfg: CascadeConfig, i: int) -> int:
@@ -400,6 +403,165 @@ def merge(cfg: CascadeConfig, sa, sb) -> CascadeState:
     )
 
 
+def _host_counts(state: CascadeState):
+    """Every structure's count and overflow flag, Q0 first, read to the
+    host in one batched transfer."""
+    structures = [state.q0, *state.levels]
+    ns = torch.stack([s.n for s in structures])
+    ovf = torch.stack([s.overflow for s in structures]).to(torch.int32)
+    host = torch.cat([ns, ovf]).tolist()
+    return host[: len(structures)], any(host[len(structures) :])
+
+
+def _all_streams(cfg: CascadeConfig, state: CascadeState):
+    """Every component of one cascade as canonical streams, plus the
+    merge-path read bytes and the or'd overflow flag (host values).
+    Frozen levels stream their retained runs."""
+    ns, overflow = _host_counts(state)
+    parts = [_q0_stream(cfg, state)]
+    read = 0.0
+    for j in range(cfg.levels):
+        parts.append(_level_stream(cfg, state, j))
+        if ns[j + 1] > 0:
+            read += _level_read_bytes(cfg, j)
+    return parts, read, overflow
+
+
+def _fitting_level(cfg: CascadeConfig, total: int) -> int:
+    """The smallest level whose capacity holds ``total``, else the bottom."""
+    return next(
+        (i for i in range(cfg.levels) if total <= cfg.level_cfg(i).capacity),
+        cfg.levels - 1,
+    )
+
+
+def _restream_host(new_cfg: CascadeConfig, parts, io, overflow: bool):
+    """Collapse canonical ``(fq, fr, n)`` streams into the smallest fitting
+    level of ``new_cfg`` (the tail of the geometry-changing resize).  A
+    frozen target is peeled again from the merged stream."""
+    dev = parts[0][0].device
+    total = int(sum(p[2] for p in parts))  # one host read
+    target = _fitting_level(new_cfg, total)
+    if new_cfg.is_frozen(target) and total > new_cfg.fuse_cfg(target).capacity:
+        raise ValueError(
+            f"union of {total} keys exceeds the bottom frozen level's "
+            f"capacity {new_cfg.fuse_cfg(target).capacity}; grow/resize first"
+        )
+    allq, allr, _ = qf.merge_streams_many(parts)
+    merged = _build_level(new_cfg, target, allq, allr, total)
+    merged = merged._replace(overflow=merged.overflow | overflow)
+    io = io._replace(
+        seq_write_bytes=io.seq_write_bytes
+        + iostats.f32(_level_write_bytes(new_cfg, target), dev),
+        merges=io.merges + 1,
+    )
+    levels = _empty_levels(new_cfg, dev, {target: merged})
+    return CascadeState(q0=qf.empty(new_cfg.q0_cfg, dev), levels=levels, io=io)
+
+
+def needs_resize(cfg: CascadeConfig, state):
+    """Bool scalar: a full Q0 could fail to collapse anywhere, i.e. Q0's
+    capacity plus everything on disk no longer fits the bottom level.
+    Q0's actual count is taken when a batch overshot its capacity."""
+    ns = torch.stack([s.n for s in state.levels])
+    q0_worst = state.q0.n.clamp(min=cfg.q0_cfg.capacity)
+    bottom = cfg.level_cfg(cfg.levels - 1).capacity
+    return q0_worst + ns.sum(dtype=torch.int32) > bottom
+
+
+def grow(cfg: CascadeConfig, state):
+    """Deepen the level stack by one.  The new bottom level starts empty,
+    so no data moves; the collapse that fills it pays for it."""
+    new_cfg = cfg._replace(levels=cfg.levels + 1)
+    _check_geometry(new_cfg)
+    dev = state.q0.n.device
+    return new_cfg, CascadeState(
+        q0=state.q0,
+        levels=state.levels + (_empty_level(new_cfg, cfg.levels, dev),),
+        io=state.io._replace(resizes=state.io.resizes + 1),
+    )
+
+
+def needs_shrink(cfg: CascadeConfig, state):
+    """Bool scalar: the deepest level is empty and the rest (Q0 at its
+    worst-case fill, as in ``needs_resize``) fits the one-shallower stack
+    at the low watermark, so popping a level cannot re-trip growth."""
+    if cfg.levels <= 1:
+        return torch.zeros((), dtype=torch.bool, device=state.q0.n.device)
+    ns = torch.stack([s.n for s in state.levels])
+    q0_worst = state.q0.n.clamp(min=cfg.q0_cfg.capacity)
+    total = q0_worst + ns.sum(dtype=torch.int32)
+    fits = total <= int(cfg.shrink_load * cfg.level_cfg(cfg.levels - 2).capacity)
+    return (state.levels[-1].n == 0) & fits
+
+
+def shrink(cfg: CascadeConfig, state):
+    """Pop the (empty) deepest level: the inverse of ``grow``, and free."""
+    if cfg.levels <= 1:
+        raise ValueError("cannot shrink a single-level cascade")
+    if int(state.levels[-1].n) != 0:
+        raise ValueError("deepest level is non-empty; collapse/delete first")
+    new_cfg = cfg._replace(levels=cfg.levels - 1)
+    return new_cfg, CascadeState(
+        q0=state.q0,
+        levels=state.levels[:-1],
+        io=state.io._replace(resizes=state.io.resizes + 1),
+    )
+
+
+def resize(cfg: CascadeConfig, state, levels: int = None, fanout: int = None):
+    """Re-shape the hierarchy: deepen the stack and/or change the fanout.
+
+    Deepening with the fanout unchanged appends empty levels (free).
+    Any other change re-streams the whole cascade once into the smallest
+    new level that fits the total count, charged to ``IOCounters``;
+    frozen levels re-expand from their runs, and a frozen target peels.
+    """
+    new_cfg = cfg._replace(
+        levels=cfg.levels if levels is None else levels,
+        fanout=cfg.fanout if fanout is None else fanout,
+    )
+    _check_geometry(new_cfg)
+    dev = state.q0.n.device
+    if new_cfg.fanout == cfg.fanout and new_cfg.levels >= cfg.levels:
+        extra = tuple(
+            _empty_level(new_cfg, i, dev) for i in range(cfg.levels, new_cfg.levels)
+        )
+        return new_cfg, CascadeState(
+            q0=state.q0,
+            levels=state.levels + extra,
+            io=state.io._replace(resizes=state.io.resizes + 1),
+        )
+    if cfg.frozen_below is not None:
+        parts, read, overflow = _all_streams(cfg, state)
+        io = state.io._replace(
+            seq_read_bytes=state.io.seq_read_bytes + iostats.f32(read, dev),
+            resizes=state.io.resizes + 1,
+        )
+        return new_cfg, _restream_host(new_cfg, parts, io, overflow)
+    # geometry change: one streaming pass into the smallest fitting level
+    ns, _ = _host_counts(state)
+    target = _fitting_level(new_cfg, sum(ns))
+    parts = [(cfg.q0_cfg, state.q0)] + [
+        (cfg.level_cfg(j), state.levels[j]) for j in range(cfg.levels)
+    ]
+    tgt = new_cfg.level_cfg(target)
+    merged = qf.multi_merge(tgt, parts, build=qf_filter.build_fn(cfg.backend))
+    read = iostats.f32(0, dev)
+    for j in range(cfg.levels):
+        read = read + _level_read(cfg, state.levels, j)
+    io = state.io._replace(
+        seq_read_bytes=state.io.seq_read_bytes + read,
+        seq_write_bytes=state.io.seq_write_bytes + iostats.f32(tgt.size_bytes, dev),
+        resizes=state.io.resizes + 1,
+        merges=state.io.merges + 1,
+    )
+    new_levels = _empty_levels(new_cfg, dev, {target: merged})
+    return new_cfg, CascadeState(
+        q0=qf.empty(new_cfg.q0_cfg, dev), levels=new_levels, io=io
+    )
+
+
 def stats(cfg: CascadeConfig, state):
     ns = torch.stack([s.n for s in state.levels])
     out = {
@@ -437,9 +599,13 @@ IMPL = register(
         delete=delete,
         merge=merge,
         probe=probe,
+        needs_resize=needs_resize,
+        grow=grow,
+        resize=resize,
+        needs_shrink=needs_shrink,
+        shrink=shrink,
         can_delete=lambda cfg: cfg.frozen_below is None,
         op_hints={
-            **RESIZE_HINTS,
             "delete": "frozen_below cascades cannot unlink keys from "
             "demoted (binary-fuse) levels",
         },

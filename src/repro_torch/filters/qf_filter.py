@@ -19,7 +19,7 @@ import torch
 from ..core import quotient_filter as qf
 from ..kernels import fingerprint as kfp
 from ..kernels import ops as kops
-from .registry import RESIZE_HINTS, FilterImpl, register
+from .registry import FilterImpl, register
 
 BACKENDS = ("reference", "pallas")
 
@@ -32,7 +32,9 @@ class QFilterConfig(NamedTuple):
     max_load: float = 0.75
     backend: str = "reference"
     window: int = 256  # reference lookup window (see qf.lookup)
-    shrink_load: float = 0.4  # kept for spec parity; shrink is not bound yet
+    # low watermark: shrink only once the count fits the HALVED table at
+    # this fraction of its design capacity (hysteresis vs needs_resize)
+    shrink_load: float = 0.4
 
     @property
     def core(self) -> qf.QFConfig:
@@ -159,6 +161,56 @@ def merge(cfg: QFilterConfig, sa, sb):
     return qf.merge(core, core, core, sa, sb, build=build_fn(cfg.backend))
 
 
+def needs_resize(cfg: QFilterConfig, state):
+    """Bool scalar on the state's device: at or over the max-load point."""
+    return state.n >= cfg.core.capacity
+
+
+def resize(cfg: QFilterConfig, state, new_q: int):
+    """Re-split the p-bit fingerprints at ``new_q`` (paper §3 'Resizing').
+
+    The slot planes change shape; the requotient and rebuild are one
+    streaming pass, through the build kernel under ``backend="pallas"``.
+    """
+    new_r = cfg.q + cfg.r - new_q
+    if not (1 <= new_q <= 30 and 1 <= new_r):
+        raise ValueError(
+            f"cannot re-split p={cfg.q + cfg.r} fingerprint bits at q={new_q}"
+        )
+    _, st = qf.resize(cfg.core, state, new_q, build=build_fn(cfg.backend))
+    return cfg._replace(q=new_q, r=new_r), st
+
+
+def grow(cfg: QFilterConfig, state):
+    """One doubling step: steal one remainder bit for the quotient."""
+    return resize(cfg, state, cfg.q + 1)
+
+
+def _can_halve(cfg: QFilterConfig) -> bool:
+    # shrinking re-merges a remainder bit: r widens by one, which must
+    # stay within the remainder plane (31 bits under pallas)
+    max_r = 31 if cfg.backend == "pallas" else 32
+    return cfg.q > 1 and cfg.r + 1 <= max_r
+
+
+def needs_shrink(cfg: QFilterConfig, state):
+    """Bool scalar: the population fits the halved table at the low
+    watermark (``shrink_load`` of its capacity), the hysteresis band
+    that keeps grow and shrink from thrashing."""
+    if not _can_halve(cfg):
+        return torch.zeros((), dtype=torch.bool, device=state.n.device)
+    halved = cfg.core._replace(q=cfg.q - 1, r=cfg.r + 1)
+    return state.n <= int(cfg.shrink_load * halved.capacity)
+
+
+def shrink(cfg: QFilterConfig, state):
+    """One halving step: re-merge a quotient bit into the remainder
+    (paper §3 resizing run downward: the fp rate improves)."""
+    if not _can_halve(cfg):
+        raise ValueError(f"cannot shrink q={cfg.q}, r={cfg.r} further")
+    return resize(cfg, state, cfg.q - 1)
+
+
 def stats(cfg: QFilterConfig, state):
     return {
         "n": state.n,
@@ -171,7 +223,7 @@ def stats(cfg: QFilterConfig, state):
 IMPL = register(
     FilterImpl(
         name="qf",
-        paper_section="§3 (quotient filter: insert/may-contain/delete/merge)",
+        paper_section="§3 (quotient filter: insert/may-contain/delete/merge/resize)",
         cfg_cls=QFilterConfig,
         make=make,
         insert=insert,
@@ -179,6 +231,10 @@ IMPL = register(
         stats=stats,
         delete=delete,
         merge=merge,
-        op_hints=RESIZE_HINTS,
+        needs_resize=needs_resize,
+        grow=grow,
+        resize=resize,
+        needs_shrink=needs_shrink,
+        shrink=shrink,
     )
 )

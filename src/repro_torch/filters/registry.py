@@ -14,6 +14,8 @@ Protocol (states are NamedTuples of tensors)::
     merge(cfg, state_a, state_b)  -> state          (optional)
     probe(cfg, state, keys)       -> (state, bool[B])  # contains + I/O accounting
     stats(cfg, state)             -> dict[str, scalar]
+    needs_resize(cfg, state)      -> bool[]         (optional, on the device)
+    needs_shrink(cfg, state)      -> bool[]         (optional, on the device)
     grow / resize / shrink        -> (cfg, state)   (optional, host-level)
 """
 
@@ -77,18 +79,23 @@ class FilterImpl(NamedTuple):
 
 _BY_NAME: dict[str, FilterImpl] = {}
 _BY_CFG: dict[type, FilterImpl] = {}
+_INTERNAL: set[str] = set()
 
 
-def register(impl: FilterImpl) -> FilterImpl:
+def register(impl: FilterImpl, public: bool = True) -> FilterImpl:
+    """Bind a family; ``public=False`` keeps it out of :func:`names` (the
+    in-flight migration, which callers never construct by name)."""
     if impl.name in _BY_NAME:
         raise ValueError(f"filter {impl.name!r} already registered")
     _BY_NAME[impl.name] = impl
     _BY_CFG[impl.cfg_cls] = impl
+    if not public:
+        _INTERNAL.add(impl.name)
     return impl
 
 
 def names() -> tuple[str, ...]:
-    return tuple(sorted(_BY_NAME))
+    return tuple(sorted(set(_BY_NAME) - _INTERNAL))
 
 
 def by_name(name: str) -> FilterImpl:
@@ -107,10 +114,3 @@ def by_cfg(cfg) -> FilterImpl:
         raise TypeError(
             f"{type(cfg).__name__} is not a registered filter config"
         ) from None
-
-
-# the structural ops wait for the port of the resize slice
-RESIZE_HINTS = {
-    op: "the resize ops are not ported to repro_torch yet"
-    for op in ("grow", "resize", "shrink")
-}

@@ -1,6 +1,7 @@
 """Kernel-path wrappers binding the CUDA kernels to the filter states.
 
 The port of the wrappers of ``repro.kernels.ops``: ``build_sorted``,
+``build_span``/``build_chunk`` (the incremental migration's append),
 ``lookup``/``contains``, ``fuse_lookup``/``fuse_contains``,
 ``cascade_lookup``, and the Bloom families' ``bloom_counts`` and
 ``bloom_probe``.  Each runs its kernel for CUDA state and the kernel's
@@ -30,7 +31,7 @@ from . import bloom_block
 from .cascade_probe import cascade_probe
 from .fingerprint import fingerprint
 from .fuse_probe import fuse_probe
-from .qf_build import qf_build_planes
+from .qf_build import qf_build_planes, qf_build_span
 from .qf_probe import qf_probe
 
 
@@ -54,6 +55,69 @@ def build_sorted(cfg: qf.QFConfig, fq, fr, n) -> qf.QFState:
         _i32(pos), _i32(fq), _i32(fr), nn, cfg.total_slots
     )
     return qf.QFState(rem=rem, occ=occ, shf=shf, con=con, n=nn, overflow=overflow)
+
+
+def _span_math(cfg: qf.QFConfig, fq, k, last_pos, last_fq):
+    """Closed-form append positions for a carried sorted span.
+
+    The probe recurrence ``pos[i] = max(pos[i-1] + 1, fq[i])`` closes to
+    ``i + max(last_pos + 1, cummax(fq - i))`` over the whole span, so
+    chunk boundaries do not matter to it.  Returns the valid count ``k``
+    and ``pos`` (int64), whether a valid item fell past the last slot,
+    and the advanced carries, all on the device.
+    """
+    dev = fq.device
+    kk = k if torch.is_tensor(k) else torch.full((), k, dtype=torch.int32, device=dev)
+    kk = kk.to(device=dev, dtype=torch.int32)
+    idx = torch.arange(fq.shape[0], device=dev)
+    valid = idx < kk
+    d = torch.where(valid, fq - idx, -qf.INT32_MAX)
+    pos = idx + torch.maximum(last_pos + 1, torch.cummax(d, 0).values)
+    overflow = (valid & (pos >= cfg.total_slots)).any()
+    last = (kk - 1).clamp(0, fq.shape[0] - 1).reshape(1).to(torch.int64)
+    new_last_pos = torch.where(kk > 0, pos.index_select(0, last)[0], last_pos)
+    new_last_fq = torch.where(kk > 0, fq.index_select(0, last)[0], last_fq)
+    return kk, pos, overflow, new_last_pos.to(torch.int32), new_last_fq.to(torch.int32)
+
+
+def build_span(cfg: qf.QFConfig, state: qf.QFState, fq, fr, k, last_pos, last_fq):
+    """Append a sorted span (first ``k`` rows valid) to a partly built QF.
+
+    ``state`` holds exactly the entries appended so far, in sorted
+    order; ``(last_pos, last_fq)`` (int32 scalar tensors, both -1 before
+    the first span) carry the probe scan across calls, and every valid
+    fingerprint sorts at or after ``last_fq``.  Appending span by span
+    reproduces ``quotient_filter.build_sorted`` of the whole prefix bit
+    for bit.  ``fq``/``fr`` are the int64 streams of ``core``; ``k`` an
+    int or an int32 scalar tensor.
+
+    The planes of ``state`` are written in place by one ``qf_build_span``
+    launch (its plain version for CPU state), with no host read, so the
+    argument's planes are consumed: use the returned state, as a caller
+    of the JAX package's donated migration step must.  Returns
+    ``(state, last_pos, last_fq)``.
+    """
+    if cfg.r > 31:
+        raise ValueError("kernel path keeps the JAX package's r <= 31 limit")
+    kk, pos, overflow, new_last_pos, new_last_fq = _span_math(
+        cfg, fq, k, last_pos, last_fq
+    )
+    qf_build_span(
+        _i32(pos), _i32(fq), _i32(fr), kk, last_fq.to(torch.int32),
+        state.rem, state.occ, state.shf, state.con,
+    )
+    new = state._replace(n=state.n + kk, overflow=state.overflow | overflow)
+    return new, new_last_pos, new_last_fq
+
+
+def build_chunk(cfg: qf.QFConfig, state: qf.QFState, fq, fr, k, last_pos, last_fq):
+    """The per-insert migration step: :func:`build_span` of one chunk.
+
+    The JAX package scatters a chunk and runs its TPU kernel for longer
+    spans; both compute the same planes, and here both are one
+    ``qf_build_span`` launch, O(chunk).
+    """
+    return build_span(cfg, state, fq, fr, k, last_pos, last_fq)
 
 
 def lookup(cfg: qf.QFConfig, state: qf.QFState, fq, fr) -> torch.Tensor:

@@ -159,16 +159,17 @@ def test_from_numpy_rejects_wrong_leaves():
 
 
 def test_unported_ops_raise_structured_errors():
+    # the resize ops are ported now: every QF family binds them, and what
+    # a config refuses still raises the structured error
     cfg, st = tf.make("qf", device="cpu", q=6, r=8)
-    for op in (tf.grow, tf.shrink):
-        with pytest.raises(tf.UnsupportedOpError):
-            op(cfg, st)
-    with pytest.raises(tf.UnsupportedOpError):
-        tf.resize(cfg, st, new_q=7)
+    for name in ("qf", "buffered_qf", "cascade"):
+        for op in ("grow", "resize", "shrink", "needs_resize", "needs_shrink"):
+            assert tf.supports(name, op), (name, op)
     ccfg, cst = tf.make("cascade", device="cpu", ram_q=6, p=22, frozen_below=1)
+    assert tf.supports(ccfg, "grow") and not tf.supports(ccfg, "delete")
     with pytest.raises(tf.UnsupportedOpError):
-        tf.grow(ccfg, cst)
-    assert not tf.supports("qf", "grow")
+        tf.delete(ccfg, cst, torch.arange(4, dtype=torch.int32))
+    assert tf.grow(ccfg, cst)[0].levels == ccfg.levels + 1
     assert tf.supports(cfg, "delete") and tf.supports("cascade", "probe")
     with pytest.raises(ValueError):
         tf.supports("qf", "grwo")

@@ -33,6 +33,7 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
         "import repro_torch.filters.bloom_filter, repro_torch.filters.xor_fuse\n"
         "import repro_torch.core.fuse_filter, repro_torch.kernels.fuse_probe\n"
         "import repro_torch.kernels.fingerprint\n"
+        "import repro_torch.filters.incremental_resize, repro_torch.filters.auto_scale\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))\n"
         "assert not bad, bad\n"
     )
@@ -104,8 +105,11 @@ def test_keys_follow_the_state_onto_its_device():
 # the JAX package's file that computes the same: a Pallas kernel's module,
 # or (fingerprint) the XLA code of the key hash
 KERNELS = {
-    "qf_build": (qf_build, [("qf_build_planes", "build_planes_plain")],
-                 "repro/kernels/qf_build.py"),
+    "qf_build": (
+        qf_build,
+        [("qf_build_planes", "build_planes_plain"), ("qf_build_span", "build_span_plain")],
+        "repro/kernels/qf_build.py",
+    ),
     "qf_probe": (qf_probe, [("qf_probe", "probe_plain")], "repro/kernels/qf_probe.py"),
     "cascade_probe": (cascade_probe, [("cascade_probe", "cascade_probe_plain")],
                       "repro/kernels/cascade_probe.py"),
