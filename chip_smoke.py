@@ -8,11 +8,14 @@ Run from the repository root with no arguments::
 Phases, each timed, any failure fatal (a traceback and exit code 1):
 
 1. build    nvcc builds the seven CUDA sources from ``src/repro_torch/csrc``
-            (eight kernels: ``qf_build.cu`` holds ``qf_build_planes`` and the
-            migration's ``qf_build_span``); each is launched once on a small
-            filter against its plain version, and the quotient-filter kernels
-            on small cases that reach every branch of their kernels
-            (``build_cases``, ``probe_cases``, ``span_cases``);
+            (nine kernels: ``qf_build.cu`` holds ``qf_build_planes``, the
+            probe scan ``qf_positions`` and the migration's
+            ``qf_build_span``); each is launched once on a small filter
+            against its plain version, and the quotient-filter kernels on
+            small cases that reach every branch of their kernels
+            (``build_cases``, ``probe_cases``, ``span_cases``, and
+            ``scan_cases``: a cluster over 100 scan tiles, overflow,
+            ``n = 0``, sizes at a tile and one row either side);
             ``fingerprint`` on every (q, r) it takes, three seeds, int32 and
             int64 keys and both output types (``fingerprint_grid``);
             ``fuse_probe`` on small frozen filters of four cell widths at
@@ -21,7 +24,8 @@ Phases, each timed, any failure fatal (a traceback and exit code 1):
             for bit, at the main path's shapes (a q = 24 build of 12.6 M
             fingerprints, 2**22 probes and the fingerprints of their keys,
             the 7-structure cascade of phase 3 taken mid-stream, with its
-            RAM structure Q0 partly full; a migration chunk of 61,440 and a
+            RAM structure Q0 partly full; the probe positions of a q = 25
+            build's 33,555,456-row stream; a migration chunk of 61,440 and a
             drain of 12,582,912 fingerprints appended to a q = 25 table),
             timed with CUDA events beside the
             plain version, a library call where one computes the same
@@ -109,9 +113,12 @@ Phases, each timed, any failure fatal (a traceback and exit code 1):
             not gated), ``finish`` seconds, the settled table equal to the
             blocking grow's bit for bit, the same under ``"reference"``;
             and one migrating insert under ``set_sync_debug_mode("error")``.
-            ``qf_build_span`` and ``qf_build_planes`` (and the probes) must
-            have launched in this phase.
-12. report  one JSON line of per-kernel results (eight rows), then the
+            ``qf_build_span``, ``qf_positions`` and ``qf_build_planes`` (and
+            the probes) must have launched in this phase, and the steps of a
+            blocking growth call are timed (``bulk_breakdown``).  Phases 3,
+            8 and 10 also require ``qf_positions`` to have launched: no
+            kernel-path build calls ``torch.cummax``.
+12. report  one JSON line of per-kernel results (nine rows), then the
             card's name and power limit, then the result line.
 
 The whole run takes about four minutes of command time on one H100, and
@@ -442,7 +449,9 @@ def span_args(cfg, fq, fr, start, span, k, device):
     The table holds the sorted stream's first ``start`` items (appended by
     ``ops.build_span``); the span is the next ``span`` items, padded with
     sentinels past the stream's end, the first ``k`` valid.  Returns
-    ``(pos, fq, fr, k, last_fq, planes)``.
+    ``(args, planes)``: ``args`` the wrapper's
+    ``(fq, fr, k, n, overflow, last_pos, last_fq)`` as ``ops.build_span``
+    hands them over, ``planes`` the table's four planes.
     """
     st = qf.empty(cfg, device)
     lp = torch.full((), -1, dtype=torch.int32, device=device)
@@ -453,23 +462,27 @@ def span_args(cfg, fq, fr, start, span, k, device):
         return torch.cat([x[start : start + span], x.new_full((span,), v)])[:span]
 
     seg_q, seg_r = pad(fq, qf.INT32_MAX), pad(fr, qf.UINT32_MAX)
-    kk, pos, _, _, _ = ops._span_math(cfg, seg_q, k, lp, lf)
-    planes = (st.rem, st.occ, st.shf, st.con)
-    return i32(pos), i32(seg_q), i32(seg_r), kk, lf, planes
+    kk = torch.full((), k, dtype=torch.int32, device=device)
+    args = (seg_q, seg_r, kk, st.n, st.overflow, lp, lf)
+    return args, (st.rem, st.occ, st.shf, st.con)
 
 
 def span_cases(device):
     """Small ``qf_build_span`` inputs that reach every branch of its kernel.
 
-    Returns ``(label, args, want)``: ``args`` as ``span_args`` gives them,
-    and the planes ``quotient_filter.build_sorted`` writes for the stream's
-    items up to the span's last valid one, which the append must equal.
-    On a q = 13 table at load 0.95 with a run of 40 items at bucket 4070:
-    a span of 1,000 right after 3,000 appended items; a span that starts
-    inside a run (its first quotient is the carried ``last_fq``); ``k = 0``;
-    ``k`` the whole span (1,001 items, not a multiple of the 256-thread
-    block); and a span from item 0.  On a table with 16 slots of slack
-    packed at its end: the last items dropped past the last slot.
+    Returns ``(label, args, planes, want)``: ``args`` and ``planes`` as
+    ``span_args`` gives them, and ``want`` the planes, ``n`` and
+    ``overflow`` that ``quotient_filter.build_sorted`` gives for the
+    stream's items up to the span's last valid one, which the append must
+    equal.  On a q = 13 table at load 0.95 with a run of 40 items at
+    bucket 4070: a span of 1,000 right after 3,000 appended items; a span
+    that starts inside a
+    run (its first quotient is the carried ``last_fq``); ``k = 0``; ``k``
+    the whole span (1,001 items, not a multiple of the 256-thread block);
+    and a span of 4,096 from item 0.  On a q = 15 table whose 20,000 items
+    share bucket 100: a span of two scan tiles and one row that starts
+    inside that one cluster, so its scan and its carry cross tiles.  On a table with 16 slots of slack packed at its end: the last
+    items dropped past the last slot.
     """
     rng = np.random.default_rng(7)
 
@@ -482,10 +495,11 @@ def span_cases(device):
     out = []
 
     def case(label, cfg, fq, fr, start, span, k):
-        args = span_args(cfg, fq, fr, start, span, k, device)
+        args, planes = span_args(cfg, fq, fr, start, span, k, device)
         n = start + k
         want = qf.build_sorted(cfg, fq[:n], fr[:n], n)
-        out.append((label, args, (want.rem, want.occ, want.shf, want.con)))
+        out.append((label, args, planes, (want.rem, want.occ, want.shf, want.con,
+                                          want.n, want.overflow)))
 
     cfg = qf.QFConfig(q=13, r=10)
     fq, fr = stream(cfg, np.concatenate(
@@ -499,10 +513,49 @@ def span_cases(device):
     case("k = 0", cfg, fq, fr, 5000, 512, 0)
     case("k the whole span", cfg, fq, fr, 2000, 1001, 1001)
     case("from item 0, fewer valid than the span", cfg, fq, fr, 0, 4096, 3333)
+    cfg = qf.QFConfig(q=15, r=10)
+    fq, fr = stream(cfg, np.full(20000, 100))
+    span = 2 * qf_build.SCAN_TILE + 1
+    case("one cluster across tiles, from inside it", cfg, fq, fr, 1500, span, span)
     cfg = qf.QFConfig(q=13, r=10, slack=16)
     fq, fr = stream(cfg, rng.integers(cfg.m - 700, cfg.m, 760))
     case("items dropped past the last slot", cfg, fq, fr, 300, 460, 460)
     return out
+
+
+def scan_cases(device):
+    """Small ``qf_positions`` inputs that reach every branch of its scan.
+
+    Returns ``(label, (fq, n, total))``, ``fq`` sorted.  The scan works in
+    tiles of ``qf_build.SCAN_TILE`` rows and looks back over 32 tiles at a
+    time: one cluster over 100 tiles (every row's quotient 7), so each tile
+    but the first takes its prefix from a look-back that may cross several
+    windows; a stream packed at the end of its slots (overflow); none
+    valid; fewer valid than rows; sizes of a tile and one row either side;
+    one row.
+    """
+    rng = np.random.default_rng(9)
+    tile = qf_build.SCAN_TILE
+
+    def uniform(rows, buckets):
+        return torch.from_numpy(np.sort(rng.integers(0, buckets, rows))).to(device)
+
+    big = torch.full((100 * tile + 7,), 7, dtype=torch.int64, device=device)
+    packed = uniform(3000, 100) + 1000
+    out = [
+        ("one cluster over 100 tiles", (big, big.shape[0], 101 * tile)),
+        ("overflow past the last slot", (packed, 3000, 2500)),
+        ("n = 0", (uniform(5000, 6000), 0, 7024)),
+        ("fewer valid than rows", (uniform(9000, 9000), 6000, 10024)),
+        ("tile - 1", (uniform(tile - 1, 2 * tile), tile - 1, 2 * tile + 1024)),
+        ("tile", (uniform(tile, tile), tile, tile + 1024)),
+        ("tile + 1", (uniform(tile + 1, tile), tile + 1, tile + 1024)),
+        ("one row", (uniform(1, 16), 1, 16)),
+    ]
+    return [
+        (label, (i32(fq), torch.tensor(n, dtype=torch.int32, device=device), t))
+        for label, (fq, n, t) in out
+    ]
 
 
 def probe_cases(device, build_args):
@@ -682,13 +735,16 @@ def launch_check(device) -> None:
                        (qf_probe.walk(*p, q, r, bits),), want))
         checks.append((f"qf_probe's byte walk ({label})", (qf_probe.walk(*p, q, r),), want))
     checks += fuse_cases(device)
-    for label, (pos, fq, fr, k, lf, planes), want in span_cases(device):
+    for label, args, planes, want in span_cases(device):
         got = tuple(p.clone() for p in planes)
         plain = tuple(p.clone() for p in planes)
-        qf_build.qf_build_span(pos, fq, fr, k, lf, *got)
-        qf_build.build_span_plain(pos, fq, fr, k, lf, *plain)
+        got += qf_build.qf_build_span(*args, *got)
+        plain += qf_build.build_span_plain(*args, *plain)
         checks.append((f"qf_build_span ({label})", got, plain))
-        checks.append((f"qf_build_span ({label}) against build_sorted", got, want))
+        checks.append((f"qf_build_span ({label}) against build_sorted", got[:6], want))
+    for label, args in scan_cases(device):
+        checks.append((f"qf_positions ({label})", qf_build.qf_positions(*args),
+                       qf_build.positions_plain(*args)))
     torch.cuda.synchronize()
     for name, got, want in checks:
         if max_abs_err(got, want) != 0:
@@ -740,62 +796,125 @@ def check_build(device):
     return row, (cfg, got, keys)
 
 
-def check_span(device):
-    """qf_build_span at the main path's shapes into a q = 25 table: the
-    drain of a full q = 24 table's 12,582,912 fingerprints (``finish``'s
-    span, from an empty table) and one migration chunk of ``INC_CHUNK``
-    appended half way through it.  The row is the chunk, the per-insert
-    launch; the drain is logged beside it.  The library call is the same
-    four ``index_put_`` as the plain version, on precomputed indices."""
+def q25_stream(device):
+    """What a q = 25 build takes on the main path: a full q = 24 table's
+    12,582,912 fingerprints at (25, 14), sorted, then sentinels up to the
+    33,555,456 slots of q = 25 (the stream ``grow`` hands ``build_sorted``).
+    Returns ``(cfg, fq, fr, n)``, the streams int64."""
     cfg = qf.QFConfig(q=RAM_Q + 1, r=P_BITS - RAM_Q - 1)
     n = qf.QFConfig(q=RAM_Q, r=1).capacity
-    keys = uint32_keys(np.random.default_rng(SEED), n, device)
-    fq, fr = sorted_stream(cfg, keys)
+    fq, fr = sorted_stream(cfg, uint32_keys(np.random.default_rng(SEED), n, device))
+    pad = cfg.total_slots - n
+    fq = torch.cat([fq, fq.new_full((pad,), qf.INT32_MAX)])
+    fr = torch.cat([fr, fr.new_full((pad,), qf.UINT32_MAX)])
+    return cfg, fq, fr, n
+
+
+def check_positions(device, stream):
+    """qf_positions over ``q25_stream``, narrowed to int32 as
+    ``ops.build_sorted`` hands it over.  Held to its plain version after the first launch and again after the timed
+    ones (each launch re-arms the look-back's scratch for the next).  The
+    library call is ``torch.cummax`` over the int64 differences, the plain
+    path's scan."""
+    cfg, fq, _, n = stream
+    t = cfg.total_slots
+    nn = torch.tensor(n, dtype=torch.int32, device=device)
+    fq32 = i32(fq)
+    want = qf_build.positions_plain(fq32, nn, t)
+    err = max_abs_err(qf_build.qf_positions(fq32, nn, t), want)
+    ms = cuda_ms(lambda: qf_build.qf_positions(fq32, nn, t), 20)
+    err = max(err, max_abs_err(qf_build.qf_positions(fq32, nn, t), want))
+    plain_ms = cuda_ms(lambda: qf_build.positions_plain(fq32, nn, t), 3)
+    idx = torch.arange(fq.shape[0], device=device)
+    d = torch.where(idx < nn, fq - idx, -qf.INT32_MAX)
+    library_ms = cuda_ms(lambda: torch.cummax(d, 0), 3)
+    rows = fq.shape[0]
+    # the valid rows' fq read (rows past n are not), every row's pos
+    # written, n read and overflow written
+    bound = n * 4 + rows * 4 + 4 + 1
+    log(
+        f"  qf_positions of {rows} rows ({n} valid): {ms:.5f} ms, plain "
+        f"{plain_ms:.5f} ms, torch.cummax {library_ms:.5f} ms, bound "
+        f"{bound / H100_BYTES_PER_S * 1e3:.6f} ms"
+    )
+    return kernel_row(
+        "qf_positions", "qf_build.cu", "src/repro/kernels/ops.py:55",
+        err, ms, plain_ms, bound, library_ms,
+    )
+
+
+def check_span(device, stream):
+    """qf_build_span at the main path's shapes into a q = 25 table, on the
+    int64 streams ``incremental_resize`` hands it: the drain of a full
+    q = 24 table's 12,582,912 fingerprints (``finish``'s span, from an
+    empty table) and one migration chunk of ``INC_CHUNK`` appended half way
+    through it.  The row is the chunk, the per-insert launch; the drain is
+    logged and kept beside it.  Held to its plain version (planes and the
+    four scalars) after the first launch and after the timed ones, and the
+    drain to ``ops.build_sorted`` of the whole stream.  The library call is
+    the plain path's ``torch.cummax`` of the span's differences and the
+    same four ``index_put_``, on precomputed indices."""
+    cfg, sfq, sfr, n = stream
+    fq, fr = sfq[:n], sfr[:n]
+    t = cfg.total_slots
     err, times = 0, {}
     for label, start, span in (("drain", 0, n), ("chunk", n // 2, INC_CHUNK)):
-        pos, sq, sr, k, lf, planes = span_args(cfg, fq, fr, start, span, span, device)
-        args = (pos, sq, sr, k, lf)
+        args, planes = span_args(cfg, fq, fr, start, span, span, device)
+        sq, sr, k, _, _, lp, lf = args
         got = tuple(p.clone() for p in planes)
         plain = tuple(p.clone() for p in planes)
-        qf_build.qf_build_span(*args, *got)
-        qf_build.build_span_plain(*args, *plain)
-        err = max(err, max_abs_err(got, plain))
+        out = qf_build.qf_build_span(*args, *got)
+        want = qf_build.build_span_plain(*args, *plain)
+        err = max(err, max_abs_err(got + out, plain + want))
         if label == "drain":
-            want = ops.build_sorted(cfg, fq, fr, n)
-            err = max(err, max_abs_err(got, (want.rem, want.occ, want.shf, want.con)))
-            del want
+            st = ops.build_sorted(cfg, sfq, sfr, n)
+            err = max(err, max_abs_err(got + out[:2], (*st[:4], st.n, st.overflow)))
+            del st
         # appending the same span again writes the same bytes: time in place
         ms = cuda_ms(lambda: qf_build.qf_build_span(*args, *got), 20)
+        err = max(err, max_abs_err(got + qf_build.qf_build_span(*args, *got),
+                                   plain + want))
         plain_ms = cuda_ms(lambda: qf_build.build_span_plain(*args, *plain), 3)
-        t = cfg.total_slots
+        idx = torch.arange(span, device=device)
+        d = torch.where(idx < k, sq - idx, -qf.INT32_MAX)
+        pos = idx + torch.maximum(lp + 1, torch.cummax(d, 0).values)
         keep = pos < t  # every item of these spans is valid
-        slot = pos[keep].to(torch.int64)
-        bucket = sq.to(torch.int64)
-        prev = torch.cat([lf.reshape(1), sq[:-1]])
-        values = (sr[keep], (pos != sq)[keep], (sq == prev)[keep])
+        slot = pos[keep]
+        bucket = sq
+        prev = torch.cat([lf.reshape(1), i32(sq[:-1])])
+        values = (i32(sr[keep]), (pos != sq)[keep], (i32(sq) == prev)[keep])
         true = torch.ones((), dtype=torch.bool, device=device)
         rem, occ, shf, con = plain
 
         def library():
+            torch.cummax(d, 0)
             rem.index_put_((slot,), values[0])
             occ.index_put_((bucket,), true)
             shf.index_put_((slot,), values[1])
             con.index_put_((slot,), values[2])
 
-        library_ms = cuda_ms(library, 10)
-        bound = span * (12 + 7)  # pos/fq/fr read; rem, shf, con, occ written
+        library_ms = cuda_ms(library, 5)
+        # fq/fr read (8 + 8 bytes an item), rem/shf/con of each kept item
+        # (6), the occ byte of each distinct bucket, the five scalars read
+        # and the four written
+        buckets = int(torch.unique_consecutive(sq).numel())
+        bound = span * 16 + int(keep.sum()) * 6 + buckets + 17 + 13
         times[label] = (ms, plain_ms, bound, library_ms)
         log(
             f"  qf_build_span {label} of {span} items into {t} slots: {ms:.5f} ms, "
-            f"plain {plain_ms:.5f} ms, four index_put_ {library_ms:.5f} ms, bound "
-            f"{bound / H100_BYTES_PER_S * 1e3:.6f} ms"
+            f"plain {plain_ms:.5f} ms, torch.cummax and four index_put_ "
+            f"{library_ms:.5f} ms, bound {bound / H100_BYTES_PER_S * 1e3:.6f} ms"
         )
-        del got, plain, planes, rem, occ, shf, con
+        del got, plain, planes, rem, occ, shf, con, args, d, pos, slot, values
     ms, plain_ms, bound, library_ms = times["chunk"]
-    return kernel_row(
+    row = kernel_row(
         "qf_build_span", "qf_build.cu", "src/repro/kernels/qf_build.py:88",
         err, ms, plain_ms, bound, library_ms,
     )
+    ms, plain_ms, bound, library_ms = times["drain"]
+    row["drain"] = {"ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound / H100_BYTES_PER_S * 1e3, "library_ms": library_ms}
+    return row
 
 
 def check_probe(device, built):
@@ -1785,18 +1904,23 @@ def bulk_breakdown(keys) -> dict:
         torch.arange(wq.shape[0], device=wq.device) < n,
         torch.ones_like(fq, dtype=torch.bool),
     ])
-    nn, _, pos, _ = qf.probe_positions(wide, wq, n)
+    t = wide.total_slots
+    nn = n.to(torch.int32)
+    wq32, wr32 = i32(wq), i32(wr)
+    pos, _ = qf_build.qf_positions(wq32, nn, t)
     idx = torch.arange(wq.shape[0], device=wq.device)
     d = torch.where(idx < nn, wq - idx, -qf.INT32_MAX)
-    planes_args = (i32(pos), i32(wq), i32(wr), nn, wide.total_slots)
     out = {
         "extract q": median_ms(lambda: qf.extract(core, st)),
         "requotient and pad": median_ms(lambda: qf._requotient(qs, rs, core, wide)),
         "build q+1": median_ms(lambda: ops.build_sorted(wide, wq, wr, n)),
-        "of which probe_positions": median_ms(lambda: qf.probe_positions(wide, wq, n)),
-        "of which torch.cummax": median_ms(lambda: torch.cummax(d, 0)),
+        "of which narrowing fq and fr": median_ms(lambda: (i32(wq), i32(wr))),
+        "of which qf_positions": median_ms(lambda: qf_build.qf_positions(wq32, nn, t)),
         "of which qf_build_planes": median_ms(
-            lambda: qf_build.qf_build_planes(*planes_args)
+            lambda: qf_build.qf_build_planes(pos, wq32, wr32, nn, t)
+        ),
+        "torch.cummax of the same stream (not on the path)": median_ms(
+            lambda: torch.cummax(d, 0)
         ),
         "grow": median_ms(lambda: filters.grow(cfg, st)),
         "extract q+1": median_ms(lambda: qf.extract(wide, grown)),
@@ -1836,6 +1960,7 @@ def main(device: str = "cuda") -> int:
         return 1
     device = torch.device(device)
     qf_kernels = {
+        "qf_positions": qf_build.qf_positions,
         "qf_build_planes": qf_build.qf_build_planes,
         "qf_probe": qf_probe.qf_probe,
         "cascade_probe": cascade_probe.cascade_probe,
@@ -1846,6 +1971,7 @@ def main(device: str = "cuda") -> int:
         "bloom_probe": bloom_block.bloom_probe,
     }
     frozen_kernels = {
+        "qf_positions": qf_build.qf_positions,
         "qf_build_planes": qf_build.qf_build_planes,
         "cascade_probe": cascade_probe.cascade_probe,
         "fuse_probe": fuse_probe.fuse_probe,
@@ -1882,7 +2008,10 @@ def main(device: str = "cuda") -> int:
     t0 = time.perf_counter()
     rows = {}
     rows["qf_build_planes"], built = check_build(device)
-    rows["qf_build_span"] = check_span(device)
+    stream = q25_stream(device)
+    rows["qf_positions"] = check_positions(device, stream)
+    rows["qf_build_span"] = check_span(device, stream)
+    del stream
     rows["qf_probe"], probe_keys = check_probe(device, built)
     rows["fingerprint"] = check_fingerprint(built[0], probe_keys)
     del built, probe_keys

@@ -357,8 +357,13 @@ def insert(cfg: QFConfig, state: QFState, keys: torch.Tensor, k=None) -> QFState
     return insert_sorted(cfg, state, fq, fr, k)
 
 
-def delete_sorted(cfg: QFConfig, state: QFState, fq, fr, k) -> QFState:
-    """Delete (one copy of) each of k sorted fingerprints — multiset diff."""
+def delete_sorted(cfg: QFConfig, state: QFState, fq, fr, k, build=None) -> QFState:
+    """Delete (one copy of) each of k sorted fingerprints — multiset diff.
+
+    ``build`` swaps the rebuild pass as in :func:`multi_merge`.
+    """
+    if build is None:
+        build = build_sorted
     qs, rs, n = extract(cfg, state)
     kk = _i32(k, qs.device)
     idx = torch.arange(qs.shape[0], device=qs.device)
@@ -371,7 +376,7 @@ def delete_sorted(cfg: QFConfig, state: QFState, fq, fr, k) -> QFState:
     ndel = torch.minimum(dhi, kk) - torch.minimum(dlo, kk)
     keep = valid & (rank >= ndel)
     qs2, rs2 = _pad_sort(qs, rs, keep)
-    return build_sorted(cfg, qs2, rs2, keep.sum(dtype=torch.int32))
+    return build(cfg, qs2, rs2, keep.sum(dtype=torch.int32))
 
 
 def delete(cfg: QFConfig, state: QFState, keys: torch.Tensor, k=None) -> QFState:

@@ -20,10 +20,13 @@
 // fell off the end).  Each search is 32-way: a warp tests 32 points at once,
 // so 12.6 M items take 5 dependent rounds.  n_valid is read on the card.
 //
-// The second entry, qf_build_span, appends a sorted span to a partly built
-// table in place (the incremental migration's step; the JAX package runs
-// the TPU kernel over whole planes and ORs them in, repro/kernels/ops.py
-// ::_build_span).  See its comment below.
+// Two more entries share the probe scan of qf_scan.cuh (lax.cummax in the
+// JAX package, XLA code in front of the TPU kernel): qf_positions writes a
+// whole build's positions for qf_build_planes, and qf_build_span appends a
+// sorted span to a partly built table in place, the incremental
+// migration's step (the JAX package runs the TPU kernel over whole planes
+// and ORs them in, repro/kernels/ops.py::_build_span).  See their comments
+// below.
 //
 // Contract: the first min(n_items, *n_valid) items are valid; over them
 // fq does not decrease and pos increases strictly as uint32 (the int32 cast
@@ -34,6 +37,8 @@
 // aligned (a fresh allocation is).
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "qf_scan.cuh"
 
 #define TILE 4096
 #define THREADS 256
@@ -147,46 +152,120 @@ extern "C" int qf_build_planes(const void* pos, const void* fq, const void* fr,
   return (int)cudaGetLastError();
 }
 
-// Span append: one thread per item.  Probe positions strictly increase past
-// every slot the earlier appends wrote, so the rem/shf/con stores of a span
-// touch only fresh slots; occ stores can land on a bucket an earlier append
-// marked, and they all write 1.  The first item's predecessor for the
-// continuation bit is *last_fq, carried across calls; *k (valid items) is
-// read on the card.  A position outside [0, total) is dropped, and its
-// bucket is still marked.  O(span) work: no pass over the table.
-__global__ void __launch_bounds__(THREADS)
-    qf_build_span_kernel(const int32_t* __restrict__ pos,
-                         const int32_t* __restrict__ fq,
-                         const int32_t* __restrict__ fr,
+// qf_positions: the int32 positions of every row (the low 32 bits of the
+// int64 position, as the plain version narrows it) and the overflow flag,
+// set when the last valid row, and so any valid row, lies at or past
+// total.  fq is the int32 stream qf_build_planes takes; *n is read on the
+// card.  Bound: bytes, the valid rows of the stream read (rows past n are
+// not) and every row's position written.
+__global__ void __launch_bounds__(SCAN_THREADS)
+    qf_positions_kernel(const int32_t* __restrict__ fq,
+                        const int32_t* __restrict__ n, long long n_items,
+                        long long total, uint32_t* hdr,
+                        unsigned long long* status, int32_t* __restrict__ pos,
+                        uint8_t* __restrict__ overflow) {
+  const long long n_valid = min((long long)max(*n, 0), n_items);
+  scan_tile(fq, n_items, n_valid, INT_MIN, 0, hdr, status,
+            [&](long long i, int32_t, int32_t, long long p, bool) {
+              pos[i] = (int32_t)p;
+              if (i == n_valid - 1) *overflow = p >= total;
+            });
+  if (n_valid == 0 && blockIdx.x == 0 && threadIdx.x == 0) *overflow = 0;
+}
+
+// qf_build_span: the span's positions come from the scan with the carry
+// c = *last_pos + 1, so the span computes its own positions.  fq and fr are
+// the int64 streams of the migration, read as they are.  Probe positions
+// strictly increase past every slot the earlier appends wrote, so the
+// rem/shf/con stores of a span touch only fresh slots; occ stores can land
+// on a bucket an earlier append marked, and they all write 1.  Row 0's
+// predecessor for the continuation bit is *last_fq.  A position outside
+// [0, total) is dropped, and its bucket is still marked.  The scalars are
+// read and written on the card: n_out = n + k, overflow_out = overflow | a
+// valid row at or past total, and the carries advance to the last valid
+// row (unchanged when k <= 0).  O(span) work: no pass over the table.
+// Bound: bytes, the valid rows' fq and fr read and 7 plane bytes written
+// an item; the plane stores land between slots the table leaves empty, so
+// the card writes whole 32-byte sectors around them.
+__global__ void __launch_bounds__(SCAN_THREADS)
+    qf_build_span_kernel(const long long* __restrict__ fq,
+                         const long long* __restrict__ fr,
                          const int32_t* __restrict__ k,
+                         const int32_t* __restrict__ n,
+                         const uint8_t* __restrict__ overflow,
+                         const int32_t* __restrict__ last_pos,
                          const int32_t* __restrict__ last_fq, long long n_items,
-                         long long total, int32_t* __restrict__ rem,
+                         long long total, uint32_t* hdr,
+                         unsigned long long* status, int32_t* __restrict__ rem,
                          uint8_t* __restrict__ occ, uint8_t* __restrict__ shf,
-                         uint8_t* __restrict__ con) {
-  const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (i >= n_items || i >= (long long)*k) return;
-  const int32_t p = pos[i], q = fq[i];
-  if (q >= 0 && q < total) occ[q] = 1;
-  if (p >= 0 && p < total) {
-    const int32_t prev = i > 0 ? fq[i - 1] : *last_fq;
-    rem[p] = fr[i];
-    shf[p] = p != q;
-    con[p] = q == prev;
+                         uint8_t* __restrict__ con, int32_t* __restrict__ n_out,
+                         uint8_t* __restrict__ overflow_out,
+                         int32_t* __restrict__ last_pos_out,
+                         int32_t* __restrict__ last_fq_out) {
+  const int32_t kk = *k, lp = *last_pos, lf = *last_fq;
+  const long long n_valid = min((long long)max(kk, 0), n_items);
+  const int32_t carry = (int32_t)((uint32_t)lp + 1u);  // int32 + 1 wraps
+  scan_tile(fq, n_items, n_valid, carry, lf, hdr, status,
+            [&](long long i, int32_t q, int32_t prev, long long p, bool valid) {
+              if (!valid) return;
+              if (q >= 0 && q < total) occ[q] = 1;
+              if (p >= 0 && p < total) {
+                rem[p] = (int32_t)fr[i];
+                shf[p] = p != q;
+                con[p] = q == prev;
+              }
+              if (i == n_valid - 1) {
+                *last_pos_out = (int32_t)p;
+                *last_fq_out = q;
+                *overflow_out = *overflow | (p >= total);
+              }
+            });
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    *n_out = (int32_t)((uint32_t)*n + (uint32_t)kk);
+    if (n_valid == 0) {
+      *last_pos_out = lp;
+      *last_fq_out = lf;
+      *overflow_out = *overflow;
+    }
   }
 }
 
-// Writes the span's slots and buckets into the given planes.  Returns
+static unsigned scan_blocks(long long n_items) {
+  return n_items > 0 ? (unsigned)((n_items + SCAN_TILE - 1) / SCAN_TILE) : 1u;
+}
+
+// Writes pos and *overflow.  The scratch is the caller's, zeroed when
+// allocated, and must hold 2 + tiles 64-bit words; launches sharing it must
+// be ordered on one stream.  Returns cudaGetLastError().
+extern "C" int qf_positions(const void* fq, const void* n, long long n_items,
+                            long long total, void* scratch, void* pos,
+                            void* overflow, void* stream) {
+  qf_positions_kernel<<<scan_blocks(n_items), SCAN_THREADS, 0,
+                        (cudaStream_t)stream>>>(
+      (const int32_t*)fq, (const int32_t*)n, n_items, total,
+      (uint32_t*)scratch, (unsigned long long*)scratch + 2, (int32_t*)pos,
+      (uint8_t*)overflow);
+  return (int)cudaGetLastError();
+}
+
+// Writes the span's slots and buckets into the given planes and the four
+// scalar outputs; the scratch as for qf_positions.  Returns
 // cudaGetLastError().
-extern "C" int qf_build_span(const void* pos, const void* fq, const void* fr,
-                             const void* k, const void* last_fq,
-                             long long n_items, long long total, void* rem,
-                             void* occ, void* shf, void* con, void* stream) {
-  if (n_items > 0) {
-    long long blocks = (n_items + THREADS - 1) / THREADS;
-    qf_build_span_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
-        (const int32_t*)pos, (const int32_t*)fq, (const int32_t*)fr,
-        (const int32_t*)k, (const int32_t*)last_fq, n_items, total,
-        (int32_t*)rem, (uint8_t*)occ, (uint8_t*)shf, (uint8_t*)con);
-  }
+extern "C" int qf_build_span(const void* fq, const void* fr, const void* k,
+                             const void* n, const void* overflow,
+                             const void* last_pos, const void* last_fq,
+                             long long n_items, long long total, void* scratch,
+                             void* rem, void* occ, void* shf, void* con,
+                             void* n_out, void* overflow_out,
+                             void* last_pos_out, void* last_fq_out,
+                             void* stream) {
+  qf_build_span_kernel<<<scan_blocks(n_items), SCAN_THREADS, 0,
+                         (cudaStream_t)stream>>>(
+      (const long long*)fq, (const long long*)fr, (const int32_t*)k,
+      (const int32_t*)n, (const uint8_t*)overflow, (const int32_t*)last_pos,
+      (const int32_t*)last_fq, n_items, total, (uint32_t*)scratch,
+      (unsigned long long*)scratch + 2, (int32_t*)rem, (uint8_t*)occ,
+      (uint8_t*)shf, (uint8_t*)con, (int32_t*)n_out, (uint8_t*)overflow_out,
+      (int32_t*)last_pos_out, (int32_t*)last_fq_out);
   return (int)cudaGetLastError();
 }

@@ -135,11 +135,13 @@ def delete(cfg: BufferedQFConfig, state, keys, k=None) -> BufferedQFState:
     rank = qf_filter.batch_occurrence_rank(rq, rr, valid)
     cnt_ram = qf_filter.multiplicity(cfg.ram, state.ram, rq, rr)
     ram = qf_filter.delete_masked(
-        cfg.ram, state.ram, rq, rr, valid & (rank < cnt_ram)
+        cfg.ram, cfg.backend, state.ram, rq, rr, valid & (rank < cnt_ram)
     )
     dq, dr = qf.fingerprints(cfg.disk, keys)
     disk_mask = valid & (rank >= cnt_ram)
-    disk = qf_filter.delete_masked(cfg.disk, state.disk, dq, dr, disk_mask)
+    disk = qf_filter.delete_masked(
+        cfg.disk, cfg.backend, state.disk, dq, dr, disk_mask
+    )
     reads = torch.where(state.disk.n > 0, disk_mask.sum(dtype=torch.int32), 0)
     io = state.io._replace(
         rand_page_reads=state.io.rand_page_reads + reads,

@@ -350,7 +350,7 @@ def delete(cfg: CascadeConfig, state, keys, k=None) -> CascadeState:
         fq, fr = qf.fingerprints(c, keys)
         cnt = qf_filter.multiplicity(c, s, fq, fr)
         todel = valid & (rank >= cum) & (rank < cum + cnt)
-        new = qf_filter.delete_masked(c, s, fq, fr, todel)
+        new = qf_filter.delete_masked(c, cfg.backend, s, fq, fr, todel)
         if lvl > 0:  # disk-resident level
             reads = reads + torch.where(s.n > 0, todel.sum(dtype=torch.int32), 0)
             writes = writes + (s.n - new.n)

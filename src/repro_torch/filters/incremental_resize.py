@@ -8,10 +8,10 @@ fresh keys in a small side-buffer QF, and ``contains`` consults all
 three, so no single operation pays more than a chunk.  Requotienting is
 monotone, so the stream arrives in the new table's sorted order and the
 new planes are built strictly left to right by ``kernels.ops.build_chunk``
-(a carried ``cummax`` and a ``qf_build_span`` launch that writes the
-chunk's slots in place: O(chunk), never a rebuild).  ``finish`` drains
-what is left in one span append and folds the buffer in with one
-sort-free two-stream merge.
+(one ``qf_build_span`` launch that scans the chunk with the carried
+position and writes its slots in place: O(chunk), never a rebuild).
+``finish`` drains what is left in one span append and folds the buffer
+in with one sort-free two-stream merge.
 
 Membership is exact at every cursor: entries ``[0, cursor)`` of the
 stream answer from the new planes, ``[cursor, n)`` from a binary search

@@ -103,10 +103,15 @@ def contains_keys(core: qf.QFConfig, backend: str, state, keys, window=256):
     return qf.contains(core, state, keys, window)
 
 
-def delete_masked(core: qf.QFConfig, state: qf.QFState, fq, fr, mask) -> qf.QFState:
-    """Delete one copy of each fingerprint where ``mask`` is set."""
+def delete_masked(
+    core: qf.QFConfig, backend: str, state: qf.QFState, fq, fr, mask
+) -> qf.QFState:
+    """Delete one copy of each fingerprint where ``mask`` is set, the
+    table rebuilt by the backend's build pass."""
     fq, fr = qf._pad_sort(fq, fr, mask)
-    return qf.delete_sorted(core, state, fq, fr, mask.sum(dtype=torch.int32))
+    return qf.delete_sorted(
+        core, state, fq, fr, mask.sum(dtype=torch.int32), build_fn(backend)
+    )
 
 
 def batch_occurrence_rank(fq, fr, valid) -> torch.Tensor:
@@ -153,7 +158,7 @@ def contains(cfg: QFilterConfig, state, keys):
 def delete(cfg: QFilterConfig, state, keys, k=None):
     core = cfg.core
     fq, fr = qf.fingerprints(core, keys)
-    return delete_masked(core, state, fq, fr, valid_mask(keys, k))
+    return delete_masked(core, cfg.backend, state, fq, fr, valid_mask(keys, k))
 
 
 def merge(cfg: QFilterConfig, sa, sb):

@@ -13,10 +13,10 @@ import torch
 
 def use_kernel(*tensors: torch.Tensor) -> bool:
     """True when every input is a CUDA tensor, False when every one is on the CPU."""
-    kinds = {t.device.type for t in tensors}
-    if kinds == {"cpu"}:
+    if all(t.is_cpu for t in tensors):
         return False
-    if kinds == {"cuda"} and len({t.device for t in tensors}) == 1:
+    index = tensors[0].get_device()
+    if all(t.is_cuda and t.get_device() == index for t in tensors):
         return True
     raise ValueError(
         "kernel inputs must all lie on the CPU or all on one CUDA device, got "

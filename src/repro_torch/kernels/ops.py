@@ -18,7 +18,10 @@ key hash with each probe; here keys become int32 fingerprint pairs in
 one ``fingerprint`` launch, which the probe kernels take as they are,
 and the fuse probe hashes those pairs to cell positions itself.  Where
 a caller hands in the int64 streams of ``core``, the wrappers narrow
-them to int32, as the TPU kernels took them.
+them to int32, as the TPU kernels took them; the span append reads
+them as they are.  No kernel-path build calls ``torch.cummax``: the
+probe positions come from the ``qf_positions`` scan, or from inside
+``qf_build_span``.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ from . import bloom_block
 from .cascade_probe import cascade_probe
 from .fingerprint import fingerprint
 from .fuse_probe import fuse_probe
-from .qf_build import qf_build_planes, qf_build_span
+from .qf_build import qf_build_planes, qf_build_span, qf_positions
 from .qf_probe import qf_probe
 
 
@@ -43,41 +46,18 @@ def _i32(x: torch.Tensor) -> torch.Tensor:
 def build_sorted(cfg: qf.QFConfig, fq, fr, n) -> qf.QFState:
     """Kernel-path equivalent of ``quotient_filter.build_sorted``.
 
-    Probe positions are one ``cummax`` scan in PyTorch; the planes are
-    written by the ``qf_build_planes`` kernel.
+    The streams narrowed to int32 once, the probe positions by the
+    ``qf_positions`` scan, the planes by the ``qf_build_planes`` kernel.
     """
     if cfg.r > 31:
         raise ValueError("kernel path keeps the JAX package's r <= 31 limit")
-    nn, _, pos, overflow = qf.probe_positions(cfg, fq, n)
+    nn = qf._i32(n, fq.device)
+    fq, fr = _i32(fq), _i32(fr)
     # a position past INT32_MAX wraps negative and is dropped, as one past
     # the last slot is
-    rem, occ, shf, con = qf_build_planes(
-        _i32(pos), _i32(fq), _i32(fr), nn, cfg.total_slots
-    )
+    pos, overflow = qf_positions(fq, nn, cfg.total_slots)
+    rem, occ, shf, con = qf_build_planes(pos, fq, fr, nn, cfg.total_slots)
     return qf.QFState(rem=rem, occ=occ, shf=shf, con=con, n=nn, overflow=overflow)
-
-
-def _span_math(cfg: qf.QFConfig, fq, k, last_pos, last_fq):
-    """Closed-form append positions for a carried sorted span.
-
-    The probe recurrence ``pos[i] = max(pos[i-1] + 1, fq[i])`` closes to
-    ``i + max(last_pos + 1, cummax(fq - i))`` over the whole span, so
-    chunk boundaries do not matter to it.  Returns the valid count ``k``
-    and ``pos`` (int64), whether a valid item fell past the last slot,
-    and the advanced carries, all on the device.
-    """
-    dev = fq.device
-    kk = k if torch.is_tensor(k) else torch.full((), k, dtype=torch.int32, device=dev)
-    kk = kk.to(device=dev, dtype=torch.int32)
-    idx = torch.arange(fq.shape[0], device=dev)
-    valid = idx < kk
-    d = torch.where(valid, fq - idx, -qf.INT32_MAX)
-    pos = idx + torch.maximum(last_pos + 1, torch.cummax(d, 0).values)
-    overflow = (valid & (pos >= cfg.total_slots)).any()
-    last = (kk - 1).clamp(0, fq.shape[0] - 1).reshape(1).to(torch.int64)
-    new_last_pos = torch.where(kk > 0, pos.index_select(0, last)[0], last_pos)
-    new_last_fq = torch.where(kk > 0, fq.index_select(0, last)[0], last_fq)
-    return kk, pos, overflow, new_last_pos.to(torch.int32), new_last_fq.to(torch.int32)
 
 
 def build_span(cfg: qf.QFConfig, state: qf.QFState, fq, fr, k, last_pos, last_fq):
@@ -88,26 +68,26 @@ def build_span(cfg: qf.QFConfig, state: qf.QFState, fq, fr, k, last_pos, last_fq
     the first span) carry the probe scan across calls, and every valid
     fingerprint sorts at or after ``last_fq``.  Appending span by span
     reproduces ``quotient_filter.build_sorted`` of the whole prefix bit
-    for bit.  ``fq``/``fr`` are the int64 streams of ``core``; ``k`` an
-    int or an int32 scalar tensor.
+    for bit: the scan ``pos[i] = max(pos[i-1] + 1, fq[i])`` closes to
+    ``i + max(last_pos + 1, cummax(fq - i))`` over any span length.
+    ``fq``/``fr`` are the int64 streams of ``core``; ``k`` an int or an
+    int32 scalar tensor.
 
-    The planes of ``state`` are written in place by one ``qf_build_span``
-    launch (its plain version for CPU state), with no host read, so the
-    argument's planes are consumed: use the returned state, as a caller
-    of the JAX package's donated migration step must.  Returns
+    One ``qf_build_span`` launch (its plain version for CPU state) scans
+    the span, writes the planes of ``state`` in place and advances ``n``,
+    ``overflow`` and the carries, with no host read, so the argument's
+    planes are consumed: use the returned state, as a caller of the JAX
+    package's donated migration step must.  Returns
     ``(state, last_pos, last_fq)``.
     """
     if cfg.r > 31:
         raise ValueError("kernel path keeps the JAX package's r <= 31 limit")
-    kk, pos, overflow, new_last_pos, new_last_fq = _span_math(
-        cfg, fq, k, last_pos, last_fq
-    )
-    qf_build_span(
-        _i32(pos), _i32(fq), _i32(fr), kk, last_fq.to(torch.int32),
+    kk = qf._i32(k, fq.device)
+    n, overflow, last_pos, last_fq = qf_build_span(
+        fq, fr, kk, state.n, state.overflow, last_pos, last_fq,
         state.rem, state.occ, state.shf, state.con,
     )
-    new = state._replace(n=state.n + kk, overflow=state.overflow | overflow)
-    return new, new_last_pos, new_last_fq
+    return state._replace(n=n, overflow=overflow), last_pos, last_fq
 
 
 def build_chunk(cfg: qf.QFConfig, state: qf.QFState, fq, fr, k, last_pos, last_fq):

@@ -135,32 +135,84 @@ def test_build_span_and_chunk_match_jax_at_every_cursor(slack):
     assert bool(state.overflow) == (slack == 4)
 
 
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_build_span_in_random_chunks_matches_jax(seed):
+    """A stream with long runs appended in chunks cut at random (empty
+    ones among them, and cuts inside runs), each a 48-row slice with its
+    first ``k`` rows valid as ``_advance`` pads it, alternating
+    ``build_chunk`` and ``build_span``: after every append the planes,
+    ``n``, ``overflow`` and the carries equal the JAX package's appends,
+    and the planes, ``n`` and ``overflow`` its ``build_sorted`` of the
+    prefix.  The slack is short enough that the last runs drop."""
+    rng = np.random.default_rng(seed)
+    cfg_t = tqf.QFConfig(q=7, r=10, slack=24)
+    cfg_j = jqf.QFConfig(q=7, r=10, slack=24)
+    n = 170
+    fq = np.sort(np.concatenate([rng.integers(0, 128, n - 30), [40] * 18, [127] * 12]))
+    fr = rng.integers(0, 1 << 10, n)
+    o = np.lexsort((fr, fq))
+    fq, fr = fq[o], fr[o]
+    width = 48
+    tq = torch.from_numpy(np.concatenate([fq, np.full(width, 2**31 - 1)]))
+    tr = torch.from_numpy(np.concatenate([fr, np.full(width, 2**32 - 1)]))
+    jq, jr = jnp.asarray(tq.numpy().astype(np.int32)), jnp.asarray(
+        tr.numpy().astype(np.uint32))
+    state, jstate = tqf.empty(cfg_t, "cpu"), jqf.empty(cfg_j)
+    lp, lf = (torch.full((), -1, dtype=torch.int32) for _ in range(2))
+    jlp, jlf = jnp.full((), -1, jnp.int32), jnp.full((), -1, jnp.int32)
+    cursor, step, inside = 0, 0, 0
+    while cursor < n:
+        size = min(int(rng.integers(0, width + 1)) if step % 3 else 0, n - cursor)
+        inside += 0 < cursor < n and fq[cursor] == fq[cursor - 1]
+        span = slice(cursor, cursor + width)
+        t_append, j_append = ((tops.build_chunk, jops.build_chunk) if step % 2
+                              else (tops.build_span, jops.build_span))
+        state, lp, lf = t_append(
+            cfg_t, state, tq[span], tr[span], torch.tensor(size, dtype=torch.int32),
+            lp, lf,
+        )
+        jstate, jlp, jlf = j_append(cfg_j, jstate, jq[span], jr[span], size, jlp, jlf)
+        cursor += size
+        step += 1
+        _assert_qf(jstate, state, f"append {step} to {cursor}")
+        assert (int(lp), int(lf)) == (int(jlp), int(jlf)), step
+        _assert_qf(jqf.build_sorted(cfg_j, jq[:n], jr[:n], cursor), state,
+                   f"prefix of {cursor} vs build_sorted")
+    assert inside > 0 and step > 6
+    assert bool(state.overflow)  # the run at the last bucket drops past the slack
+
+
 def test_span_plain_version_handles_its_edges():
-    """The wrapper's plain version (what runs for CPU tensors) writes only
-    the valid items' slots, marks a dropped item's bucket, takes the
-    carried ``last_fq`` for item 0, and with ``k = 0`` writes nothing."""
+    """The wrapper's plain version (what runs for CPU tensors) scans the
+    span from the carried ``last_pos``, writes only the valid items'
+    slots, marks a dropped item's bucket, takes the carried ``last_fq``
+    for item 0, advances ``n``, ``overflow`` and the carries, and with
+    ``k = 0`` writes nothing and keeps the carries."""
     t = 12
     planes = lambda: (torch.zeros(t, dtype=torch.int32),) + tuple(
         torch.zeros(t, dtype=torch.bool) for _ in range(3)
     )
     i32 = lambda v: torch.tensor(v, dtype=torch.int32)
-    pos, fq, fr = i32([5, 6, 7, 11, 12, 13]), i32([5, 5, 6, 11, 11, 11]), i32(
-        [-1, 2, 3, 4, 5, 6]
-    )
+    # positions 5, 6, 7, 11, 12 (past the last slot), 13 (not valid)
+    fq = torch.tensor([5, 5, 6, 11, 11, 11])
+    fr = torch.tensor([2**32 - 1, 2, 3, 4, 5, 6])  # the uint32 value of -1
+    scalars = (i32(5), i32(7), torch.tensor(False), i32(4), i32(5))
     rem, occ, shf, con = planes()
-    qf_build.qf_build_span(pos, fq, fr, i32(5), i32(5), rem, occ, shf, con)
+    n, ovf, lp, lf = qf_build.qf_build_span(fq, fr, *scalars, rem, occ, shf, con)
     assert rem.tolist() == [0] * 5 + [-1, 2, 3, 0, 0, 0, 4]
     assert occ.nonzero().flatten().tolist() == [5, 6, 11]
     assert shf.nonzero().flatten().tolist() == [6, 7]
     assert con.nonzero().flatten().tolist() == [5, 6]  # item 0 continues last_fq
+    assert (int(n), bool(ovf), int(lp), int(lf)) == (12, True, 12, 11)
     before = planes()
     after = planes()
-    qf_build.qf_build_span(pos, fq, fr, i32(0), i32(5), *after)
+    out = qf_build.qf_build_span(fq, fr, i32(0), *scalars[1:], *after)
     assert all(torch.equal(a, b) for a, b in zip(before, after))
-    with pytest.raises(TypeError):
-        qf_build.qf_build_span(pos.long(), fq, fr, i32(1), i32(5), rem, occ, shf, con)
+    assert [x.item() for x in out] == [7, False, 4, 5]
+    with pytest.raises(TypeError):  # the int64 streams of core
+        qf_build.qf_build_span(fq, fr.to(torch.int32), *scalars, rem, occ, shf, con)
     with pytest.raises(ValueError):
-        qf_build.qf_build_span(pos, fq, fr, i32([1]), i32(5), rem, occ, shf, con)
+        qf_build.qf_build_span(fq, fr, i32([1]), *scalars[1:], rem, occ, shf, con)
 
 
 def _filled(f, keys, spec, n, seed):

@@ -10,6 +10,7 @@ exact.
 """
 
 import functools
+import re
 import importlib.util
 from pathlib import Path
 
@@ -426,7 +427,7 @@ def test_probe_plain_matches_oracle_at_hard_shapes(case):
 
 
 def test_chip_smoke_cases_reach_their_branches():
-    """The small phase-1 cases of the two QF kernels are what they claim."""
+    """The small phase-1 cases of the QF kernels are what they claim."""
     cases = dict(chip_smoke.build_cases("cpu"))
     pos, fq, fr, nn, t = cases["load 0.95, across a tile's end"]
     assert t % 4096 and t > 4096
@@ -446,6 +447,26 @@ def test_chip_smoke_cases_reach_their_branches():
     assert planes[1].storage_offset() == 1
     planes, q = probes["overflowed state"]
     assert planes[0].shape[0] % 32 and q.shape[0] * qf_probe.DENSE >= planes[0].shape[0]
+    # the probe scan's cases: tiles, look-back windows, overflow, no rows valid
+    tile = qf_build.SCAN_TILE
+    scans = dict(chip_smoke.scan_cases("cpu"))
+    fq, n, t = scans["one cluster over 100 tiles"]
+    assert fq.shape[0] > 3 * 32 * tile and bool((fq == fq[0]).all())  # 32-tile windows
+    for label, (fq, n, t) in scans.items():
+        pos, overflow = qf_build.qf_positions(fq, n, t)
+        assert bool(overflow) == label.startswith("overflow"), label
+    assert int(scans["n = 0"][1]) == 0
+    assert int(scans["fewer valid than rows"][1]) < scans["fewer valid than rows"][0].shape[0]
+    assert [scans[f"tile{d}"][0].shape[0] - tile for d in (" - 1", "", " + 1")] == [-1, 0, 1]
+    # the span append's cases: carries, runs, empty spans, tiles, dropped items
+    spans = {label: (args, want) for label, args, _, want in chip_smoke.span_cases("cpu")}
+    (fq, fr, k, n, overflow, lp, lf), _ = spans["first quotient continues last_fq"]
+    assert int(fq[0]) == int(lf)
+    (fq, _, k, _, _, lp, lf), _ = spans["one cluster across tiles, from inside it"]
+    assert fq.shape[0] > 2 * tile and int(k) == fq.shape[0] and bool((fq == lf).all())
+    assert int(spans["k = 0"][0][2]) == 0
+    args, want = spans["items dropped past the last slot"]
+    assert bool(want[5]) and not bool(args[4])  # this span overflows the slots
 
 
 # the kernel path's families, small: (family, spec, keys for make)
@@ -512,3 +533,146 @@ def test_kernel_path_hashes_keys_through_the_fingerprint_kernel(name, monkeypatc
     assert len(lookups) == want_probe + frozen
     if name == "frozen cascade":  # the frozen level holds keys
         assert int(tf.stats(cfg, st)["level_counts"][1]) > 0
+
+
+# Streams for the probe scan: (quotients, valid rows or None for all,
+# total slots), the quotients sorted.  The scan works in 8192-row
+# tiles (``qf_build.SCAN_TILE``); a cluster that covers every row crosses
+# every tile end, and a packed tail overflows the slots.
+def _scan_stream(case):
+    tile = qf_build.SCAN_TILE
+    rng = np.random.default_rng(21)
+
+    def uniform(rows, buckets):
+        return np.sort(rng.integers(0, buckets, rows))
+
+    return {
+        "n = 0": (uniform(300, 400), 0, 1424),
+        "n = len": (uniform(300, 400), None, 1424),
+        "fewer valid than rows": (uniform(300, 400), 170, 1424),
+        "one cluster over the whole stream": (np.full(3 * tile + 5, 7), None, 4 * tile),
+        "overflow past the last slot": (uniform(700, 64) + 500, None, 1000),
+        "length 1": (np.array([9]), None, 16),
+        "tile - 1": (uniform(tile - 1, 2 * tile), None, 2 * tile + 1024),
+        "tile": (uniform(tile, tile), None, tile + 1024),
+        "tile + 1": (uniform(tile + 1, tile), 4000, tile + 1024),
+    }[case]
+
+
+SCAN_CASES = [
+    "n = 0", "n = len", "fewer valid than rows", "one cluster over the whole stream",
+    "overflow past the last slot", "length 1", "tile - 1", "tile", "tile + 1",
+]
+
+
+@pytest.mark.parametrize("case", SCAN_CASES)
+def test_positions_plain_matches_jax_cummax_and_a_loop(case):
+    """``qf_positions`` (its plain version on the CPU) against the JAX
+    package's expression ``idx + lax.cummax(where(valid, fq - idx,
+    -INT32_MAX))`` on every row, and against the probe recurrence
+    ``pos[i] = max(pos[i-1] + 1, fq[i])`` over the valid rows; the
+    overflow flag against a valid row at or past the last slot."""
+    fq, n, total = _scan_stream(case)
+    n = fq.shape[0] if n is None else n
+    pos, overflow = qf_build.qf_positions(
+        torch.from_numpy(fq.astype(np.int32)), torch.tensor(n, dtype=torch.int32), total
+    )
+    assert pos.dtype == torch.int32 and overflow.dtype == torch.bool
+    jq = jnp.asarray(fq.astype(np.int32))
+    idx = jnp.arange(fq.shape[0], dtype=jnp.int32)
+    valid = idx < n
+    jpos = idx + jax.lax.cummax(jnp.where(valid, jq - idx, -jqf.INT32_MAX))
+    np.testing.assert_array_equal(np.asarray(jpos), pos.numpy())
+    assert bool(overflow) == bool(jnp.any(valid & (jpos >= total)))
+    loop = np.zeros(n, dtype=np.int64)
+    for i in range(n):
+        loop[i] = fq[i] if i == 0 else max(loop[i - 1] + 1, fq[i])
+    np.testing.assert_array_equal(loop, pos.numpy()[:n])
+    assert bool(overflow) == bool((loop >= total).any())
+    assert bool(overflow) == (case == "overflow past the last slot")
+
+
+def test_build_sorted_routes_through_qf_positions(monkeypatch):
+    """``ops.build_sorted`` takes its positions from ``qf_positions``, not
+    from the plain path's ``probe_positions`` (patched to raise here),
+    and still equals the JAX package's build."""
+    calls = []
+
+    def spy(*args):
+        calls.append(args[0].dtype)
+        return qf_build.qf_positions(*args)
+
+    def refuse(*args, **kw):
+        raise AssertionError("the kernel path called probe_positions")
+
+    streams = []
+    for q, r, n in (SMALL, WIDE):
+        jcfg, tcfg, _, _, keys = _filled(q, r, n)
+        jfq, jfr = jqf.fingerprints(jcfg, jnp.asarray(keys))
+        jfq, jfr = jqf._pad_sort(jfq, jfr, jnp.ones(jfq.shape, bool))
+        streams.append((n, jcfg, tcfg, _sorted_stream(tcfg, keys), (jfq, jfr)))
+    monkeypatch.setattr(ops, "qf_positions", spy)
+    monkeypatch.setattr(tqf, "probe_positions", refuse)
+    for n, jcfg, tcfg, (fq, fr), (jfq, jfr) in streams:
+        for count in (n, n - 37, 0):
+            got = ops.build_sorted(tcfg, fq, fr, count)
+            want = jops.build_sorted(jcfg, jfq, jfr, count, mode="interpret")
+            for f, a, b in zip(want._fields, want, got):
+                b = b.numpy().view(np.uint32) if f == "rem" else b.numpy()
+                np.testing.assert_array_equal(np.asarray(a), b, err_msg=f)
+    assert calls == [torch.int32] * 6
+
+
+# small specs of the QF families whose deletes rebuild their tables
+DELETE_SPECS = {
+    "qf": dict(q=9, r=14),
+    "buffered_qf": dict(ram_q=7, disk_q=10, p=22),
+    "cascade": dict(ram_q=6, p=22, fanout=2, levels=2),
+}
+
+
+@pytest.mark.parametrize("name", sorted(DELETE_SPECS))
+def test_kernel_path_delete_rebuilds_through_ops_build_sorted(name, monkeypatch):
+    """Under ``backend="pallas"`` a delete rebuilds each table it touches
+    with ``ops.build_sorted`` (so through ``qf_positions`` and
+    ``qf_build_planes`` on the card), and the state equals the JAX
+    package's delete of the same keys."""
+    from repro import filters as jf
+    from repro_torch import filters as tf
+
+    spec = dict(DELETE_SPECS[name], backend="pallas")
+    keys = _keys(40, 300)
+    gone = np.concatenate([keys[:60], keys[:10], _keys(41, 20)])
+    jcfg, jst = jf.make(name, **spec)
+    tcfg, tst = tf.make(name, device="cpu", **spec)
+    for b in range(0, 300, 96):
+        jst = jf.insert(jcfg, jst, jnp.asarray(keys[b : b + 96]))
+        tst = tf.insert(tcfg, tst, _t(keys[b : b + 96]))
+    builds = []
+
+    def spy(*args):
+        builds.append(args[0])
+        return build(*args)
+
+    build = ops.build_sorted
+    monkeypatch.setattr(ops, "build_sorted", spy)
+    jst = jax.jit(jf.delete, static_argnums=0)(jcfg, jst, jnp.asarray(gone))
+    tst = tf.delete(tcfg, tst, _t(gone))
+    assert builds  # every table the delete touched was rebuilt on the kernel path
+    jleaves = [np.asarray(x) for x in jax.tree_util.tree_leaves(jst)]
+    tleaves = tf.to_numpy(tcfg, tst)
+    assert len(jleaves) == len(tleaves)
+    for i, (a, b) in enumerate(zip(jleaves, tleaves)):
+        np.testing.assert_array_equal(a, b, err_msg=f"leaf {i}")
+    assert not tf.contains(tcfg, tst, _t(keys[60:])).logical_not().any()
+
+
+def test_scan_tile_matches_the_cuda_source():
+    """The wrapper's ``SCAN_TILE`` (the scratch's tiles, the tests' tile
+    edges) is the tile ``csrc/qf_scan.cuh`` scans."""
+    text = (Path(qf_build.__file__).parents[1] / "csrc" / "qf_scan.cuh").read_text()
+    consts = {
+        name: int(value)
+        for name, value in re.findall(r"constexpr int (SCAN_\w+) = (\d+);", text)
+    }
+    assert consts["SCAN_THREADS"] * consts["SCAN_ROUNDS"] == qf_build.SCAN_TILE

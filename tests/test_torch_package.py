@@ -107,7 +107,8 @@ def test_keys_follow_the_state_onto_its_device():
 KERNELS = {
     "qf_build": (
         qf_build,
-        [("qf_build_planes", "build_planes_plain"), ("qf_build_span", "build_span_plain")],
+        [("qf_build_planes", "build_planes_plain"), ("qf_positions", "positions_plain"),
+         ("qf_build_span", "build_span_plain")],
         "repro/kernels/qf_build.py",
     ),
     "qf_probe": (qf_probe, [("qf_probe", "probe_plain")], "repro/kernels/qf_probe.py"),
