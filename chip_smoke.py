@@ -118,11 +118,40 @@ Phases, each timed, any failure fatal (a traceback and exit code 1):
             blocking growth call are timed (``bulk_breakdown``).  Phases 3,
             8 and 10 also require ``qf_positions`` to have launched: no
             kernel-path build calls ``torch.cummax``.
-12. report  one JSON line of per-kernel results (nine rows), then the
+12. steady  ``benchmarks/bench_steady_state.py`` scaled by 2**8 (q = 24,
+            r = 14, batches of 2,048, settle chunk 131,072, steady buffer
+            q = 18 opening at 0.25 load, ``buffered_qf`` ram_q 19, the two
+            cascades ram_q 19, fanout 4, levels 3, one frozen below 1): its
+            op stream (inserts, probes, a rare delete) replayed three times
+            on each family under ``"pallas"`` from a copy of the prefilled
+            state, each call's minimum kept; every inserted key (but the
+            deleted) must hit, the steady filter must settle more often than
+            the stream deletes, launch ``qf_build_span``, ``qf_positions``,
+            ``qf_build_planes``, ``qf_probe`` and ``fingerprint``, end a
+            ``"reference"`` replay with the same state, and make at most one
+            host sync an insert (``set_sync_debug_mode("warn")``); the
+            replay's drain appends through ``qf_build_span``'s plain
+            version, and the kernel is held against it on a tick, a
+            pressure tick and ``settle_all``'s span.  Insert
+            p50/p99/max and ``p99ratio_*`` against the bench's bar of 0.20
+            are recorded, not gated.
+13. consumers  ``DedupPipeline`` with a ``steady_qf`` filter at q = 24,
+            p = 39, fed 65,536 digests a ``_dedup`` call past 1.1 of the
+            table's capacity (auto_scale shrinks the empty filter first and
+            grows it back, the last growth toward q = 25); snapshots taken
+            mid-settle at q = 24 and mid-migration restore into fresh
+            pipelines leaf for leaf and drop a replay of every digest fed
+            before them; ``batches()`` drop the corpus' duplicates at its
+            rate.  Then a ``steady_qf`` ``PrefixCacheFilter(q=24, r=15)``
+            prefilled to 0.7 load: request batches of 4,096 prompts (new,
+            earlier and repeated ones) through ``check_and_insert`` (no
+            cached prompt misses, later copies hit), then ``evict``.  The
+            pipeline (whose filter takes the kernel path on the card) must
+            launch the five QF kernels, the cache all but ``qf_build_span``.
+14. report  one JSON line of per-kernel results (nine rows), then the
             card's name and power limit, then the result line.
 
-The whole run takes about four minutes of command time on one H100, and
-must stay within 1200 s.
+The whole run must stay within 1200 s of command time on one H100.
 
 The last line of standard output is the result,
 ``{"ok": true, "device": {"platform": "gpu", ...}}``; nothing is printed
@@ -131,12 +160,14 @@ in its place when the card or the package is missing.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -148,7 +179,9 @@ try:
     from repro_torch.core import bf_variants, bloom, cost_model
     from repro_torch.core import fuse_filter as fuse
     from repro_torch.core import quotient_filter as qf
-    from repro_torch.filters import bloom_filter, incremental_resize
+    from repro_torch.data.pipeline import DedupPipeline, PipelineConfig
+    from repro_torch.filters import bloom_filter, incremental_resize, qf_filter, steady
+    from repro_torch.serve.prefix_cache import PrefixCacheFilter
     from repro_torch.kernels import bloom_block, cascade_probe, cuda_lib, qf_build
     from repro_torch.kernels import fingerprint, fuse_probe, ops, qf_probe
 except ModuleNotFoundError as e:  # run outside the repository
@@ -199,6 +232,35 @@ INC_BUF_Q = 20  # 12 + 8
 INC_REPS = 4  # replays per variant; each call's minimum is kept
 INC_CHECK_EVERY = 16  # calls between no-false-negative checks
 RESTRUCTURE_BATCHES = 8  # fresh batches inserted while a restructure migrates
+
+# phase steady: bench_steady_state.py with its geometry scaled by 2**8
+# (Q 16 -> 24, P 30 -> 38, every batch, chunk and buffer 2**8 larger)
+STEADY_Q = 24
+STEADY_P = 38
+STEADY_BATCH = 2048  # 8 * 2**8 keys an op
+STEADY_CHUNK = 131072  # 512 * 2**8: the steady settle chunk
+STEADY_BUF_Q = 18  # 10 + 8
+STEADY_RAM_Q = 19  # 11 + 8: buffered_qf's RAM QF and the cascades' Q0
+STEADY_PREFILL_CHUNK = 262144  # 1024 * 2**8
+STEADY_N_OPS = 192  # ops a replay, as the bench
+STEADY_REPS = 3  # replays; each call keeps its minimum
+STEADY_PREFILL = 0.7  # warm-start load of the flat table
+STEADY_SEED = 11
+STEADY_BAR = 0.20  # the bench's ceiling on p99ratio_steady_insert
+STEADY_SYNC_INSERTS = 40  # steady inserts run under the sync debug mode
+
+# phase consumers: the dedup pipeline and the prefix cache at q = 24
+CONSUMER_Q = 24
+CONSUMER_P = 39
+CONSUMER_CHUNK = 262144  # PipelineConfig's 1024 * 2**8
+CONSUMER_DIGESTS = 65536  # 256 * 2**8 digests a _dedup call
+CONSUMER_FILL = 1.1  # digests fed, over the q = 24 table's capacity
+CACHE_R = 15
+CACHE_PREFILL = 0.7
+CACHE_BATCH = 4096  # prompts a request batch
+CACHE_PROMPT = 24  # tokens a prompt
+CACHE_REQUESTS = 16
+CACHE_EVICTED = 2  # request batches whose new prompts are evicted
 
 
 def log(*args) -> None:
@@ -1951,6 +2013,550 @@ def check_migrating_no_sync(keys) -> None:
         "(sync debug mode \"error\")")
 
 
+# ---------------------------------------------------------------------------
+# phase steady: bench_steady_state at full width
+# ---------------------------------------------------------------------------
+
+
+def steady_families(backend: str) -> dict:
+    """bench_steady_state's ``FAMILIES``, scaled: label -> (family, spec)."""
+    q, p, rq = STEADY_Q, STEADY_P, STEADY_RAM_Q
+    fams = {
+        "flat": ("qf", dict(q=q, r=p - q)),
+        "steady": ("steady_qf", dict(
+            q=q, r=p - q, buf_q=STEADY_BUF_Q, chunk=STEADY_CHUNK, settle_load=0.25
+        )),
+        "buffered": ("buffered_qf", dict(ram_q=rq, disk_q=q, p=p)),
+        "cascade": ("cascade", dict(ram_q=rq, p=p, fanout=4, levels=3)),
+        "cascade_frozen": ("cascade", dict(
+            ram_q=rq, p=p, fanout=4, levels=3, frozen_below=1
+        )),
+    }
+    return {k: (n, dict(spec, backend=backend)) for k, (n, spec) in fams.items()}
+
+
+def op_kind(i: int) -> str:
+    """bench_steady_state's ``_op_kind``: mostly inserts, probes
+    interleaved, a rare delete."""
+    if i % 48 == 13:
+        return "delete"
+    if i % 4 == 3:
+        return "probe"
+    return "insert"
+
+
+def steady_stream(device):
+    """The bench's prefill and op stream, drawn from ``default_rng(11)`` in
+    its order (delete ops take keys of the prefill)."""
+    rng = np.random.default_rng(STEADY_SEED)
+    cap = qf.QFConfig(q=STEADY_Q, r=1).capacity
+    prefill = rng.integers(0, 2**32, int(cap * STEADY_PREFILL), dtype=np.int64)
+    prefill = prefill.astype(np.uint32)
+    ops = []
+    for i in range(STEADY_N_OPS):
+        kind = op_kind(i)
+        if kind == "delete":
+            keys = prefill[rng.integers(0, prefill.shape[0], size=STEADY_BATCH)]
+        else:
+            keys = rng.integers(2**31, 2**32, STEADY_BATCH, dtype=np.int64)
+            keys = keys.astype(np.uint32)
+        ops.append((kind, torch.from_numpy(keys.view(np.int32)).to(device)))
+    return torch.from_numpy(prefill.view(np.int32)).to(device), ops
+
+
+def clone_state(state):
+    """A copy of a state's every tensor (an insert may write its argument's
+    planes in place, as the steady family's drain does)."""
+    if torch.is_tensor(state):
+        return state.clone()
+    parts = [clone_state(v) for v in state]
+    return type(state)(*parts) if hasattr(state, "_fields") else tuple(parts)
+
+
+def steady_prefilled(name, spec, prefill):
+    """The bench's ``_prefilled``: chunked prefill; the steady filter then
+    settles, so every replay starts idle."""
+    cfg, st = filters.make(name, **spec)
+    for i in range(0, prefill.shape[0], STEADY_PREFILL_CHUNK):
+        st = filters.insert(cfg, st, prefill[i : i + STEADY_PREFILL_CHUNK])
+    if name == "steady_qf":
+        st = steady.settle_all(cfg, st)
+    torch.cuda.synchronize()
+    return cfg, st
+
+
+def steady_replay(cfg, st0, ops, can_delete):
+    """The bench's ``_drive``: each op's wall latency, the card synchronised
+    after it, on a copy of ``st0``."""
+    st = clone_state(st0)
+    lats, is_insert = [], []
+    for kind, keys in ops:
+        if kind == "delete" and not can_delete:
+            kind = "probe"  # a frozen cold tier ages out through merges
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if kind == "insert":
+            st = filters.insert(cfg, st, keys)
+        elif kind == "probe":
+            filters.contains(cfg, st, keys)
+        else:
+            st = filters.delete(cfg, st, keys)
+        torch.cuda.synchronize()
+        lats.append(time.perf_counter() - t0)
+        is_insert.append(kind == "insert")
+    return np.asarray(lats), np.asarray(is_insert), st
+
+
+def steady_min_of_reps(cfg, st0, ops, can_delete):
+    best = mask = st = None
+    for _ in range(STEADY_REPS):
+        lats, m, st = steady_replay(cfg, st0, ops, can_delete)
+        if best is None:
+            best, mask = lats, m
+        else:
+            if not (mask == m).all():
+                raise AssertionError("steady replay diverged")
+            best = np.minimum(best, lats)
+    return best[mask], st
+
+
+@contextlib.contextmanager
+def plain_span_append():
+    """Route ``ops.build_span``'s ``qf_build_span`` call to the kernel's plain
+    version, so that a replay under ``"reference"`` appends its drain ticks
+    without the kernel (a ``"reference"`` filter on the card still appends
+    through ``ops``, which picks the kernel by the tensors' device)."""
+    real = ops.qf_build_span
+    ops.qf_build_span = qf_build.build_span_plain
+    try:
+        yield
+    finally:
+        ops.qf_build_span = real
+
+
+def recorded_spans(fn) -> list:
+    """Run ``fn`` and return a copy of the inputs of every ``qf_build_span``
+    launch it made through ``ops`` (taken before the launch writes them)."""
+    calls = []
+    real = ops.qf_build_span
+
+    def record(*args):
+        calls.append(clone_state(args))
+        return real(*args)
+
+    ops.qf_build_span = record
+    try:
+        fn()
+    finally:
+        ops.qf_build_span = real
+    return calls
+
+
+def steady_full(cfg, st0, ops):
+    """A copy of ``st0`` whose buffer is one batch short of the watermark,
+    and the stream's first insert batch."""
+    inserts = [k for kind, k in ops if kind == "insert"]
+    full = clone_state(st0)
+    for keys in inserts[: steady._watermark(cfg) // STEADY_BATCH - 1]:
+        full = filters.insert(cfg, full, keys)
+    return full, inserts[0]
+
+
+def check_steady_spans(cfg, full) -> dict:
+    """``qf_build_span`` on the spans the steady drain hands it at q =
+    ``STEADY_Q``, held bit for bit against its plain version on the same
+    card tensors: a tick of one chunk right after an open, the pressure
+    tick after it, and ``settle_all``'s span of the rest (carries, ``n``
+    and ``overflow`` taken over from the tick before).  The inputs are
+    recorded from ``steady._drain`` itself; planes, ``n``, ``overflow``
+    and the carries are compared."""
+    opened = steady._open_settle(cfg, clone_state(full), True)
+    states = [opened]
+    steps = (
+        ("tick", lambda: states.append(steady._drain(cfg, states[-1], 1))),
+        ("pressure tick", lambda: states.append(
+            steady._drain(cfg, states[-1], cfg.pressure))),
+        ("settle_all", lambda: states.append(steady.settle_all(cfg, states[-1]))),
+    )
+    out = {}
+    for label, step in steps:
+        (args,) = recorded_spans(step)
+        span, planes = args[:7], args[7:]
+        got = tuple(p.clone() for p in planes)
+        plain = tuple(p.clone() for p in planes)
+        res = qf_build.qf_build_span(*span, *got)
+        want = qf_build.build_span_plain(*span, *plain)
+        err = max_abs_err(got + res, plain + want)
+        out[label] = {"rows": int(span[0].shape[0]), "valid": int(span[2]),
+                      "max_abs_err": err}
+        if err:
+            raise AssertionError(f"steady {label}: qf_build_span differs from "
+                                 f"its plain version by {err}")
+        del args, span, planes, got, plain, res, want
+    del states
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_steady_syncs(cfg, st0, ops) -> list:
+    """Host syncs of each of the stream's first steady inserts (an open, its
+    ticks), counted under ``torch.cuda.set_sync_debug_mode("warn")``; each
+    must make at most one."""
+    st = clone_state(st0)
+    syncs = []
+    for keys in [k for kind, k in ops if kind == "insert"][:STEADY_SYNC_INSERTS]:
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                st = filters.insert(cfg, st, keys)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        syncs.append(sum("synchroniz" in str(w.message) for w in caught))
+    torch.cuda.synchronize()
+    opened = int(st.io.settles) - int(st0.io.settles)
+    if max(syncs) > 1 or opened < 1:
+        raise AssertionError(f"steady insert syncs {syncs}, settles opened {opened}")
+    return syncs
+
+
+def steady_breakdown(cfg, st0, ops) -> dict:
+    """Where a steady insert's time goes at q = ``STEADY_Q``: its steps by
+    CUDA events (median of ``TIMED_REPS`` calls; a tick writes the same
+    slots each call), the host's issue time of a tick, and whole inserts
+    of each kind by the host clock (median of ``TIMED_REPS``, each on a
+    copy)."""
+    full, batch = steady_full(cfg, st0, ops)
+    opening = filters.insert(cfg, clone_state(full), batch)  # opened, one tick
+    opened = steady._open_settle(cfg, clone_state(full), True)
+    idle = (full.cursor >= full.src_n) & (full.bcursor >= full.bsrc_n)
+    flags = [full.buf.n, idle.to(torch.int32), full.clean.to(torch.int32)]
+
+    def host_issue_ms(fn):
+        times = []
+        for _ in range(TIMED_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        return statistics.median(times)
+
+    def insert_ms(state):
+        times = []
+        for _ in range(TIMED_REPS):
+            st = clone_state(state)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            filters.insert(cfg, st, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    out = {
+        "insert, buffer only (host clock)": insert_ms(st0),
+        "insert that opens a settle (host clock)": insert_ms(full),
+        "insert with a tick (host clock)": insert_ms(opening),
+        "buffer insert at buf_q": median_ms(lambda: qf_filter.insert_keys(
+            cfg.buf, cfg.backend, full.buf, batch)),
+        "open a settle": median_ms(lambda: steady._open_settle(cfg, full, True)),
+        "tick of one chunk": median_ms(lambda: steady._drain(cfg, opened, 1)),
+        "tick of one chunk, host issue": host_issue_ms(
+            lambda: steady._drain(cfg, opened, 1)),
+        "tick of pressure chunks": median_ms(
+            lambda: steady._drain(cfg, opened, cfg.pressure)),
+        "the insert's host read": median_ms(lambda: torch.stack(flags).tolist()),
+        "settle_all": median_ms(lambda: steady.settle_all(cfg, opened)),
+    }
+    return out
+
+
+def steady_experiment(device, kernels):
+    """Phase steady: ``benchmarks/bench_steady_state.py`` at q = ``STEADY_Q``.
+
+    Every family under ``"pallas"`` takes the bench's prefill and replays its
+    op stream ``STEADY_REPS`` times, each call's minimum kept; after the
+    replays every inserted key (but those deleted) must hit.  The steady
+    family must settle more often than the stream deletes (the bench's
+    assertion), launch the QF kernels, make at most one host sync an
+    insert, and end a replay under ``"reference"``, whose drain appends
+    through ``qf_build_span``'s plain version (``plain_span_append``), with
+    the same state; its tick, pressure tick and ``settle_all`` spans are
+    held against the plain version (``check_steady_spans``).
+    Returns the report (insert p50/p99/max and p99 ratios, recorded, not
+    gated) and the steady path's launches.
+    """
+    prefill, ops = steady_stream(device)
+    inserted = torch.cat([prefill] + [k for kind, k in ops if kind == "insert"])
+    deleted = torch.cat([k for kind, k in ops if kind == "delete"])
+    n_deletes = sum(op_kind(i) == "delete" for i in range(STEADY_N_OPS))
+    lats, out, launches = {}, {}, None
+    for label, (name, spec) in steady_families("pallas").items():
+        if label == "steady":
+            for k in kernels.values():
+                k.launches = 0
+        (cfg, st0), prefill_s, _ = timed_host(lambda: steady_prefilled(name, spec, prefill))
+        can_delete = filters.supports(cfg, "delete")
+        lats[label], st = steady_min_of_reps(cfg, st0, ops, can_delete)
+        present = inserted[~torch.isin(inserted, deleted)] if can_delete else inserted
+        if not bool(filters.contains(cfg, st, present).all()):
+            raise AssertionError(f"steady {label}: an inserted key is missed")
+        s = filters.stats(cfg, st)
+        if bool(s["overflow"]):
+            raise AssertionError(f"steady {label}: overflow")
+        log(f"  {label}: prefill {prefill_s:.3f} s, n {int(s['n'])}")
+        if label == "steady":
+            launches = {n: k.launches for n, k in kernels.items()}
+            settles = int(s["settles"])
+            if settles <= n_deletes:
+                raise AssertionError(
+                    f"steady settled {settles}x for {n_deletes} deletes: the "
+                    "watermark never tripped"
+                )
+            ref_cfg = cfg._replace(backend="reference")
+            with plain_span_append():
+                _, _, ref_st = steady_replay(ref_cfg, st0, ops, can_delete)
+            diff = differing_fields(st, ref_st)
+            if diff:
+                raise AssertionError(f"steady: reference replay differs in {diff}")
+            del ref_st
+            syncs = check_steady_syncs(cfg, st0, ops)
+            out["steady_span_checks"] = check_steady_spans(
+                cfg, steady_full(cfg, st0, ops)[0])
+            out["steady_insert_ms"] = steady_breakdown(cfg, st0, ops)
+            out["steady_settles"] = settles
+            out["steady_deletes"] = n_deletes
+            out["steady_syncs_per_insert"] = max(syncs)
+            log(f"  steady: {settles} settles for {n_deletes} deletes; reference "
+                f"replay (plain span append) equal; host syncs of its first "
+                f"{len(syncs)} inserts {syncs}; qf_build_span equal to its plain "
+                f"version on {json.dumps(out['steady_span_checks'])}")
+        del st0, st
+        torch.cuda.empty_cache()
+    p99_flat = float(np.percentile(lats["flat"], 99))
+    for label, a in lats.items():
+        out[label] = {
+            "insert_p50_s": float(np.percentile(a, 50)),
+            "insert_p99_s": float(np.percentile(a, 99)),
+            "insert_max_s": float(a.max()),
+            "inserts": int(a.shape[0]),
+        }
+        if label != "flat":
+            out[f"p99ratio_{label}_insert"] = out[label]["insert_p99_s"] / p99_flat
+            out[f"{label}_max_under_flat_p99"] = bool(a.max() < p99_flat)
+    out["bar_p99ratio_steady"] = STEADY_BAR
+    return out, launches
+
+
+# ---------------------------------------------------------------------------
+# phase consumers: the dedup pipeline and the prefix cache at q = 24
+# ---------------------------------------------------------------------------
+
+
+def equal_leaves(cfg, state, leaves) -> bool:
+    return all(
+        a.dtype == b.dtype and np.array_equal(a, b)
+        for a, b in zip(filters.to_numpy(cfg, state), leaves, strict=True)
+    )
+
+
+def restored_pipeline(pcfg, snap, ingested):
+    """A fresh pipeline restored from ``snap``: leaves equal to the
+    snapshot's, and every digest of ``ingested`` dropped on replay."""
+    fresh = DedupPipeline(pcfg)
+    fresh.restore(snap)
+    if not equal_leaves(fresh.filter_cfg, fresh.filter_state, snap["filter_leaves"]):
+        raise AssertionError("restored pipeline: leaves differ from the snapshot")
+    for ids in ingested:
+        if fresh._dedup(ids).any():
+            raise AssertionError("restored pipeline kept an ingested digest")
+    return fresh
+
+
+def dedup_breakdown(pipe, rng) -> dict:
+    """Where a ``_dedup`` call's time goes: its probe, the host's
+    first-occurrence pass and its ``auto_scale`` insert (on a copy of the
+    filter), each the median of ``TIMED_REPS`` host-clock calls on fresh
+    digests."""
+    cfg, st = pipe.filter_cfg, pipe.filter_state
+    times = {"contains and copy back": [], "np.unique": [], "auto_scale insert": []}
+    for _ in range(TIMED_REPS):
+        ids = rng.integers(0, 2**32, CONSUMER_DIGESTS, dtype=np.uint64).astype(np.uint32)
+        keys = pipe._keys(ids)
+        copy = clone_state(st)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        filters.contains(cfg, st, keys).cpu()
+        t1 = time.perf_counter()
+        np.unique(ids, return_index=True)
+        t2 = time.perf_counter()
+        filters.auto_scale(cfg, copy, keys, k=ids.shape[0], chunk=CONSUMER_CHUNK)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for name, dt in zip(times, (t1 - t0, t2 - t1, t3 - t2)):
+            times[name].append(dt * 1e3)
+    return {name: statistics.median(v) for name, v in times.items()}
+
+
+def drive_pipeline(device):
+    """Phase consumers (a): a ``steady_qf`` dedup pipeline fed numpy digests
+    past its q = ``CONSUMER_Q`` table's capacity.  ``auto_scale``'s low
+    watermark shrinks the empty filter on the first call, as far as that
+    call's digests fit the halved table at its ``shrink_load`` (q = 18 at
+    ``CONSUMER_Q`` = 24 and 65,536 digests a call), so the feed grows it
+    back one migration a doubling, the last toward q + 1.  Snapshots taken mid-settle at q and
+    mid-migration to q + 1 restore into fresh pipelines; then
+    ``batches()`` of its corpus."""
+    pcfg = PipelineConfig(
+        dedup_family="steady_qf", dedup_ram_q=CONSUMER_Q, dedup_p=CONSUMER_P,
+        dedup_chunk=CONSUMER_CHUNK,
+    )
+    pipe = DedupPipeline(pcfg)
+    cap = qf.QFConfig(q=CONSUMER_Q, r=1).capacity
+    rng = np.random.default_rng(SEED + 20)
+    ingested, secs, snaps, kinds, growths = [], [], {}, [], []
+    for call in range(-(-int(CONSUMER_FILL * cap) // CONSUMER_DIGESTS)):
+        ids = rng.integers(0, 2**32, CONSUMER_DIGESTS, dtype=np.uint64).astype(np.uint32)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe._dedup(ids)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        ingested.append(ids)
+        fcfg, st = pipe.filter_cfg, pipe.filter_state
+        if incremental_resize.is_migrating(fcfg):
+            if kinds[-1] != "migrating":
+                growths.append((call, fcfg.dst.q))
+            kinds.append("migrating")
+            continue
+        settling = (st.cursor < st.src_n) | (st.bcursor < st.bsrc_n)
+        kinds.append("settling" if bool(settling) else "idle")
+        if kinds[-1] == "settling" and fcfg.q == CONSUMER_Q and "mid-settle" not in snaps:
+            snaps["mid-settle"] = (pipe.snapshot(), len(ingested))
+            steps = dedup_breakdown(pipe, rng)
+    if growths[-1][1] != CONSUMER_Q + 1 or kinds[-1] != "migrating" or not snaps:
+        raise AssertionError(f"the feed ended {kinds[-1]} after growths {growths}; "
+                             f"snapshots {list(snaps)}")
+    snaps["mid-migration"] = (pipe.snapshot(), len(ingested))
+    restore_s = {}
+    for when, (snap, n) in snaps.items():
+        fresh, s, _ = timed_host(lambda: restored_pipeline(pcfg, snap, ingested[:n]))
+        restore_s[when] = s
+        del fresh
+        torch.cuda.empty_cache()
+    del snaps
+    n_stored = int(filters.stats(pipe.filter_cfg, pipe.filter_state)["n"])
+    # batches() from the corpus: its duplicates must drop, fresh documents
+    # only at the rate of a digest already stored (and of false positives,
+    # n / 2**p, negligible here)
+    t0 = time.perf_counter()
+    batches = list(pipe.batches(8, docs_per_step=4096))
+    batches_s = time.perf_counter() - t0
+    for b in batches:
+        for k in ("tokens", "targets"):
+            t = b[k]
+            if t.dtype != torch.int32 or t.device.type != device.type or t.shape != (
+                pcfg.batch_size, pcfg.seq_len
+            ):
+                raise AssertionError(f"batch {k}: {t.dtype} {t.device} {tuple(t.shape)}")
+    seen, dropped = pipe.state.docs_seen, pipe.state.docs_dropped
+    rate = dropped / seen
+    frac = pcfg.duplicate_fraction
+    expected = frac + (1 - frac) * (n_stored / 2**32)
+    sigma = math.sqrt(expected * (1 - expected) / seen)
+    if abs(rate - expected) > 5 * sigma:
+        raise AssertionError(f"drop rate {rate} against {expected} +- 5 x {sigma}")
+    last = growths[-1][0]
+    return {
+        "digests_fed": len(ingested) * CONSUMER_DIGESTS,
+        "table_capacity": cap,
+        "growths (call, to q)": growths,
+        "dedup_s_p50": float(np.percentile(secs, 50)),
+        "dedup_s_p99": float(np.percentile(secs, 99)),
+        "dedup_s_max": float(max(secs)),
+        "dedup_s_first_call": secs[0],
+        "dedup_s_growth_to_q+1": secs[last],
+        "dedup_s_p50_by_kind": {
+            k: float(np.median([x for x, c in zip(secs, kinds) if c == k]))
+            for k in ("idle", "settling", "migrating")
+        },
+        "calls": {k: kinds.count(k) for k in ("idle", "settling", "migrating")},
+        "a _dedup call's steps mid-settle at q (ms)": steps,
+        "restore_and_replay_s": restore_s,
+        "batches": len(batches),
+        "batches_s": batches_s,
+        "docs_seen": seen,
+        "drop_rate": rate,
+        "expected_drop_rate": expected,
+    }
+
+
+def drive_prefix_cache(device):
+    """Phase consumers (b): a ``steady_qf`` prefix cache at q = ``CONSUMER_Q``,
+    prefilled to 0.7 load, then request batches with repeated prompts
+    (earlier batches' and the batch's own) through ``check_and_insert``,
+    then ``evict``."""
+    pc = PrefixCacheFilter(
+        q=CONSUMER_Q, r=CACHE_R, family="steady_qf", backend="pallas"
+    )
+    rng = np.random.default_rng(SEED + 30)
+    cap = pc.cfg.table.capacity
+    prefill = uint32_keys(rng, int(CACHE_PREFILL * cap), device)
+    for i in range(0, prefill.shape[0], 1 << 20):
+        pc.state = filters.insert(pc.cfg, pc.state, prefill[i : i + (1 << 20)])
+    prompts, secs, digest_s = [], [], []
+    n_new = extra_hits = 0
+    for b in range(CACHE_REQUESTS):
+        fresh = rng.integers(0, 32000, (CACHE_BATCH // 2, CACHE_PROMPT), dtype=np.int32)
+        ids = np.arange(len(prompts), len(prompts) + fresh.shape[0])
+        prompts.extend(fresh)
+        old = rng.integers(0, ids[0], CACHE_BATCH // 4) if ids[0] else ids[: CACHE_BATCH // 4]
+        dups = rng.choice(ids, CACHE_BATCH - ids.shape[0] - old.shape[0])
+        rows = rng.permutation(np.concatenate([ids, old, dups]))
+        batch = np.stack([prompts[i] for i in rows])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hit = pc.check_and_insert(batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        pc._digest(batch)
+        digest_s.append(time.perf_counter() - t0)
+        _, first = np.unique(rows, return_index=True)
+        want = rows < ids[0]  # prompts of earlier batches
+        later = np.ones(rows.shape[0], bool)
+        later[first] = False  # every copy after a prompt's first
+        want |= later
+        if not hit[want].all():
+            raise AssertionError(f"request batch {b}: a cached prompt missed")
+        n_new += int((~want).sum())
+        extra_hits += int((hit & ~want).sum())
+    # a new prompt hits when its 32-bit digest is already stored, or at the
+    # QF's fp rate n / 2**p
+    n = int(filters.stats(pc.cfg, pc.state)["n"])
+    budget = 2 * (n / 2**32 + n / 2 ** (CONSUMER_Q + CACHE_R)) * n_new + 10
+    if extra_hits > budget:
+        raise AssertionError(f"{extra_hits} new prompts hit; budget {budget}")
+    evicted = np.stack(prompts[: CACHE_EVICTED * (CACHE_BATCH // 2)])
+    kept = np.stack(prompts[CACHE_EVICTED * (CACHE_BATCH // 2) :])
+    _, evict_s, _ = timed_host(lambda: pc.evict(evicted))
+    if not bool(filters.contains(pc.cfg, pc.state, pc._digest(kept)).all()):
+        raise AssertionError("evict: a prompt that was not evicted misses")
+    return {
+        "requests": CACHE_REQUESTS,
+        "prompts_a_request": CACHE_BATCH,
+        "request_s_p50": float(np.percentile(secs, 50)),
+        "request_s_max": float(max(secs)),
+        "digest_s_p50": float(np.percentile(digest_s, 50)),
+        "new_prompts": n_new,
+        "new_prompts_hit": extra_hits,
+        "hit_budget": budget,
+        "evict_s": evict_s,
+        "n": int(filters.stats(pc.cfg, pc.state)["n"]),
+    }
+
+
 def main(device: str = "cuda") -> int:
     if filters is None:
         print("chip_smoke.py: src/repro_torch is missing", file=sys.stderr)
@@ -2373,13 +2979,50 @@ def main(device: str = "cuda") -> int:
     bulk_breakdown(keys)
     phase_s["resize"] = time.perf_counter() - t0
 
-    # 12. report
+    # 12. steady: bench_steady_state at full width
+    t0 = time.perf_counter()
+    peaks = {"phases 1-11": torch.cuda.max_memory_allocated()}
+    torch.cuda.reset_peak_memory_stats()
+    steady_report, steady_launches = steady_experiment(device, kernels)
+    log(f"  steady-path launches: {steady_launches}")
+    for n in ("qf_build_span", "qf_build_planes", "qf_positions", "qf_probe",
+              "fingerprint"):
+        if steady_launches[n] <= 0:
+            raise AssertionError(f"{n} was not launched on the steady path")
+    log(f"phase steady (bench_steady_state at q = {STEADY_Q}): "
+        + json.dumps(steady_report))
+    peaks["steady"] = torch.cuda.max_memory_allocated()
+    phase_s["steady"] = time.perf_counter() - t0
+
+    # 13. consumers: the dedup pipeline and the prefix cache at q = 24
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    qf_path = ("qf_positions", "qf_build_planes", "qf_probe", "fingerprint")
+    for label, drive_consumer, needed in (
+        ("pipeline", drive_pipeline, ("qf_build_span",) + qf_path),
+        # its few thousand prompts a request never reach the buffer's
+        # watermark, so no drain tick appends
+        ("prefix cache", drive_prefix_cache, qf_path),
+    ):
+        for k in kernels.values():
+            k.launches = 0
+        report = drive_consumer(device)
+        consumer_launches = {n: k.launches for n, k in kernels.items()}
+        log(f"phase consumers {label}: {json.dumps(report)}")
+        log(f"  {label}-path launches: {consumer_launches}")
+        for n in needed:
+            if consumer_launches[n] <= 0:
+                raise AssertionError(f"{n} was not launched on the {label} path")
+    peaks["consumers"] = torch.cuda.max_memory_allocated()
+    phase_s["consumers"] = time.perf_counter() - t0
+
+    # 14. report
     for n, row in rows.items():
         row["launches"] = launches[n]
         if row["max_abs_err"] != 0:
             raise AssertionError(f"{n} disagrees with its plain version")
     log("phase seconds: " + json.dumps({k: round(v, 3) for k, v in phase_s.items()}))
-    log(f"peak device memory allocated: {torch.cuda.max_memory_allocated()} bytes")
+    log(f"peak device memory allocated (bytes): {json.dumps(peaks)}")
     log(json.dumps({"kernels": list(rows.values())}))
     log(card_line())
     device_info = {

@@ -459,13 +459,14 @@ def multi_merge(cfg_out: QFConfig, parts, build=None) -> QFState:
     return out._replace(overflow=out.overflow | overflow)
 
 
-def merge_streams(aq, ar, na, bq, br, nb):
-    """Merge two lexicographically sorted fingerprint streams in O(n).
+def merge_ranks(aq, ar, na, bq, br, nb):
+    """Where every row of two sorted fingerprint streams lands in their merge.
 
     Both inputs follow the extract/_pad_sort convention: sorted valid
-    prefix (``na``/``nb`` entries) followed by sentinel padding.  The
-    output has length ``len(a) + len(b)`` with the ``na + nb`` valid
-    entries sorted first, placed by rank arithmetic, with no sort.
+    prefix (``na``/``nb`` entries) followed by sentinel padding.  Ties
+    break a before b, and the padding of each side routes to its own
+    tail, so ``(ra, rb)`` is a permutation of ``range(len(a) + len(b))``
+    with the ``na + nb`` valid rows first, in order.
     """
     la, lb = aq.shape[0], bq.shape[0]
     ia = torch.arange(la, device=aq.device)
@@ -476,8 +477,20 @@ def merge_streams(aq, ar, na, bq, br, nb):
     # sentinel padding would collide: route it to the tail deterministically
     ra = torch.where(ia < na, ra, nb + ia)
     rb = torch.where(ib < nb, rb, la + ib)
-    out_q = torch.empty(la + lb, dtype=torch.int64, device=aq.device)
-    out_r = torch.empty(la + lb, dtype=torch.int64, device=aq.device)
+    return ra, rb
+
+
+def merge_streams(aq, ar, na, bq, br, nb, ranks=None):
+    """Merge two lexicographically sorted fingerprint streams in O(n).
+
+    The output has length ``len(a) + len(b)`` with the ``na + nb`` valid
+    entries sorted first, placed by :func:`merge_ranks` (or by ``ranks``,
+    its result when the caller needs it too), with no sort.
+    """
+    ra, rb = merge_ranks(aq, ar, na, bq, br, nb) if ranks is None else ranks
+    n = ra.shape[0] + rb.shape[0]
+    out_q = torch.empty(n, dtype=torch.int64, device=aq.device)
+    out_r = torch.empty_like(out_q)
     out_q[ra], out_q[rb] = aq, bq
     out_r[ra], out_r[rb] = ar, br
     return out_q, out_r

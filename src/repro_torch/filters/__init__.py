@@ -16,14 +16,18 @@ Registry name -> implementation -> paper section:
 ``"xor_fuse"``            Frozen binary-fuse filter (§4 cold levels, beyond the
                           paper): construct-only; merge/extend/grow/shrink
                           re-peel, insert/delete raise.
+``"steady_qf"``           Steady-state QF (§4 RAM buffer kept always-on): every
+                          insert lands in a small buffer QF and moves one
+                          bounded settle chunk into the table.
 ========================  =======================================================
 
 Every family resizes (the paper's §3 "dynamic resizing"): ``grow``,
 ``resize``, ``shrink`` and the ``needs_resize``/``needs_shrink``
 predicates.  :func:`auto_grow` composes them with ``insert`` by the
-blocking ``grow``; :func:`auto_scale` grows a ``qf`` or ``buffered_qf``
-incrementally instead (``filters.incremental_resize``: each batch moves
-one bounded chunk into the wider table) and shrinks on a low watermark.
+blocking ``grow``; :func:`auto_scale` grows a ``qf``, ``buffered_qf``
+or ``steady_qf`` incrementally instead (``filters.incremental_resize``:
+each batch moves one bounded chunk into the wider table) and shrinks on
+a low watermark.
 
 Quickstart::
 
@@ -40,8 +44,9 @@ without a card.  ``backend="pallas"`` runs the port's CUDA kernels on
 card state.  :func:`from_numpy` and :func:`to_numpy` carry a state
 across from the JAX package and back as its pytree leaves: ``rem``
 planes and fuse tables as uint32, counting Bloom cells (int16 here) as
-uint16, a frozen level's int64 run and a migration's int64 source
-stream as int32 quotients and uint32 remainders.
+uint16, and the int64 streams (a frozen level's run, a migration's
+source stream, the steady family's ``src``/``bsrc``/``out`` settle
+streams) as int32 quotients and uint32 remainders.
 """
 
 from __future__ import annotations
@@ -58,6 +63,7 @@ from . import (  # noqa: F401 (registration)
     incremental_resize,
     iostats,
     qf_filter,
+    steady,
     xor_fuse,
 )
 from .auto_scale import settle
@@ -236,8 +242,12 @@ _JAX_DTYPES = {
     ("table", "int32"): "uint32",  # fuse cells, as bit patterns
     ("run_q", "int64"): "int32",  # a frozen level's run, held as int64
     ("run_r", "int64"): "uint32",
-    ("src_fq", "int64"): "int32",  # a migration's source stream
+    ("src_fq", "int64"): "int32",  # a migration's or a settle's source stream
     ("src_fr", "int64"): "uint32",
+    ("bsrc_fq", "int64"): "int32",  # a settle's buffer-side stream
+    ("bsrc_fr", "int64"): "uint32",
+    ("out_fq", "int64"): "int32",  # a settle's merged output stream
+    ("out_fr", "int64"): "uint32",
 }
 
 
@@ -245,9 +255,9 @@ def _jax_dtype(name: str, dtype: np.dtype) -> np.dtype:
     """The dtype of the JAX package's leaf that the port holds in ``dtype``.
 
     The port keeps unsigned leaves as signed bit patterns (``rem`` planes
-    and fuse tables as int32, counting Bloom cells as int16) and a
-    frozen level's run and a migration's source stream in its int64
-    stream convention.
+    and fuse tables as int32, counting Bloom cells as int16) and the
+    fingerprint streams (a frozen level's run, a migration's source
+    stream, a settle's three streams) in its int64 stream convention.
     """
     if dtype == np.int16:
         return np.dtype(np.uint16)
@@ -265,9 +275,8 @@ def to_numpy(cfg, state) -> list:
     """The state as the JAX package's pytree leaves, as numpy arrays.
 
     ``rem`` planes and fuse tables come back as uint32, counting Bloom
-    cells as uint16, frozen runs and migration streams as int32/uint32,
-    every other leaf in
-    its dtype; ``jax.tree_util.tree_unflatten`` of the JAX state's
+    cells as uint16, frozen runs, migration and settle streams as
+    int32/uint32, every other leaf in its dtype; ``jax.tree_util.tree_unflatten`` of the JAX state's
     treedef over this list rebuilds the JAX state.
     """
     by_cfg(cfg)  # a registered config
@@ -285,7 +294,7 @@ def from_numpy(cfg, leaves, device=None):
     The inverse of :func:`to_numpy`: each leaf must have the dtype and
     shape of the matching field of ``make``'s state for ``cfg`` (``rem``
     and fuse tables as uint32, counting Bloom cells as uint16, frozen
-    runs as int32/uint32).
+    runs and fingerprint streams as int32/uint32).
     """
     device = qf.resolve_device(device)
     if incremental_resize.is_migrating(cfg):
@@ -350,6 +359,7 @@ __all__ = [
     "settle",
     "shrink",
     "stats",
+    "steady",
     "supports",
     "to_iolog",
     "to_numpy",

@@ -24,10 +24,8 @@ returned state.  A migrating insert reads nothing on the host.
 
 The in-flight migration is a registered, non-public family: the façade's
 ``insert``/``contains``/``stats`` dispatch on :class:`MigratingQFConfig`.
-``wrap`` re-wraps the drained table into the buffered QF or the cascade
-it came from.  The JAX package's ``steady_qf`` branches (in
-``grows_by_migration``, ``can_migrate``, ``begin_restructure`` and
-``_rewrap``) wait for the port of ``filters/steady.py``.
+``wrap`` re-wraps the drained table into the steady QF, the buffered QF
+or the cascade it came from.
 
 I/O accounting: each chunk charges its own sequential read (old layout)
 and write (new layout) plus a ``migrate_chunks`` tick in ``IOCounters``.
@@ -42,7 +40,7 @@ import torch
 from ..core import fuse_filter as fuse
 from ..core import quotient_filter as qf
 from ..kernels import ops as kops
-from . import buffered, cascade, iostats, qf_filter
+from . import buffered, cascade, iostats, qf_filter, steady
 from .iostats import IOCounters
 from .qf_filter import QFilterConfig
 from .registry import FilterImpl, by_cfg, register
@@ -51,8 +49,9 @@ from .registry import FilterImpl, by_cfg, register
 class MigratingQFConfig(NamedTuple):
     """Static config of an in-flight QF migration (hashable).
 
-    ``wrap`` is the family config (buffered / cascade) the drained flat
-    table re-wraps into at :func:`finish`, or None for a flat QF.
+    ``wrap`` is the family config (steady / buffered / cascade) the
+    drained flat table re-wraps into at :func:`finish`, or None for a
+    flat QF.
     ``src_len`` pins the stream length when the source is a fold of
     several structures; 0 means the flat source's slot count."""
 
@@ -189,13 +188,21 @@ def grows_by_migration(cfg) -> bool:
     """Families whose growth step re-streams data, and so take the chunked
     path under ``auto_scale``.  The cascade's ``grow`` appends an empty
     level (free); only its geometry ``resize`` migrates."""
-    return isinstance(cfg, (QFilterConfig, buffered.BufferedQFConfig))
+    return isinstance(
+        cfg, (QFilterConfig, steady.SteadyQFConfig, buffered.BufferedQFConfig)
+    )
 
 
 def can_migrate(cfg) -> bool:
     """Does this family config have an incremental restructure path?"""
     return isinstance(
-        cfg, (QFilterConfig, buffered.BufferedQFConfig, cascade.CascadeConfig)
+        cfg,
+        (
+            QFilterConfig,
+            steady.SteadyQFConfig,
+            buffered.BufferedQFConfig,
+            cascade.CascadeConfig,
+        ),
     )
 
 
@@ -203,6 +210,8 @@ def begin_restructure(cfg, state, *, chunk: int = 1024, buf_q=None, **target):
     """Open a chunked migration for any family with a restructure path.
 
     * flat QF: :func:`begin` (``new_q``);
+    * steady QF: settle, then migrate the table to ``new_q``; the
+      drained table re-wraps as an idle steady state;
     * buffered QF: RAM and disk fold into one disk-split stream that
       migrates to the wider disk geometry (``disk_q``), the disk
       re-stream amortized;
@@ -215,6 +224,25 @@ def begin_restructure(cfg, state, *, chunk: int = 1024, buf_q=None, **target):
     if isinstance(cfg, QFilterConfig):
         return begin(
             cfg, state, new_q=target.pop("new_q", None), chunk=chunk, buf_q=buf_q
+        )
+    if isinstance(cfg, steady.SteadyQFConfig):
+        state = steady.settle_all(cfg, state)
+        new_q = target.pop("new_q", cfg.q + 1)
+        new_r = cfg.q + cfg.r - new_q
+        wrap = steady._resolve_buf_q(cfg._replace(q=new_q, r=new_r, buf_q=0))
+        steady._check_geometry(wrap)
+        flat_cfg = cfg.flat
+        fq, fr, n = qf.extract(flat_cfg.core, state.table)
+        return begin_stream(
+            flat_cfg,
+            fq,
+            fr,
+            n,
+            _flat_of(flat_cfg.core._replace(q=new_q, r=new_r), cfg),
+            chunk=chunk,
+            buf_q=buf_q,
+            wrap=wrap,
+            io=state.io,
         )
     if isinstance(cfg, buffered.BufferedQFConfig):
         disk_q = target.pop("disk_q", cfg.disk_q + 1)
@@ -284,6 +312,8 @@ def _rewrap(mcfg: MigratingQFConfig, state: qf.QFState, io: IOCounters):
     """Re-wrap the drained flat table as the target family's state."""
     wrap = mcfg.wrap
     dev = state.n.device
+    if isinstance(wrap, steady.SteadyQFConfig):
+        return wrap, steady.from_flat(wrap, state, io=io)
     if isinstance(wrap, buffered.BufferedQFConfig):
         io = io._replace(
             seq_write_bytes=io.seq_write_bytes + iostats.f32(wrap.disk.size_bytes, dev)

@@ -62,6 +62,8 @@ def valid_mask(keys, k) -> torch.Tensor:
     idx = torch.arange(keys.shape[0], device=keys.device)
     if k is None:
         return idx >= 0
+    if not torch.is_tensor(k):  # compared as a scalar: no copy to the card
+        return idx < int(k)
     return idx < torch.as_tensor(k, dtype=torch.int32, device=keys.device)
 
 

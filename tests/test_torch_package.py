@@ -34,6 +34,8 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
         "import repro_torch.core.fuse_filter, repro_torch.kernels.fuse_probe\n"
         "import repro_torch.kernels.fingerprint\n"
         "import repro_torch.filters.incremental_resize, repro_torch.filters.auto_scale\n"
+        "import repro_torch.filters.steady, repro_torch.data.pipeline\n"
+        "import repro_torch.serve.prefix_cache\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))\n"
         "assert not bad, bad\n"
     )
@@ -44,7 +46,7 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
 @pytest.mark.parametrize(
     "name",
     ["qf", "buffered_qf", "cascade", "bloom", "blocked_bloom", "frozen cascade",
-     "xor_fuse"],
+     "xor_fuse", "steady_qf"],
 )
 def test_make_without_a_device_needs_a_card(name, monkeypatch):
     family, spec = {
@@ -55,6 +57,7 @@ def test_make_without_a_device_needs_a_card(name, monkeypatch):
         "blocked_bloom": ("blocked_bloom", dict(m_bits=1024, k=3, block_bits=256)),
         "frozen cascade": ("cascade", dict(ram_q=5, p=20, levels=2, frozen_below=1)),
         "xor_fuse": ("xor_fuse", dict(p=26, keys=np.arange(50, dtype=np.int32))),
+        "steady_qf": ("steady_qf", dict(q=9, r=12)),
     }[name]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
