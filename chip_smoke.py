@@ -148,7 +148,29 @@ Phases, each timed, any failure fatal (a traceback and exit code 1):
             cached prompt misses, later copies hit), then ``evict``.  The
             pipeline (whose filter takes the kernel path on the card) must
             launch the five QF kernels, the cache all but ``qf_build_span``.
-14. report  one JSON line of per-kernel results (nine rows), then the
+14. sharded phase 3's 50,331,648 keys (64 batches) into
+            ``sharded_qf(q=27, r=12, n_shards=8)``: p = 39 as in bench_ssd,
+            eight shards of local q = 24, r = 15, shard ``s`` on
+            ``cuda:(s % device_count)``.  After batches 63 and 64 every
+            shard's ``extract`` stream, its quotients offset by
+            ``s << 24``, must equal the stream of a flat
+            ``qf(q=27, r=12, backend="pallas")`` fed the same keys, bit for
+            bit, and the hits on phase 3's 2**21 inserted and 2**21 fresh
+            keys the flat filter's (no false negative, an fp rate at most
+            twice the union bound); so must ``grow`` (q = 28) against the
+            flat ``grow``, ``shrink`` (4 shards, q = 26, r = 13) against a
+            flat ``qf(q=26, r=13)`` of the same keys, and ``merge`` with a
+            second sharded filter of 2**23 further keys against the flat
+            merge.  ``fingerprint``, ``qf_positions``, ``qf_build_planes``
+            and ``qf_probe`` must have launched on the sharded path (counted
+            before the flat QFs run); one insert and one ``contains`` run
+            under ``set_sync_debug_mode("error")``; an insert batch and a
+            ``contains`` are split into their steps by CUDA events (route
+            and bucket, exchange, the shards' local work, the answers' way
+            back); an ``n_shards = 1`` filter under ``device=None`` takes a
+            batch; and ``sharded_qf(q=24, r=29, n_shards=8)`` (a local
+            remainder of 32 bits) must refuse an insert on the card.
+15. report  one JSON line of per-kernel results (nine rows), then the
             card's name and power limit, then the result line.
 
 The whole run must stay within 1200 s of command time on one H100.
@@ -179,8 +201,10 @@ try:
     from repro_torch.core import bf_variants, bloom, cost_model
     from repro_torch.core import fuse_filter as fuse
     from repro_torch.core import quotient_filter as qf
+    from repro_torch.core import sharded_filter
     from repro_torch.data.pipeline import DedupPipeline, PipelineConfig
-    from repro_torch.filters import bloom_filter, incremental_resize, qf_filter, steady
+    from repro_torch.filters import bloom_filter, incremental_resize, qf_filter, sharded
+    from repro_torch.filters import steady
     from repro_torch.serve.prefix_cache import PrefixCacheFilter
     from repro_torch.kernels import bloom_block, cascade_probe, cuda_lib, qf_build
     from repro_torch.kernels import fingerprint, fuse_probe, ops, qf_probe
@@ -261,6 +285,15 @@ CACHE_BATCH = 4096  # prompts a request batch
 CACHE_PROMPT = 24  # tokens a prompt
 CACHE_REQUESTS = 16
 CACHE_EVICTED = 2  # request batches whose new prompts are evicted
+
+# phase sharded: phase 3's stream into a quotient-prefix sharded QF of
+# p = 39 bits, eight shards of local q = 24 held equal to one flat q = 27 QF
+SHARD_Q = 27
+SHARDS = 8
+SHARD_MERGE_KEYS = 1 << 23  # the second filter of the merge
+SHARD_MERGE_BATCH = 1 << 20
+SHARD_SOLO_KEYS = 1 << 20  # the n_shards = 1 filter under device=None
+SHARD_REFUSED = dict(q=24, r=29, n_shards=8)  # local r = 29 + 3 = 32
 
 
 def log(*args) -> None:
@@ -2557,6 +2590,219 @@ def drive_prefix_cache(device):
     }
 
 
+# ---------------------------------------------------------------------------
+# phase sharded: the quotient-prefix sharded QF against one flat QF
+# ---------------------------------------------------------------------------
+
+
+def sharded_stream(cfg, state):
+    """Every shard's sorted fingerprints, quotients offset by ``s << local q``:
+    the stream a flat QF of the same keys holds."""
+    local = cfg.core.local_cfg
+    dev = state[0].rem.device
+    qs, rs = [], []
+    for s, st in enumerate(state):
+        fq, fr, n = qf.extract(local, st)
+        n = int(n)
+        qs.append(fq[:n].to(dev) + (s << local.q))
+        rs.append(fr[:n].to(dev))
+    return torch.cat(qs), torch.cat(rs)
+
+
+def flat_stream(cfg, state):
+    fq, fr, n = qf.extract(cfg.core, state)
+    n = int(n)
+    return fq[:n], fr[:n]
+
+
+def check_sharded(label, scfg, sst, fcfg, fst, inserted, fresh) -> dict:
+    """The sharded filter holds the flat QF's stream bit for bit and
+    answers as it does on ``inserted`` and ``fresh`` keys: no false
+    negative, an fp rate at most twice the union bound, no overflow.
+    Returns the probe times of both (median of ``PROBE_REPS`` calls by
+    CUDA events, ms) and the fp rate."""
+    if (scfg.q, scfg.r) != (fcfg.q, fcfg.r):
+        raise AssertionError(f"sharded {label}: {scfg} against {fcfg}")
+    for a, b in zip(sharded_stream(scfg, sst), flat_stream(fcfg, fst)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"sharded {label}: stream differs from the flat qf's")
+    probes = torch.cat([inserted, fresh])
+    hit = filters.contains(scfg, sst, probes)
+    if not torch.equal(hit, filters.contains(fcfg, fst, probes)):
+        raise AssertionError(f"sharded {label}: hits differ from the flat qf's")
+    if not bool(hit[: inserted.shape[0]].all()):
+        raise AssertionError(f"sharded {label}: false negative among inserted keys")
+    fp_rate = float(hit[inserted.shape[0] :].float().mean())
+    bound = union_bound(fcfg, fst)
+    if fp_rate > 2 * bound:
+        raise AssertionError(f"sharded {label}: fp rate {fp_rate} > 2 x {bound}")
+    if bool(filters.stats(scfg, sst)["overflow"]):
+        raise AssertionError(f"sharded {label}: overflow")
+    return {
+        "probe_ms": median_ms(lambda: filters.contains(scfg, sst, probes), PROBE_REPS),
+        "flat_probe_ms": median_ms(
+            lambda: filters.contains(fcfg, fst, probes), PROBE_REPS
+        ),
+        "probes": probes.shape[0],
+        "fp_rate": fp_rate,
+        "union_bound": bound,
+    }
+
+
+def ingest(cfg, state, keys, batch, checkpoints=None):
+    """``keys`` in batches of ``batch`` through the façade: the state, the
+    wall s around the insert calls and the state after each checkpoint."""
+    seconds, kept = 0.0, {}
+    for b in range(keys.shape[0] // batch):
+        state, s, _ = timed_host(
+            lambda: filters.insert(cfg, state, keys[b * batch : (b + 1) * batch])
+        )
+        seconds += s
+        if checkpoints and b + 1 in checkpoints:
+            kept[b + 1] = state
+    return state, seconds, kept
+
+
+def sharded_breakdown(cfg, state, batch, probes) -> dict:
+    """An insert of ``batch`` and a ``contains`` of ``probes`` split into
+    their steps (route and bucket, exchange, the shards' local work, for
+    ``contains`` the answers' way back) and whole: median ms of
+    ``TIMED_REPS`` calls by CUDA events, each step on the previous step's
+    output."""
+    core, sf = cfg.core, sharded_filter
+    devices = sf.devices_of(state)
+
+    def route(keys):
+        return sf.route_and_bucket(core, state, keys, sharded._fingerprints)
+
+    def exchange(buckets, width):
+        return [sf.exchange([b[i] for b in buckets], devices) for i in range(width)]
+
+    ib, pb = route(batch), route(probes)
+    ir, pr = exchange(ib, 3), exchange(pb, 2)
+    hits = sf.lookup_local(core, state, pr, sharded._lookup)
+    steps = {
+        "insert": {
+            "route_and_bucket": lambda: route(batch),
+            "exchange": lambda: exchange(ib, 3),
+            "local": lambda: sf.insert_local(core, state, ir, sharded._insert_fingerprints),
+            "whole": lambda: filters.insert(cfg, state, batch),
+        },
+        "contains": {
+            "route_and_bucket": lambda: route(probes),
+            "exchange": lambda: exchange(pb, 2),
+            "local": lambda: sf.lookup_local(core, state, pr, sharded._lookup),
+            "answers": lambda: sf.answers(hits, pb, devices),
+            "whole": lambda: filters.contains(cfg, state, probes),
+        },
+    }
+    return {
+        op: {name: median_ms(fn) for name, fn in fns.items()}
+        for op, fns in steps.items()
+    }
+
+
+def check_sharded_no_sync(cfg, state, keys) -> None:
+    """One sharded insert and one ``contains``, each run once more under
+    ``torch.cuda.set_sync_debug_mode("error")``, where a host sync raises."""
+    for call in (lambda: filters.insert(cfg, state, keys),
+                 lambda: filters.contains(cfg, state, keys)):
+        call()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            call()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+
+
+def drive_sharded(device, keys, checkpoints, kernels):
+    """Phase sharded: phase 3's keys into ``sharded_qf(q=SHARD_Q, n_shards=
+    SHARDS)`` (shard ``s`` on ``cuda:(s % device_count)``), then ``grow``,
+    ``shrink`` and ``merge``, each held equal to a flat ``qf`` of the same
+    keys under ``backend="pallas"``.  The sharded path runs with the
+    launch counts at 0 and its counts are read before the flat QFs run.
+    Returns the report and the sharded path's launches."""
+    r = P_BITS - SHARD_Q
+    count = torch.cuda.device_count()
+    devices = [torch.device("cuda", s % count) for s in range(SHARDS)]
+    if count == 1:
+        devices = [device] * SHARDS
+    spec = dict(q=SHARD_Q, r=r, n_shards=SHARDS)
+    step = keys.shape[0] // BATCHES
+    # phase 3's generator went on to its probes' fresh keys
+    more = uint32_keys(np.random.default_rng(SEED + 40), SHARD_MERGE_KEYS, device)
+    report = {}
+
+    for k in kernels.values():
+        k.launches = 0
+    scfg, sst = filters.make("sharded_qf", device=devices, **spec)
+    report["devices"] = [str(d) for d in sharded_filter.devices_of(sst)]
+    sst, report["ingest_s"], s_at = ingest(scfg, sst, keys, step, checkpoints)
+    (gcfg, gst), report["grow_s"], _ = timed_host(lambda: filters.grow(scfg, sst))
+    (hcfg, hst), report["shrink_s"], _ = timed_host(lambda: filters.shrink(scfg, sst))
+    _, other = filters.make("sharded_qf", device=devices, **spec)
+    other, _, _ = ingest(scfg, other, more, SHARD_MERGE_BATCH)
+    merged, report["merge_s"], _ = timed_host(lambda: filters.merge(scfg, sst, other))
+    filters.contains(scfg, sst, torch.cat(checkpoints[BATCHES]))
+    launches = {n: k.launches for n, k in kernels.items()}
+    del other
+
+    fcfg, fst = filters.make("qf", device=device, q=SHARD_Q, r=r, backend="pallas")
+    fst, report["flat_ingest_s"], f_at = ingest(fcfg, fst, keys, step, checkpoints)
+    for b, (inserted, fresh) in checkpoints.items():
+        report[f"after_{b}"] = check_sharded(
+            f"after {b} batches", scfg, s_at[b], fcfg, f_at[b], inserted, fresh
+        )
+    del s_at, f_at
+    inserted, fresh = checkpoints[BATCHES]
+    (fg_cfg, fg), report["flat_grow_s"], _ = timed_host(lambda: filters.grow(fcfg, fst))
+    report["grow"] = check_sharded("grow", gcfg, gst, fg_cfg, fg, inserted, fresh)
+    del gst, fg
+    hf_cfg, hf = filters.make(
+        "qf", device=device, q=SHARD_Q - 1, r=r + 1, backend="pallas"
+    )
+    hf, _, _ = ingest(hf_cfg, hf, keys, step)
+    if (hcfg.n_shards, hcfg.core.local_cfg) != (SHARDS // 2, scfg.core.local_cfg):
+        raise AssertionError(f"sharded shrink: {hcfg}")
+    report["shrink"] = check_sharded("shrink", hcfg, hst, hf_cfg, hf, inserted, fresh)
+    del hst, hf
+    ocfg, ofst = filters.make("qf", device=device, q=SHARD_Q, r=r, backend="pallas")
+    ofst, _, _ = ingest(ocfg, ofst, more, SHARD_MERGE_BATCH)
+    fm, report["flat_merge_s"], _ = timed_host(lambda: filters.merge(fcfg, fst, ofst))
+    # the probes' fresh keys drawn among neither key set
+    fresh = fresh[~members(torch.sort(more.to(torch.int64) & 0xFFFFFFFF).values, fresh)]
+    report["merge"] = check_sharded(
+        "merge", scfg, merged, fcfg, fm, more[:PROBES], fresh
+    )
+    del ofst, fm, merged
+    report["ingest_keys_per_s"] = keys.shape[0] / report["ingest_s"]
+    report["flat_ingest_keys_per_s"] = keys.shape[0] / report["flat_ingest_s"]
+    report["steps_ms"] = sharded_breakdown(
+        scfg, sst, keys[:step], torch.cat(checkpoints[BATCHES])
+    )
+    check_sharded_no_sync(scfg, sst, keys[:step])
+    del fst
+
+    # one shard under device=None: the reference's rule on one card
+    solo_cfg, solo = filters.make("sharded_qf", q=SHARD_Q - 3, r=r + 3, n_shards=1)
+    solo = filters.insert(solo_cfg, solo, keys[:SHARD_SOLO_KEYS])
+    if not bool(filters.contains(solo_cfg, solo, keys[:SHARD_SOLO_KEYS]).all()):
+        raise AssertionError("sharded n_shards=1: false negative")
+    report["solo_devices"] = [str(s.rem.device) for s in solo]
+    # a local remainder of 32 bits, which the plain path keeps, is refused
+    # on the card by the kernel path's r <= 31 limit
+    rcfg, rst = filters.make("sharded_qf", device=devices, **SHARD_REFUSED)
+    try:
+        filters.insert(rcfg, rst, keys[:step])
+    except ValueError as e:
+        report["refused"] = str(e)
+    else:
+        raise AssertionError("sharded: a local remainder of 32 bits was not refused")
+    return report, launches
+
+
 def main(device: str = "cuda") -> int:
     if filters is None:
         print("chip_smoke.py: src/repro_torch is missing", file=sys.stderr)
@@ -3016,7 +3262,20 @@ def main(device: str = "cuda") -> int:
     peaks["consumers"] = torch.cuda.max_memory_allocated()
     phase_s["consumers"] = time.perf_counter() - t0
 
-    # 14. report
+    # 14. sharded: phase 3's stream into eight quotient-prefix shards
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    shard_report, shard_launches = drive_sharded(device, keys, checkpoints, kernels)
+    log(f"phase sharded: {json.dumps(shard_report)}")
+    log(f"  sharded-path launches: {shard_launches}")
+    for n in ("fingerprint", "qf_positions", "qf_build_planes", "qf_probe"):
+        if shard_launches[n] <= 0:
+            raise AssertionError(f"{n} was not launched on the sharded path")
+    log("  no host sync in a sharded insert and contains (sync debug mode \"error\")")
+    peaks["sharded"] = torch.cuda.max_memory_allocated()
+    phase_s["sharded"] = time.perf_counter() - t0
+
+    # 15. report
     for n, row in rows.items():
         row["launches"] = launches[n]
         if row["max_abs_err"] != 0:

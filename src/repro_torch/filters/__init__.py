@@ -16,6 +16,9 @@ Registry name -> implementation -> paper section:
 ``"xor_fuse"``            Frozen binary-fuse filter (§4 cold levels, beyond the
                           paper): construct-only; merge/extend/grow/shrink
                           re-peel, insert/delete raise.
+``"sharded_qf"``          Multi-device QF (§6 future work): quotient-prefix
+                          sharding, each shard's keys routed to it by one
+                          exchange each way; shards on a list of devices.
 ``"steady_qf"``           Steady-state QF (§4 RAM buffer kept always-on): every
                           insert lands in a small buffer QF and moves one
                           bounded settle chunk into the table.
@@ -26,8 +29,8 @@ Every family resizes (the paper's §3 "dynamic resizing"): ``grow``,
 predicates.  :func:`auto_grow` composes them with ``insert`` by the
 blocking ``grow``; :func:`auto_scale` grows a ``qf``, ``buffered_qf``
 or ``steady_qf`` incrementally instead (``filters.incremental_resize``:
-each batch moves one bounded chunk into the wider table) and shrinks on
-a low watermark.
+each batch moves one bounded chunk into the wider table), grows the
+others by the blocking ``grow``, and shrinks on a low watermark.
 
 Quickstart::
 
@@ -40,13 +43,16 @@ Quickstart::
 
 The spec dictionaries are those of ``repro.filters``.  ``make`` puts the
 state on the CUDA device unless it is given ``device="cpu"``, and raises
-without a card.  ``backend="pallas"`` runs the port's CUDA kernels on
-card state.  :func:`from_numpy` and :func:`to_numpy` carry a state
+without a card; ``sharded_qf`` takes one device for one shard or a list
+of ``n_shards`` devices, which may repeat (``filters.sharded``).
+``backend="pallas"`` runs the port's CUDA kernels on card state.
+:func:`from_numpy` and :func:`to_numpy` carry a state
 across from the JAX package and back as its pytree leaves: ``rem``
 planes and fuse tables as uint32, counting Bloom cells (int16 here) as
 uint16, and the int64 streams (a frozen level's run, a migration's
 source stream, the steady family's ``src``/``bsrc``/``out`` settle
-streams) as int32 quotients and uint32 remainders.
+streams) as int32 quotients and uint32 remainders; a ``sharded_qf``
+state as the JAX package's stacked per-shard leaves.
 """
 
 from __future__ import annotations
@@ -63,6 +69,7 @@ from . import (  # noqa: F401 (registration)
     incremental_resize,
     iostats,
     qf_filter,
+    sharded,
     steady,
     xor_fuse,
 )
@@ -280,6 +287,8 @@ def to_numpy(cfg, state) -> list:
     treedef over this list rebuilds the JAX state.
     """
     by_cfg(cfg)  # a registered config
+    if isinstance(cfg, sharded.ShardedQFilterConfig):
+        state = sharded.stacked(state)
     out = []
     for name, t in _leaves(state):
         # a copy: a migration's insert writes the state's planes in place
@@ -294,13 +303,25 @@ def from_numpy(cfg, leaves, device=None):
     The inverse of :func:`to_numpy`: each leaf must have the dtype and
     shape of the matching field of ``make``'s state for ``cfg`` (``rem``
     and fuse tables as uint32, counting Bloom cells as uint16, frozen
-    runs and fingerprint streams as int32/uint32).
+    runs and fingerprint streams as int32/uint32).  ``device`` is
+    ``make``'s argument: a ``sharded_qf`` state's stacked leaves are split
+    onto its shards' devices.
     """
+    if isinstance(cfg, sharded.ShardedQFilterConfig):
+        devices = sharded.shard_devices(cfg.n_shards, device)
+        _, blank = sharded.make(device=["meta"] * cfg.n_shards, **cfg._asdict())
+        state = _from_leaves(sharded.stacked(blank, "meta"), leaves, "cpu")
+        return sharded.unstacked(state, devices)
     device = qf.resolve_device(device)
     if incremental_resize.is_migrating(cfg):
         template = incremental_resize.blank(cfg, device="meta")
     else:
         _, template = by_cfg(cfg).make(device="meta", **cfg._asdict())  # no memory
+    return _from_leaves(template, leaves, device)
+
+
+def _from_leaves(template, leaves, device):
+    """``template``'s structure with each tensor read from the leaf in its place."""
     fields = list(_leaves(template))
     leaves = list(leaves)
     if len(leaves) != len(fields):

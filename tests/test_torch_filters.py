@@ -174,8 +174,8 @@ def test_unported_ops_raise_structured_errors():
     with pytest.raises(ValueError):
         tf.supports("qf", "grwo")
     assert tf.names() == (
-        "blocked_bloom", "bloom", "buffered_qf", "cascade", "qf", "steady_qf",
-        "xor_fuse",
+        "blocked_bloom", "bloom", "buffered_qf", "cascade", "qf", "sharded_qf",
+        "steady_qf", "xor_fuse",
     )
 
 

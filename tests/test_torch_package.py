@@ -46,7 +46,7 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
 @pytest.mark.parametrize(
     "name",
     ["qf", "buffered_qf", "cascade", "bloom", "blocked_bloom", "frozen cascade",
-     "xor_fuse", "steady_qf"],
+     "xor_fuse", "steady_qf", "sharded_qf"],
 )
 def test_make_without_a_device_needs_a_card(name, monkeypatch):
     family, spec = {
@@ -58,6 +58,7 @@ def test_make_without_a_device_needs_a_card(name, monkeypatch):
         "frozen cascade": ("cascade", dict(ram_q=5, p=20, levels=2, frozen_below=1)),
         "xor_fuse": ("xor_fuse", dict(p=26, keys=np.arange(50, dtype=np.int32))),
         "steady_qf": ("steady_qf", dict(q=9, r=12)),
+        "sharded_qf": ("sharded_qf", dict(q=8, r=16, n_shards=1)),
     }[name]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
