@@ -170,7 +170,50 @@ Phases, each timed, any failure fatal (a traceback and exit code 1):
             back); an ``n_shards = 1`` filter under ``device=None`` takes a
             batch; and ``sharded_qf(q=24, r=29, n_shards=8)`` (a local
             remainder of 32 bits) must refuse an insert on the card.
-15. report  one JSON line of per-kernel results (nine rows), then the
+15. ssd_large  Table 1(b) at 1:24 (``bench_ssd._experiment(24, "large")``),
+            ratio-true at RAM_Q = 22 (at 24 the Bloom variants would need
+            5.2 G cells, past the 32-bit double hash and int32 cell
+            indices): the bench's draws from ``default_rng(24)``, 75,497,472
+            keys in 64 batches of 1,179,648 into
+            ``buffered_qf(ram_q=22, disk_q=28, p=37)`` and
+            ``cascade(ram_q=22, p=37, fanout=2, levels=6)`` under
+            ``"pallas"``, and into the EBF, BBF and FBF at k = 12 and
+            m = n * 12 / ln 2 = 1,307,037,941 cells (``ssd_experiment``).
+            The modeled insert, uniform- and successful-lookup ops/s of the
+            five from their ``IOLog``s, ``vs_best_bf`` with and without the
+            FBF, ``cf/bqf`` beside the paper's 1.26, the measured ingest;
+            2**21 inserted keys (no false negative) and 2**21 fresh keys (an
+            fp rate at most twice the union bound, and none at all at p =
+            37 >= 32) through the two QF structures, whose answers must
+            equal the plain path's on the same state; the inputs of the last
+            build at q = 28 (the BQF's last flush) are recorded, and
+            ``ops.build_sorted`` on them must equal the plain
+            ``build_sorted`` bit for bit.  The QF kernels must have launched.
+16. figures the paper's other figures, scaled up (``figures``), each
+            structure held against the plain path on the card: Figs 1/2
+            (``bench_fprate``) at q = 19, the largest q at which every r of
+            the bench collides (the fingerprint is a bijection of the key
+            at q + r >= 32), 2**22 member-free probes; each build equals the
+            plain insert leaf for leaf and each hit mask the plain probe's,
+            each fp count lies within 6 sigma of the rate it should meet
+            (for a QF the analytic one times about 1 - 2**(q + r - 32),
+            computed exactly from the members' distinct fingerprints; for a
+            Bloom filter the analytic one), and each empirical/analytic
+            ratio is at most 2; Fig 6 (``bench_occupancy``) at q = 24, the
+            QF and the Bloom filter filled to 30, 60 and 90% in batches of
+            2**21 and probed with 2**22 keys by CUDA events, each hit mask
+            equal to the plain probe's; Fig 4 (``bench_clusters``) at q =
+            24, each build equal to the plain one, cluster mean under the
+            bound; Fig 9 (``bench_fanout``) through the ``CascadeFilter``
+            shim on the card at RAM_Q = 20, p = 36, 40,960,000 keys, each
+            level's probe equal to the plain one, the bench's trade-off
+            held; then one ``BufferedQuotientFilter`` and one deamortized
+            ``CascadeFilter`` at ram_q = 12 on the card and on the CPU,
+            equal in every leaf, ``IOLog`` and hit.  Figs 1/2 and 6 must
+            launch the Bloom and QF kernels, Fig 4 the QF build and
+            ``fingerprint``, Fig 9 and each shim's card run (counted alone)
+            the QF build, probe and ``fingerprint``.
+17. report  one JSON line of per-kernel results (nine rows), then the
             card's name and power limit, then the result line.
 
 The whole run must stay within 1200 s of command time on one H100.
@@ -199,6 +242,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 try:
     from repro_torch import filters
     from repro_torch.core import bf_variants, bloom, cost_model
+    from repro_torch.core import BufferedQuotientFilter, CascadeFilter
     from repro_torch.core import fuse_filter as fuse
     from repro_torch.core import quotient_filter as qf
     from repro_torch.core import sharded_filter
@@ -295,6 +339,35 @@ SHARD_MERGE_BATCH = 1 << 20
 SHARD_SOLO_KEYS = 1 << 20  # the n_shards = 1 filter under device=None
 SHARD_REFUSED = dict(q=24, r=29, n_shards=8)  # local r = 29 + 3 = 32
 
+# phase ssd_large: bench_ssd's 1:24 experiment, ratio-true at RAM_Q = 22 (at
+# 24, 1:24 needs 5.2 G Bloom cells: past the 32-bit double hash and int32
+# cell indices); p = RAM_Q + 15, as bench_ssd's 26 at its RAM_Q = 11
+LARGE_RATIO = 24
+LARGE_RAM_Q = 22
+PAPER_CF_OVER_BQF = 1.26  # bench_ssd's "paper large" insert crossover
+
+# phase figures: bench_fprate (Figs 1/2), bench_clusters (Fig 4),
+# bench_occupancy (Fig 6) and bench_fanout (Fig 9), scaled up.  The
+# fingerprint's top 32 bits are a bijection of the 32-bit key, so at
+# q + r >= 32 no two keys collide: q = 19 is the largest q at which every r
+# of bench_fprate (up to 12) still sees false positives.
+FP_Q = 19  # bench_fprate's 14, times 2**5 in keys
+FP_PROBES = 1 << 22  # its 400,000, scaled; the members among them removed
+CLUSTER_Q = 24  # bench_clusters' 16, times 2**8
+OCC_Q = 24  # bench_occupancy's 16, times 2**8
+OCC_BATCH = 1 << 21  # its 2**13
+OCC_PROBES = 1 << 22  # its 2**14
+FANOUT_RAM_Q = 20  # bench_fanout's 10, 26 and 40,000, times 2**10 in keys
+FANOUT_P = 36  # RAM_Q + 16, as the bench's 26 at its RAM_Q = 10
+FANOUT_N = 40_960_000
+FANOUT_STEP = 524_288  # its 512
+FANOUT_LOOKUPS = 1 << 21  # its 2048
+FANOUT_SAMPLE = 1 << 20  # inserted keys probed for false negatives
+SHIM_Q = 12  # the shims' RAM QF, run on the card and on the CPU
+SHIM_P = 30
+SHIM_BATCH = 1024
+SHIM_BATCHES = 40
+
 
 def log(*args) -> None:
     print(*args, flush=True)
@@ -343,9 +416,10 @@ def max_abs_err(got, want, chunk: int = 1 << 26) -> int:
     return worst
 
 
-def uint32_keys(rng, n, device):
-    """bench_ssd's ``keys_u32``: uniform uint32 keys from ``rng``, on ``device``."""
-    keys = rng.integers(0, 2**32, size=n, dtype=np.int64).astype(np.uint32)
+def uint32_keys(rng, n, device, lo=0):
+    """The benches' ``keys_u32``: uniform uint32 keys in [lo, 2**32) from
+    ``rng``, on ``device``."""
+    keys = rng.integers(lo, 2**32, size=n, dtype=np.int64).astype(np.uint32)
     return torch.from_numpy(keys.view(np.int32)).to(device)
 
 
@@ -1373,10 +1447,10 @@ def check_bloom_probe(structs, probes):
     )
 
 
-def baseline_makers(n_total: int, device) -> dict:
-    """bench_ssd's ``_mk_structs`` Bloom baselines at ratio ``RATIO``."""
+def baseline_makers(n_total: int, device, ratio: int = RATIO) -> dict:
+    """bench_ssd's ``_mk_structs`` Bloom baselines at ``ratio``."""
     m_bits = bloom_m_bits(n_total)
-    ram_bits = m_bits // RATIO
+    ram_bits = m_bits // ratio
     cfg = bloom.BloomConfig(m_bits=m_bits, k=BLOOM_K)
     return {
         "ebf": lambda: bf_variants.ElevatorBloomFilter(
@@ -1393,26 +1467,30 @@ def baseline_makers(n_total: int, device) -> dict:
     }
 
 
-def baseline_io(struct, keys, lookups):
-    """Ingest a baseline as bench_ssd does; its I/O logs and ingest time.
+def baseline_io(struct, keys, lookups, step):
+    """Ingest a structure as bench_ssd does, ``step`` keys a batch (the
+    last may be shorter), then its two lookup sets.
 
-    Returns ``((ingest, uniform lookups, hit lookups) logs, ingest s)``.
+    Returns ``((ingest, uniform lookups, hit lookups) logs, ingest s,
+    (uniform hits, hits))``; the ingest s is the sum of the insert calls'
+    wall times, the card synchronised around each.
     """
-    step = keys.shape[0] // BATCHES
     ingest_s = 0.0
-    for b in range(BATCHES):
+    for i in range(0, keys.shape[0], step):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        struct.insert(keys[b * step : (b + 1) * step])
+        struct.insert(keys[i : i + step])
         torch.cuda.synchronize()
         ingest_s += time.perf_counter() - t0
     ingest = struct.io.snapshot()
     uniform, hits = lookups
-    struct.lookup(uniform)
+    uniform_hit = struct.lookup(uniform)
     mid = struct.io.snapshot()
-    if not bool(struct.lookup(hits).all()):
+    hit = struct.lookup(hits)
+    if not bool(hit.all()):
         raise AssertionError(f"{type(struct).__name__}: false negative")
-    return (ingest, mid.delta(ingest), struct.io.snapshot().delta(mid)), ingest_s
+    logs = (ingest, mid.delta(ingest), struct.io.snapshot().delta(mid))
+    return logs, ingest_s, (uniform_hit, hit)
 
 
 def qf_io(cfg, state, lookups):
@@ -2803,6 +2881,565 @@ def drive_sharded(device, keys, checkpoints, kernels):
     return report, launches
 
 
+# ---------------------------------------------------------------------------
+# phases ssd_large and figures: the kernel path against the plain one
+# ---------------------------------------------------------------------------
+
+
+def leaves(state) -> list:
+    """A state's tensors, depth first."""
+    if state is None:
+        return []
+    if torch.is_tensor(state):
+        return [state]
+    return [t for v in state for t in leaves(v)]
+
+
+def against_plain(label, cfg, state, probes, hit) -> None:
+    """The kernel path's answers ``hit`` for ``probes`` on ``state`` against
+    the plain path's (``cfg`` under ``"reference"``) on the same state."""
+    want = filters.contains(cfg._replace(backend="reference"), state, probes)
+    if not torch.equal(hit, want):
+        raise AssertionError(
+            f"{label}: the kernels' hits differ from the plain path's on "
+            f"{int((hit != want).sum())} of {probes.shape[0]} keys"
+        )
+
+
+def built_as_plain(label, cfg, empty, keys, state) -> None:
+    """``state``, the kernel path's insert of ``keys`` into a copy of
+    ``empty``, against the plain insert of the same keys into ``empty``,
+    leaf for leaf."""
+    want = filters.insert(cfg._replace(backend="reference"), empty, keys)
+    err = max_abs_err(leaves(state), leaves(want))
+    if err:
+        raise AssertionError(f"{label}: the kernels' build differs from the plain one by {err}")
+
+
+def sigmas(count: int, trials: int, rate: float) -> float:
+    """How many binomial sigmas ``count`` of ``trials`` lies from ``rate``
+    (0 when the count is the certain one)."""
+    sd = math.sqrt(trials * rate * (1 - rate))
+    off = count - trials * rate
+    return off / sd if sd else (0.0 if off == 0 else math.copysign(math.inf, off))
+
+
+def qf_fp_expected(core, keys) -> float:
+    """The fp rate a uniform member-free probe meets in a QF holding
+    ``keys``.  The fingerprint's top 32 bits are a bijection of the 32-bit
+    key, so of the 2**32 - n non-members exactly D * 2**(32 - p) - n share
+    the p-bit prefix of one of the D distinct member fingerprints, and at
+    p >= 32 none does."""
+    p = core.q + core.r
+    if p >= 32:
+        return 0.0
+    fq, fr = qf.fingerprints(core, keys)
+    d = torch.unique((fq.to(torch.int64) << core.r) | fr.to(torch.int64)).numel()
+    n = torch.unique(keys).numel()
+    return (d * 2 ** (32 - p) - n) / (2**32 - n)
+
+
+@contextlib.contextmanager
+def last_build_at(q: int):
+    """Yield a list that, after the block, holds a copy of the inputs of
+    the last ``ops.build_sorted`` call at ``q`` made inside it (taken
+    before the build reads them)."""
+    last = []
+    real = ops.build_sorted
+
+    def record(cfg, *args):
+        if cfg.q == q:
+            last[:] = [(cfg,) + tuple(a.clone() if torch.is_tensor(a) else a for a in args)]
+        return real(cfg, *args)
+
+    ops.build_sorted = record
+    try:
+        yield last
+    finally:
+        ops.build_sorted = real
+
+
+def check_deep_build(label, recorded) -> dict:
+    """``ops.build_sorted`` (``qf_positions``, then ``qf_build_planes``) on
+    the recorded inputs of a build, bit for bit against the plain
+    ``quotient_filter.build_sorted`` on the same card tensors."""
+    if not recorded:
+        raise AssertionError(f"{label}: no build was recorded")
+    cfg, fq, fr, n = recorded.pop()
+    err = max_abs_err(leaves(ops.build_sorted(cfg, fq, fr, n)),
+                      leaves(qf.build_sorted(cfg, fq, fr, n)))
+    if err:
+        raise AssertionError(f"{label}: ops.build_sorted differs from build_sorted by {err}")
+    return {"q": cfg.q, "rows": fq.shape[0], "n": int(n), "max_abs_err": err}
+
+
+# ---------------------------------------------------------------------------
+# phase ssd_large: Table 1(b) at 1:24
+# ---------------------------------------------------------------------------
+
+
+class Functional:
+    """bench_ssd's ``_Functional``: a façade filter behind the
+    insert/lookup/io surface of the Bloom baselines."""
+
+    def __init__(self, name, device, **spec):
+        self.cfg, self.state = filters.make(name, device=device, **spec)
+
+    def insert(self, keys) -> None:
+        self.state = filters.insert(self.cfg, self.state, keys)
+
+    def lookup(self, keys):
+        self.state, hit = filters.probe(self.cfg, self.state, keys)
+        return hit
+
+    @property
+    def io(self):
+        return filters.to_iolog(self.state.io)
+
+
+def ssd_makers(ratio: int, ram_q: int, n_total: int, device) -> dict:
+    """bench_ssd's ``_mk_structs`` at ``ram_q`` (p = ram_q + 15), the QF
+    structures under ``"pallas"``: one maker by name."""
+    p = ram_q + 15
+    return {
+        "cf": lambda: Functional(
+            "cascade", device, ram_q=ram_q, p=p, fanout=2, levels=6, backend="pallas"
+        ),
+        "bqf": lambda: Functional(
+            "buffered_qf", device, ram_q=ram_q, disk_q=ssd_disk_q(ratio, ram_q), p=p,
+            backend="pallas",
+        ),
+        **baseline_makers(n_total, device, ratio),
+    }
+
+
+def ssd_disk_q(ratio: int, ram_q: int) -> int:
+    """bench_ssd's disk QF: room for ``ratio`` RAM loads with 1.8x slack."""
+    return ram_q + max(2, int(np.ceil(np.log2(ratio * 1.8))))
+
+
+def ssd_experiment(ratio: int, ram_q: int, n_checks: int, device):
+    """bench_ssd's ``_experiment(ratio, ...)`` at ``ram_q``.
+
+    The bench's draws (``default_rng(ratio)``: ``ratio`` RAM capacities
+    of keys, 2048 uniform lookups from [2**31, 2**32), 2048 picks of
+    inserted keys), its five structures and its batches of
+    ``max(256, n / 64)``.  Then ``n_checks`` more picks of inserted keys
+    (no false negative) and ``n_checks`` fresh keys through the two QF
+    structures, which account no I/O: their answers equal the plain
+    path's on the same state, the fp rate is at most twice the union bound
+    and exactly 0 at p >= 32 (the fingerprint is a bijection of the key
+    there), and nothing overflowed.  Returns ``(report, logs, hits)``: the
+    report's modeled ops/s on the paper's SSD, ``vs_best_bf`` with and
+    without the FBF, ``cf/bqf`` beside the paper's 1.26 and the measured
+    ingest; per structure the bench's three ``IOLog``s and the two
+    lookups' hits.
+    """
+    rng = np.random.default_rng(ratio)
+    n_total = ratio * qf.QFConfig(q=ram_q, r=1).capacity
+    keys = uint32_keys(rng, n_total, device)
+    pick = torch.from_numpy(rng.integers(0, n_total, PAPER_LOOKUPS)).to(device)
+    lookups = (uint32_keys(rng, PAPER_LOOKUPS, device, lo=2**31), keys[pick])
+    sample = keys[torch.from_numpy(rng.integers(0, n_total, n_checks)).to(device)]
+    inserted_sorted = torch.sort(keys.to(torch.int64) & 0xFFFFFFFF).values
+    fresh = fresh_keys(rng, inserted_sorted, n_checks, device)
+    del inserted_sorted
+    step = max(256, n_total // 64)
+    logs, hits, keys_per_s, checks = {}, {}, {}, {}
+    for name, make in ssd_makers(ratio, ram_q, n_total, device).items():
+        struct = make()
+        logs[name], ingest_s, hits[name] = baseline_io(struct, keys, lookups, step)
+        keys_per_s[name] = n_total / ingest_s
+        if isinstance(struct, Functional):
+            cfg, state = struct.cfg, struct.state
+            label = f"ssd 1:{ratio} {name}"
+            sample_hit = filters.contains(cfg, state, sample)
+            fresh_hit = filters.contains(cfg, state, fresh)
+            against_plain(f"{label} members", cfg, state, sample, sample_hit)
+            against_plain(f"{label} fresh keys", cfg, state, fresh, fresh_hit)
+            if not bool(sample_hit.all()):
+                raise AssertionError(f"{label}: false negative")
+            fps = int(fresh_hit.sum())
+            fp_rate = fps / fresh.shape[0]
+            bound = union_bound(cfg, state)
+            if fp_rate > 2 * bound:
+                raise AssertionError(f"{label}: fp {fp_rate} > 2 x {bound}")
+            if ram_q + 15 >= 32 and fps:
+                raise AssertionError(f"{label}: {fps} false positives at p >= 32")
+            if bool(filters.stats(cfg, state)["overflow"]):
+                raise AssertionError(f"{label}: overflow")
+            checks[name] = {"fp_rate": fp_rate, "union_bound": bound,
+                            "hits_equal_plain": sample.shape[0] + fresh.shape[0]}
+        del struct
+        torch.cuda.empty_cache()
+    modeled = {name: modeled_ops(n_total, lg) for name, lg in logs.items()}
+    ins = {name: m["insert"] for name, m in modeled.items()}
+    best = {
+        "with_fbf": max(("ebf", "bbf", "fbf"), key=ins.get),
+        "without_fbf": max(("ebf", "bbf"), key=ins.get),
+    }
+    report = {
+        "ratio": ratio, "ram_q": ram_q, "p": ram_q + 15, "keys": n_total,
+        "batch": step, "bloom_cells": bloom_m_bits(n_total),
+        "modeled_ops_per_s": modeled,
+        "best_bf": best,
+        "vs_best_bf": {
+            variant: {n: ins[n] / ins[bf] for n in ("cf", "bqf")}
+            for variant, bf in best.items()
+        },
+        "cf_over_bqf": ins["cf"] / ins["bqf"],
+        "paper_cf_over_bqf": PAPER_CF_OVER_BQF,
+        "card_ingest_keys_per_s": keys_per_s,
+        "checks": checks,
+        "logs": {n: [vars(x) for x in lg] for n, lg in logs.items()},
+    }
+    return report, logs, hits
+
+
+# ---------------------------------------------------------------------------
+# phase figures: Figs 1/2, 4, 6 and 9
+# ---------------------------------------------------------------------------
+
+
+def fp_row(label, hit, expected: float, analytic: float, bits_per_element: float):
+    """A filter's fp count on member-free probes (``hit``) beside its
+    analytic rate and the rate it should meet (``expected``), which it
+    must meet within 6 sigma."""
+    fps, trials = int(hit.sum()), hit.shape[0]
+    z = sigmas(fps, trials, expected)
+    if not abs(z) <= 6:
+        raise AssertionError(f"{label}: {fps} false positives of {trials}, "
+                             f"{z} sigma from the rate {expected}")
+    empirical = fps / trials
+    return {
+        "false_positives": fps, "empirical": empirical, "analytic": analytic,
+        "ratio": empirical / analytic, "expected": expected, "sigmas": z,
+        "bits_per_element": bits_per_element,
+    }
+
+
+def fprate_experiment(q: int, n_probes: int, device) -> dict:
+    """``benchmarks/bench_fprate.py`` (Figs 1/2) at ``q``.
+
+    Its draws (``default_rng(7)``: n = 0.75 * 2**q keys, then ``n_probes``
+    from [2**31, 2**32), here with the inserted keys among them removed),
+    ``qf(q, r, slack=2048)`` for r = 4, 6, 8, 10, 12 against
+    1 - e**(-n / 2**(q + r)) and ``bloom(m = n * bits, k = optimal_k)``
+    for bits = 6, 9, 12, 15 against (1 - e**(-k n / m))**k, all under
+    ``"pallas"``.  Each structure is held against the plain path: its
+    build against the plain insert of the same keys, leaf for leaf, and
+    its answers to the members and the probes against the plain probe of
+    the same state.  Checked besides: no false negative, no overflow, each
+    empirical/analytic ratio at most 2, and each fp count within 6 sigma
+    of the rate it should meet: ``qf_fp_expected`` for a QF (below the
+    analytic rate by the factor 1 - 2**(q + r - 32)), the analytic rate for
+    a Bloom filter.
+    """
+    rng = np.random.default_rng(7)
+    n = int((1 << q) * 0.75)
+    keys = uint32_keys(rng, n, device)
+    probes = uint32_keys(rng, n_probes, device, lo=2**31)
+    probes = probes[~members(torch.sort(keys.to(torch.int64) & 0xFFFFFFFF).values, probes)]
+    out = {"q": q, "n": n, "probes": probes.shape[0], "qf": {}, "bloom": {}}
+
+    def held(label, name, **spec):
+        """A structure holding ``keys`` and its hits for the probes, both
+        held against the plain path."""
+        cfg, empty = filters.make(name, device=device, backend="pallas", **spec)
+        st = filters.insert(cfg, clone_state(empty), keys)
+        built_as_plain(label, cfg, empty, keys, st)
+        member_hit = filters.contains(cfg, st, keys)
+        hit = filters.contains(cfg, st, probes)
+        against_plain(f"{label} members", cfg, st, keys, member_hit)
+        against_plain(f"{label} probes", cfg, st, probes, hit)
+        if not bool(member_hit.all()):
+            raise AssertionError(f"{label}: false negative")
+        if name == "qf" and bool(filters.stats(cfg, st)["overflow"]):
+            raise AssertionError(f"{label}: overflow")
+        return cfg, hit
+
+    for r in (4, 6, 8, 10, 12):
+        label = f"fprate qf r={r}"
+        cfg, hit = held(label, "qf", q=q, r=r, slack=2048)
+        analytic = 1 - math.exp(-n / 2 ** (q + r))
+        expected = qf_fp_expected(cfg.core, keys)
+        out["qf"][r] = fp_row(label, hit, expected, analytic, (r + 3) / 0.75)
+    for bits in (6, 9, 12, 15):
+        label = f"fprate bloom {bits} bits"
+        k = bloom.optimal_k(bits)
+        m_bits = n * bits
+        _, hit = held(label, "bloom", m_bits=m_bits, k=k)
+        analytic = (1 - math.exp(-k * n / m_bits)) ** k
+        out["bloom"][bits] = fp_row(label, hit, analytic, analytic, float(bits))
+    for kind in ("qf", "bloom"):
+        for x, row in out[kind].items():
+            if row["ratio"] > 2:
+                raise AssertionError(f"fprate {kind} {x}: ratio {row['ratio']} > 2")
+    return out
+
+
+def cluster_lengths(nonempty):
+    """The lengths of the runs of set slots, as bench_clusters finds them."""
+    x = torch.nn.functional.pad(nonempty.to(torch.int8), (1, 1))
+    edges = x[1:] - x[:-1]
+    return (edges == -1).nonzero().squeeze(1) - (edges == 1).nonzero().squeeze(1)
+
+
+def clusters_experiment(q: int, device):
+    """``benchmarks/bench_clusters.py`` (Fig 4) at ``q``.
+
+    Its draws (``default_rng(4)``, one batch of alpha * 2**q keys a load)
+    into ``qf(q, r=10, slack=4096, max_load=alpha)`` under ``"pallas"``
+    for alpha = 0.5, 0.75, 0.9, each build held against the plain insert
+    of the same keys, leaf for leaf; the cluster lengths are the runs of
+    ``occ | shf``, found on the device.  Checked: mean under
+    1 / (1 - alpha e**(1 - alpha)), no overflow.  Returns the report by
+    alpha and the lengths (numpy) by alpha.
+    """
+    rng = np.random.default_rng(4)
+    report, lengths = {}, {}
+    for alpha in (0.5, 0.75, 0.9):
+        cfg, empty = filters.make(
+            "qf", device=device, q=q, r=10, slack=4096, max_load=alpha, backend="pallas"
+        )
+        n = int((1 << q) * alpha)
+        keys = uint32_keys(rng, n, device)
+        st = filters.insert(cfg, clone_state(empty), keys)
+        built_as_plain(f"clusters alpha={alpha}", cfg, empty, keys, st)
+        if bool(filters.stats(cfg, st)["overflow"]):
+            raise AssertionError(f"clusters alpha={alpha}: overflow")
+        got = cluster_lengths(st.occ | st.shf).cpu().numpy()
+        mean = float(got.mean())
+        bound = 1.0 / (1 - alpha * math.exp(1 - alpha))
+        if not mean < bound:
+            raise AssertionError(f"clusters alpha={alpha}: mean {mean} >= {bound}")
+        report[alpha] = {
+            "keys": n, "clusters": int(got.shape[0]), "mean": mean,
+            "p99": float(np.percentile(got, 99)), "max": int(got.max()),
+            "analytic_mean_bound": bound,
+        }
+        lengths[alpha] = got
+    return report, lengths
+
+
+def occupancy_experiment(q: int, batch: int, n_probes: int, device):
+    """``benchmarks/bench_occupancy.py`` (Fig 6) at ``q``.
+
+    Its draws (``default_rng(5)``: ``n_probes`` from [2**31, 2**32) first,
+    then the fill) into ``qf(q, r=10, slack=4096, max_load=0.95)`` and
+    ``bloom(k=9, m = 2**q * 0.95 * 9 / ln 2)`` under ``"pallas"``, in
+    batches of at most ``batch`` keys to 30%, 60% and 90% of 2**q; at each
+    step both answer the probes, timed by ``median_ms``, and their answers
+    equal the plain path's on the same state.  Returns the report (q/s of
+    both, the QF's lookup_90/30), the fill schedule (batch sizes) and the
+    hits (QF, Bloom) by step.
+    """
+    rng = np.random.default_rng(5)
+    cfg, st = filters.make(
+        "qf", device=device, q=q, r=10, slack=4096, max_load=0.95, backend="pallas"
+    )
+    k = 9
+    m_bits = int((1 << q) * 0.95 * k / np.log(2))
+    bcfg, bits = filters.make("bloom", device=device, m_bits=m_bits, k=k, backend="pallas")
+    probes = uint32_keys(rng, n_probes, device, lo=2**31)
+    report, schedule, hits = {"q": q, "probes": n_probes}, [], {}
+    for pct in (30, 60, 90):
+        target = int((1 << q) * pct / 100)
+        while int(st.n) < target:
+            keys = uint32_keys(rng, min(batch, target - int(st.n)), device)
+            st = filters.insert(cfg, st, keys)
+            bits = filters.insert(bcfg, bits, keys)
+            schedule.append(keys.shape[0])
+        hits[pct] = (filters.contains(cfg, st, probes), filters.contains(bcfg, bits, probes))
+        against_plain(f"occupancy qf {pct}%", cfg, st, probes, hits[pct][0])
+        against_plain(f"occupancy bloom {pct}%", bcfg, bits, probes, hits[pct][1])
+        qf_ms = median_ms(lambda: filters.contains(cfg, st, probes))
+        bf_ms = median_ms(lambda: filters.contains(bcfg, bits, probes))
+        report[pct] = {
+            "qf_ms": qf_ms, "bf_ms": bf_ms, "qf_lookup_per_s": n_probes / qf_ms * 1e3,
+            "bf_lookup_per_s": n_probes / bf_ms * 1e3,
+        }
+    if bool(filters.stats(cfg, st)["overflow"]):
+        raise AssertionError("occupancy qf: overflow")
+    report["qf_lookup_90/30"] = report[90]["qf_ms"] / report[30]["qf_ms"]
+    return report, schedule, hits
+
+
+def fanout_experiment(ram_q: int, p: int, n: int, step: int, n_lookups: int,
+                      n_sample: int, device):
+    """``benchmarks/bench_fanout.py`` (Fig 9) through the ``CascadeFilter`` shim.
+
+    For fanout 2, 4 and 16, each from ``default_rng(9)``: ``n`` keys
+    inserted ``step`` at a time (the last batch may be shorter), then
+    ``n_lookups`` uniform lookups from [2**31, 2**32); modeled insert and
+    lookup ops/s on the paper's SSD, the non-empty levels and the
+    measured ingest.  Checked: every non-empty level's kernel probe of the
+    lookups equals the plain probe of the same level, no false negative on
+    ``n_sample`` inserted keys (after the lookups' log is taken), and the
+    bench's trade-off: lookup(16) >= lookup(2) and insert(2) >= insert(16).
+    Returns the
+    report by fanout and, by fanout, the ingest and lookup logs and the
+    lookups' hits.
+    """
+    rate = lambda count, io: cost_model.modeled_throughput(
+        count, io, cost_model.PAPER_SSD
+    )
+    report, logs, hits = {}, {}, {}
+    for fanout in (2, 4, 16):
+        rng = np.random.default_rng(9)
+        cf = CascadeFilter(ram_q=ram_q, p=p, fanout=fanout, device=device)
+        keys = uint32_keys(rng, n, device)
+
+        def run():
+            for i in range(0, n, step):
+                cf.insert(keys[i : i + step])
+
+        ingest_s = timed_host(run)[1]
+        ingest = cf.io.snapshot()
+        probes = uint32_keys(rng, n_lookups, device, lo=2**31)
+        hits[fanout] = cf.lookup(probes)
+        lookup = cf.io.delta(ingest)
+        logs[fanout] = (ingest, lookup)
+        levels_as_plain(f"fanout {fanout}", cf, probes)
+        if not bool(cf.lookup(keys[:: max(1, n // n_sample)]).all()):
+            raise AssertionError(f"fanout {fanout}: false negative")
+        report[fanout] = {
+            "insert_ops_per_s": rate(n, ingest),
+            "lookup_ops_per_s": rate(n_lookups, lookup),
+            "levels": cf.n_nonempty_levels(),
+            "level_qs": [c.q for c, s in cf.levels if int(s.n) > 0],
+            "card_insert_keys_per_s": n / ingest_s,
+        }
+        del cf, keys
+        torch.cuda.empty_cache()
+    lo, hi = report[2], report[16]
+    if not (hi["lookup_ops_per_s"] >= lo["lookup_ops_per_s"]
+            and lo["insert_ops_per_s"] >= hi["insert_ops_per_s"]):
+        raise AssertionError(f"fanout: the trade-off does not hold: {report}")
+    return report, logs, hits
+
+
+def levels_as_plain(label, cf, keys) -> None:
+    """Each non-empty level of a ``CascadeFilter``: its probe of ``keys`` by
+    the shim's path against the plain ``quotient_filter.contains`` of the
+    same level."""
+    for cfg, state in [(cf.q0_cfg, cf.q0)] + cf.levels:
+        if int(state.n) == 0:
+            continue
+        got = qf_filter.contains_keys(cfg, cf._backend, state, keys)
+        if not torch.equal(got, qf.contains(cfg, state, keys)):
+            raise AssertionError(f"{label}: the level at q = {cfg.q} differs from "
+                                 "its plain probe")
+
+
+SHIMS = {
+    "BufferedQuotientFilter": lambda device: BufferedQuotientFilter(
+        qf.QFConfig(q=SHIM_Q, r=SHIM_P - SHIM_Q),
+        qf.QFConfig(q=SHIM_Q + 4, r=SHIM_P - SHIM_Q - 4),
+        device=device,
+    ),
+    "CascadeFilter": lambda device: CascadeFilter(
+        ram_q=SHIM_Q, p=SHIM_P, fanout=4, deamortize=True, device=device
+    ),
+}
+
+
+def shim_run(shim, batches, probes) -> dict:
+    """``batches`` into one of ``SHIMS``: every leaf (on the CPU), the
+    ``IOLog`` after each batch, the count, the non-empty levels and the
+    hits of ``probes``."""
+    ios = []
+    for b in batches:
+        shim.insert(b.to(shim.device))
+        ios.append(vars(shim.io.snapshot()))
+    hit = shim.lookup(probes.to(shim.device)).cpu()
+    if isinstance(shim, BufferedQuotientFilter):
+        states, levels = [shim.ram, shim.disk], None
+    else:
+        states, levels = [shim.q0] + [s for _, s in shim.levels], shim.n_nonempty_levels()
+    return {
+        "leaves": [t.cpu() for s in states for t in s],
+        "ios": ios,
+        "hit": hit,
+        "counts": (shim.count, levels),
+    }
+
+
+def check_shims(device, kernels, needed) -> dict:
+    """Each of ``SHIMS`` on ``device`` and on the CPU: equal leaves,
+    ``IOLog``s after every batch, counts and hits, and no false negative.
+    Each card run, counted alone, must launch every kernel in ``needed``."""
+    rng = np.random.default_rng(SEED + 50)
+    keys = uint32_keys(rng, SHIM_BATCH * SHIM_BATCHES, "cpu")
+    members_probed = keys[::8]
+    probes = torch.cat([members_probed, uint32_keys(rng, SHIM_BATCH * 4, "cpu")])
+    batches = keys.split(SHIM_BATCH)
+    out = {"keys": keys.shape[0]}
+    for name, make in SHIMS.items():
+        card, launched = counted(
+            kernels, needed, f"{name} shim on the card",
+            lambda: shim_run(make(device), batches, probes),
+        )
+        cpu = shim_run(make("cpu"), batches, probes)
+        if not (len(card["leaves"]) == len(cpu["leaves"]) and all(
+            torch.equal(x, y) for x, y in zip(card["leaves"], cpu["leaves"])
+        )):
+            raise AssertionError(f"{name}: the card's leaves differ from the CPU's")
+        if not torch.equal(card["hit"], cpu["hit"]):
+            raise AssertionError(f"{name}: the card's hits differ from the CPU's")
+        for what in ("ios", "counts"):
+            if card[what] != cpu[what]:
+                raise AssertionError(f"{name}: the card's {what} differ from the CPU's")
+        if not bool(card["hit"][: members_probed.shape[0]].all()):
+            raise AssertionError(f"{name}: false negative")
+        count, levels = card["counts"]
+        out[name] = {"count": count, "levels": levels, "io": card["ios"][-1],
+                     "launches": {n: launched[n] for n in needed}}
+    return out
+
+
+def counted(kernels, needed, label, fn):
+    """``fn()`` with every launch count set to 0 before it; each kernel in
+    ``needed`` must have launched.  Returns the result and the counts."""
+    for k in kernels.values():
+        k.launches = 0
+    out = fn()
+    counts = {n: k.launches for n, k in kernels.items()}
+    missing = [n for n in needed if counts[n] <= 0]
+    if missing:
+        raise AssertionError(f"{missing} not launched on the {label} path")
+    log(f"  {label} launches: {counts}")
+    return out, counts
+
+
+def figures(device, kernels) -> dict:
+    """Phase figures: Figs 1/2, 6, 4 and 9 at their scaled sizes, and the
+    shims on the card against the CPU, each with its kernels' launches."""
+    qf_path = ("qf_positions", "qf_build_planes", "qf_probe", "fingerprint")
+    bloom_path = qf_path + ("bloom_count", "bloom_probe")
+    out = {}
+    out["fig_1_2_fprate"], _ = counted(
+        kernels, bloom_path, "fprate", lambda: fprate_experiment(FP_Q, FP_PROBES, device)
+    )
+    (out["fig_6_occupancy"], schedule, _), _ = counted(
+        kernels, bloom_path, "occupancy",
+        lambda: occupancy_experiment(OCC_Q, OCC_BATCH, OCC_PROBES, device),
+    )
+    out["fig_6_occupancy"]["batches"] = len(schedule)
+    (out["fig_4_clusters"], _), _ = counted(
+        kernels, ("qf_positions", "qf_build_planes", "fingerprint"), "clusters",
+        lambda: clusters_experiment(CLUSTER_Q, device),
+    )
+
+    (out["fig_9_fanout"], _, _), _ = counted(
+        kernels, qf_path, "fanout",
+        lambda: fanout_experiment(FANOUT_RAM_Q, FANOUT_P, FANOUT_N, FANOUT_STEP,
+                                  FANOUT_LOOKUPS, FANOUT_SAMPLE, device),
+    )
+    out["shims_card_vs_cpu"] = check_shims(device, kernels, qf_path)
+    return out
+
+
 def main(device: str = "cuda") -> int:
     if filters is None:
         print("chip_smoke.py: src/repro_torch is missing", file=sys.stderr)
@@ -3041,7 +3678,7 @@ def main(device: str = "cuda") -> int:
     modeled = {names[n]: modeled_ops(n_total, logs) for n, logs in paper_logs.items()}
     card_keys_per_s = {}
     for name, make in baseline_makers(n_total, device).items():
-        logs, ingest_s = baseline_io(make(), keys, paper_lookups)
+        logs, ingest_s, _ = baseline_io(make(), keys, paper_lookups, n_total // BATCHES)
         modeled[name] = modeled_ops(n_total, logs)
         card_keys_per_s[name] = n_total / ingest_s
         log(f"  {name}: ingest log {vars(logs[0])}")
@@ -3274,8 +3911,33 @@ def main(device: str = "cuda") -> int:
     log("  no host sync in a sharded insert and contains (sync debug mode \"error\")")
     peaks["sharded"] = torch.cuda.max_memory_allocated()
     phase_s["sharded"] = time.perf_counter() - t0
+    del keys, checkpoints, sample, fresh, mid_pick, mid_sample, probes, probe_set
+    del paper_lookups
+    torch.cuda.empty_cache()
 
-    # 15. report
+    # 15. ssd_large: Table 1(b) at 1:24, bench_ssd's "large" ratio
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    deep_q = ssd_disk_q(LARGE_RATIO, LARGE_RAM_Q)  # the BQF's disk, the CF's last level
+    with last_build_at(deep_q) as deep:
+        (large, _, _), _ = counted(
+            kernels, tuple(qf_kernels), "ssd_large",
+            lambda: ssd_experiment(LARGE_RATIO, LARGE_RAM_Q, PROBES, device),
+        )
+    large["deep_build_check"] = check_deep_build(f"ssd_large q = {deep_q}", deep)
+    log(f"phase ssd_large (bench_ssd 1:{LARGE_RATIO} at RAM_Q = {LARGE_RAM_Q}): "
+        + json.dumps(large))
+    peaks["ssd_large"] = torch.cuda.max_memory_allocated()
+    phase_s["ssd_large"] = time.perf_counter() - t0
+
+    # 16. figures: Figs 1/2, 6, 4 and 9, and the shims on the card and the CPU
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    log(f"phase figures: {json.dumps(figures(device, kernels))}")
+    peaks["figures"] = torch.cuda.max_memory_allocated()
+    phase_s["figures"] = time.perf_counter() - t0
+
+    # 17. report
     for n, row in rows.items():
         row["launches"] = launches[n]
         if row["max_abs_err"] != 0:

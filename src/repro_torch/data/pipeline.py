@@ -28,6 +28,7 @@ import torch
 
 from .. import filters
 from ..core import quotient_filter as qf
+from ..kernels import dispatch
 
 
 @dataclass
@@ -127,9 +128,9 @@ class DedupPipeline:
         self.cfg = cfg
         self.device = qf.resolve_device(device)
         self.corpus = SyntheticCorpus(cfg)
-        backend = "pallas" if self.device.type == "cuda" else "reference"
         self.filter_cfg, self.filter_state = filters.make(
-            cfg.dedup_family, device=self.device, backend=backend, **cfg.dedup_spec()
+            cfg.dedup_family, device=self.device,
+            backend=dispatch.backend_for(self.device), **cfg.dedup_spec()
         )
         self.state = PipelineState()
 

@@ -35,6 +35,7 @@ import torch
 
 from ..core import quotient_filter as qf
 from ..core import sharded_filter as sf
+from ..kernels import dispatch
 from ..kernels import ops as kops
 from . import qf_filter
 from .registry import FilterImpl, register
@@ -84,22 +85,17 @@ def shard_devices(n_shards: int, device=None) -> list:
     return devices
 
 
-def _backend(device: torch.device) -> str:
-    """The kernel path for shards on the card, the plain path elsewhere."""
-    return "pallas" if device.type == "cuda" else "reference"
-
-
 def _fingerprints(core: qf.QFConfig, keys):
-    return qf_filter.fingerprint_fn(_backend(keys.device))(core, keys)
+    return qf_filter.fingerprint_fn(dispatch.backend_for(keys.device))(core, keys)
 
 
 def _build(cfg: qf.QFConfig, fq, fr, n):
-    return qf_filter.build_fn(_backend(fq.device))(cfg, fq, fr, n)
+    return qf_filter.build_fn(dispatch.backend_for(fq.device))(cfg, fq, fr, n)
 
 
 def _insert_fingerprints(core: qf.QFConfig, state, fq, fr, valid):
     return qf_filter.insert_fingerprints(
-        core, _backend(fq.device), state, fq, fr, valid
+        core, dispatch.backend_for(fq.device), state, fq, fr, valid
     )
 
 

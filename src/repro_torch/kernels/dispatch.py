@@ -24,6 +24,12 @@ def use_kernel(*tensors: torch.Tensor) -> bool:
     )
 
 
+def backend_for(device: torch.device) -> str:
+    """The filter backend for state on ``device``: the kernel path
+    (``"pallas"``) on the card, the plain path (``"reference"``) elsewhere."""
+    return "pallas" if device.type == "cuda" else "reference"
+
+
 def require(t: torch.Tensor, name: str, dtype: torch.dtype) -> None:
     """Check a kernel input's type and layout before its pointer is passed."""
     if t.dtype != dtype:

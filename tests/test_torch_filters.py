@@ -184,3 +184,24 @@ def test_pallas_backend_keeps_remainder_limit():
         tf.make("qf", device="cpu", q=6, r=32, backend="pallas")
     with pytest.raises(ValueError):
         tf.make("qf", device="cpu", q=6, r=8, backend="triton")
+
+
+@pytest.mark.parametrize("backend", ["reference", "pallas"])
+@pytest.mark.parametrize("name", sorted(SPECS) + ["steady_qf"])
+def test_empty_delete_returns_the_state_unchanged(name, backend):
+    # the JAX package raises on a zero-key delete (in
+    # quotient_filter._range_bsearch), so only the port is checked here
+    from repro_torch.filters import steady
+
+    spec = dict(SPECS.get(name, dict(q=9, r=12)), backend=backend)
+    cfg, st = tf.make(name, device="cpu", **spec)
+    st = tf.insert(cfg, st, np.arange(100, dtype=np.uint32))
+    if name == "steady_qf":  # every steady delete settles the buffer first
+        st = steady.settle_all(cfg, st)
+    before = tf.to_numpy(cfg, st)
+    after = tf.to_numpy(cfg, tf.delete(cfg, st, np.zeros(0, np.uint32)))
+    assert len(after) == len(before)
+    for i, (a, b) in enumerate(zip(before, after)):
+        assert a.dtype == b.dtype, i
+        np.testing.assert_array_equal(a, b, err_msg=f"leaf {i}")
+    assert int(tf.stats(cfg, tf.from_numpy(cfg, after, device="cpu"))["n"]) == 100

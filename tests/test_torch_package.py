@@ -36,6 +36,7 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
         "import repro_torch.filters.incremental_resize, repro_torch.filters.auto_scale\n"
         "import repro_torch.filters.steady, repro_torch.data.pipeline\n"
         "import repro_torch.serve.prefix_cache\n"
+        "import repro_torch.core.buffered_qf, repro_torch.core.cascade_filter\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))\n"
         "assert not bad, bad\n"
     )
@@ -156,3 +157,49 @@ def test_csrc_holds_the_six_sources_cuda_lib_builds():
     for name in sources:  # a plain C entry point, and the JAX code it computes
         text = (cuda_lib.CSRC / f"{name}.cu").read_text()
         assert 'extern "C" int ' in text and CSRC[name] in text
+
+
+def test_core_exports_what_the_jax_package_exports():
+    import repro.core
+    import repro_torch.core
+    from repro_torch.core import buffered_qf, cascade_filter
+
+    assert repro_torch.core.__all__ == repro.core.__all__
+    for name in repro_torch.core.__all__:
+        assert hasattr(repro_torch.core, name), name
+    # each shim names the JAX file it ports
+    assert "repro/core/buffered_qf.py" in buffered_qf.__doc__
+    assert "repro/core/cascade_filter.py" in cascade_filter.__doc__
+
+
+@pytest.mark.parametrize("device, backend", [("cpu", "reference"), ("cuda", "pallas")])
+def test_one_rule_picks_the_backend_by_device(device, backend):
+    """The shims, the dedup pipeline and the sharded family take their
+    backend from ``dispatch.backend_for``: the kernel path on the card."""
+    from repro_torch.core import buffered_qf, cascade_filter
+    from repro_torch.data import pipeline
+    from repro_torch.filters import sharded
+    from repro_torch.kernels import dispatch
+
+    assert dispatch.backend_for(torch.device(device)) == backend
+    for module in (buffered_qf, cascade_filter, pipeline, sharded):
+        assert module.dispatch is dispatch, module.__name__
+
+
+@pytest.mark.parametrize("name", ["BufferedQuotientFilter", "CascadeFilter"])
+def test_shims_without_a_device_need_a_card(name, monkeypatch):
+    import repro_torch.core as core
+
+    make = {
+        "BufferedQuotientFilter": lambda **d: core.BufferedQuotientFilter(
+            tqf.QFConfig(q=5, r=15), tqf.QFConfig(q=7, r=13), **d
+        ),
+        "CascadeFilter": lambda **d: core.CascadeFilter(ram_q=5, p=20, **d),
+    }[name]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make()
+    struct = make(device="cpu")
+    keys = np.arange(50, dtype=np.uint32)
+    struct.insert(keys)
+    assert bool(struct.lookup(keys).all()) and struct.count == 50
