@@ -213,7 +213,29 @@ Phases, each timed, any failure fatal (a traceback and exit code 1):
             launch the Bloom and QF kernels, Fig 4 the QF build and
             ``fingerprint``, Fig 9 and each shim's card run (counted alone)
             the QF build, probe and ``fingerprint``.
-17. report  one JSON line of per-kernel results (nine rows), then the
+17. serve   the LLM serving path (``serve_phase``): the five GQA decoder
+            archs (qwen3-8b, deepseek-7b, gemma-7b, starcoder2-15b,
+            qwen2-vl-7b) under ``make_smoke`` (float32), params made on the
+            CPU and copied to the card, whose prefill and 8 greedy decode
+            steps must match the CPU port's (logits and K/V within 1e-4 of
+            the largest value, greedy tokens, ``kpos`` and ``pos`` equal);
+            then ``qwen3-8b`` at full width (36 layers, d_model 4,096, 32/8
+            heads, vocab 151,936, bf16, 8,190,735,360 params) from a seeded
+            CUDA generator, served by ``repro_torch.launch.serve.serve`` at
+            its defaults (16 requests of 64 tokens, 16 generated)
+            in front of its prefix cache, whose hits and state must equal a
+            CPU cache's fed the same prompts, with every repeat a hit and
+            ``fingerprint``, ``qf_positions``, ``qf_build_planes`` and
+            ``qf_probe`` launched on the path; the prefill's last logits and
+            one decode step against ``forward`` over the whole sequence at
+            16 x 64 (the step run under ``set_sync_debug_mode("error")``)
+            and over a 2 x 4,096 prefill on the chunked attention path
+            (``forward`` over 4,097 takes the naive one), max |d| / max
+            |logit| under 0.125 (bf16); prefill ms at both shapes and
+            decode ms a step and tokens/s at B = 16, beside their bounds,
+            the aten operations of a decode step and the card's busy share
+            of it (``torch.profiler``), and the phase's peak memory.
+18. report  one JSON line of per-kernel results (nine rows), then the
             card's name and power limit, then the result line.
 
 The whole run must stay within 1200 s of command time on one H100.
@@ -237,6 +259,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 try:
@@ -252,6 +275,11 @@ try:
     from repro_torch.serve.prefix_cache import PrefixCacheFilter
     from repro_torch.kernels import bloom_block, cascade_probe, cuda_lib, qf_build
     from repro_torch.kernels import fingerprint, fuse_probe, ops, qf_probe
+    from repro_torch.configs import get_config, make_smoke
+    from repro_torch.launch import serve as serve_launch
+    from repro_torch.models import model as llm
+    from repro_torch.models import schema as llm_schema
+    from repro_torch.serve import serve_step
 except ModuleNotFoundError as e:  # run outside the repository
     if not (e.name or "").startswith("repro_torch"):
         raise
@@ -367,6 +395,19 @@ SHIM_Q = 12  # the shims' RAM QF, run on the card and on the CPU
 SHIM_P = 30
 SHIM_BATCH = 1024
 SHIM_BATCHES = 40
+
+# phase serve: the LLM serving path (launch/serve.py's defaults)
+SERVE_ARCH = "qwen3-8b"  # served at full width, bf16
+SERVE_SMOKE_ARCHS = ("qwen3-8b", "deepseek-7b", "gemma-7b", "starcoder2-15b", "qwen2-vl-7b")
+SERVE_SMOKE_STEPS = 8  # greedy decode steps, card against CPU
+SERVE_REQUESTS, SERVE_PROMPT_LEN, SERVE_GEN = 16, 64, 16
+SERVE_LONG = (2, 4096)  # a prefill on the chunked attention path: S > 2048, S % 512 == 0
+SERVE_DECODE_STEPS = 16  # timed decode steps
+SERVE_REPS = 3  # timed prefills; their median is reported
+SERVE_PROFILED_STEPS = 2  # decode steps under torch.profiler, for the device's busy share
+SERVE_RTOL = 1e-4  # float32 logits and K/V, card against CPU (tests/test_torch_models.py)
+SERVE_BF16_BOUND = 0.125  # bf16 decode against the full forward, max|d| / max|logit| (PERF.md §2)
+H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak of the H100 SXM data sheet
 
 
 def log(*args) -> None:
@@ -3440,6 +3481,275 @@ def figures(device, kernels) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase serve: the LLM serving path in front of the prefix cache
+# ---------------------------------------------------------------------------
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| / max |want|, in float32."""
+    got, want = got.float(), want.float()
+    if got.shape != want.shape:
+        raise AssertionError(f"shape {tuple(got.shape)} != {tuple(want.shape)}")
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def greedy(params, cfg, tokens, steps: int):
+    """Prefill ``tokens``, then ``steps`` greedy decode steps: every step's
+    logits (the prefill's last first), the greedy tokens and the cache."""
+    logits, cache = llm.prefill(params, cfg, {"tokens": tokens})
+    out = [logits]
+    tok = serve_step.sample_greedy(logits)[:, None]
+    toks = [tok]
+    for _ in range(steps):
+        logits, cache = llm.decode_step(params, cfg, cache, tok)
+        tok = serve_step.sample_greedy(logits)[:, None]
+        out.append(logits)
+        toks.append(tok)
+    return out, torch.cat(toks, dim=1), cache
+
+
+def check_cache_equal(label, got, want, path=()) -> float:
+    """K/V within ``SERVE_RTOL`` (the largest error is returned); ``kpos``
+    and ``pos`` exact."""
+    worst = 0.0
+    for key, w in want.items():
+        g = got[key]
+        if isinstance(w, dict):
+            worst = max(worst, check_cache_equal(label, g, w, path + (key,)))
+        elif key in ("kpos", "pos"):
+            if not torch.equal(g.cpu(), w.cpu()):
+                raise AssertionError(f"{label}: {'/'.join(path + (key,))} differs")
+        else:
+            err = rel_err(g.cpu(), w.cpu())
+            if not err < SERVE_RTOL:
+                raise AssertionError(f"{label}: {'/'.join(path + (key,))} off by {err}")
+            worst = max(worst, err)
+    return worst
+
+
+def smoke_card_vs_cpu(device) -> dict:
+    """Each ported arch under ``make_smoke`` (float32): params made once on the
+    CPU and copied to the card; the prefill and ``SERVE_SMOKE_STEPS`` greedy
+    decode steps on the card against the CPU port."""
+    out = {}
+    for name in SERVE_SMOKE_ARCHS:
+        cfg = make_smoke(get_config(name))
+        params = llm.init(cfg, SEED, device="cpu")
+        on_card = llm_schema.tree_map(lambda t: t.to(device), params)
+        rng = np.random.default_rng(SEED + 60)
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 24)).astype(np.int32))
+        c_logits, c_toks, c_cache = greedy(params, cfg, tokens, SERVE_SMOKE_STEPS)
+        g_logits, g_toks, g_cache = greedy(on_card, cfg, tokens.to(device), SERVE_SMOKE_STEPS)
+        if not torch.equal(g_toks.cpu(), c_toks):
+            raise AssertionError(f"{name}: the card's greedy tokens differ from the CPU's")
+        errs = [rel_err(g.cpu(), c) for g, c in zip(g_logits, c_logits)]
+        if not max(errs) < SERVE_RTOL:
+            raise AssertionError(f"{name}: the card's logits are off by {max(errs)}")
+        kv_err = check_cache_equal(name, g_cache, c_cache)
+        out[name] = {"logits_rel_err": max(errs), "kv_rel_err": kv_err,
+                     "pos": int(g_cache["pos"])}
+    return out
+
+
+def mm_params(cfg) -> int:
+    """Parameters that take part in a matrix product: all but the embedding
+    table, which a token gathers a row of."""
+    return llm_params(cfg) - cfg.vocab_size * cfg.d_model
+
+
+def llm_params(cfg) -> int:
+    return sum(math.prod(p.shape) for _, p in llm_schema.tree_items(llm.schema(cfg)))
+
+
+def prefill_bound_ms(cfg, B: int, S: int) -> tuple:
+    """The least time for a prefill of B x S tokens: 2 N flops a token (N the
+    ``mm_params``) plus the causal half of QK^T and PV, over the card's dense
+    bf16 peak, or the weights read once over the HBM rate if that is longer.
+    Returns (ms, flops, what bounds it)."""
+    attn = 4 * B * cfg.n_heads * cfg.head_dim * (S * (S + 1) // 2) * cfg.n_layers
+    flops = 2 * mm_params(cfg) * B * S + attn
+    ops_ms = flops / H100_BF16_FLOPS * 1e3
+    bytes_ms = 2 * llm_params(cfg) / H100_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), flops, "operations" if ops_ms >= bytes_ms else "bytes"
+
+
+def decode_bound_ms(cfg, B: int, cached: float) -> float:
+    """The least time for one decode step of B rows over ``cached`` valid K/V
+    positions a row: the weights but the embedding table, B of its rows and
+    the cached K/V, each read once, over the HBM rate."""
+    kv = B * cached * cfg.n_layers * 2 * cfg.n_kv_heads * cfg.head_dim * 2
+    nbytes = 2 * mm_params(cfg) + 2 * B * cfg.d_model + kv
+    return nbytes / H100_BYTES_PER_S * 1e3
+
+
+def decode_against_forward(params, cfg, tokens, nxt, sync_check=False) -> dict:
+    """Prefill ``tokens`` and decode ``nxt``; their logits against ``forward``
+    over the whole sequence (``forward`` takes the naive attention path at
+    S + 1; a prefill of S > 2048, a multiple of 512, the chunked one)."""
+    S = tokens.shape[1]
+    full, _, _ = llm.forward(params, cfg, {"tokens": torch.cat([tokens, nxt], dim=1)})
+    want_last, want_step = full[:, S - 1].clone(), full[:, S].clone()
+    del full
+    last, cache = llm.prefill(params, cfg, {"tokens": tokens})
+    if sync_check:
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            step, cache = llm.decode_step(params, cfg, cache, nxt)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    else:
+        step, cache = llm.decode_step(params, cfg, cache, nxt)
+    out = {
+        "prefill_rel_err": rel_err(last, want_last),
+        "decode_rel_err": rel_err(step, want_step),
+        "decode_mean_rel_err": float((step.float() - want_step.float()).abs().mean()
+                                     / want_step.float().abs().max()),
+        "pos": int(cache["pos"]),
+    }
+    for key in ("prefill_rel_err", "decode_rel_err"):
+        if not out[key] < SERVE_BF16_BOUND:
+            raise AssertionError(
+                f"{cfg.name} at {tuple(tokens.shape)}: {key} {out[key]} >= {SERVE_BF16_BOUND}"
+            )
+    if out["pos"] != S + 1:
+        raise AssertionError(f"decode left pos at {out['pos']}, not {S + 1}")
+    return out
+
+
+def timed_serving(params, cfg, tokens, steps: int) -> dict:
+    """Prefill ms (median of ``SERVE_REPS`` by CUDA events) and decode ms a
+    step (``steps`` greedy steps after two untimed ones), beside their bounds."""
+    B, S = tokens.shape
+    prefill_ms = median_ms(lambda: llm.prefill(params, cfg, {"tokens": tokens}), SERVE_REPS)
+    logits, cache = llm.prefill(params, cfg, {"tokens": tokens})
+    tok = serve_step.sample_greedy(logits)[:, None]
+
+    def step():
+        nonlocal tok, cache
+        logits, cache = llm.decode_step(params, cfg, cache, tok)
+        tok = serve_step.sample_greedy(logits)[:, None]
+
+    decode_ms = cuda_ms(step, steps, warmup=2)
+    ops, busy = decode_profile(step, SERVE_PROFILED_STEPS)
+    bound_ms, flops, bound_by = prefill_bound_ms(cfg, B, S)
+    cached = S + 2 + (steps - 1) / 2  # cached positions a row, the timed steps' mean
+    d_bound = decode_bound_ms(cfg, B, cached)
+    return {
+        "prefill_ms": prefill_ms, "prefill_bound_ms": bound_ms, "prefill_bound_by": bound_by,
+        "prefill_tflops": flops / prefill_ms / 1e9,
+        "decode_ms_a_step": decode_ms, "decode_bound_ms": d_bound,
+        "decode_tokens_per_s": B / decode_ms * 1e3,
+        "decode_bound_tokens_per_s": B / d_bound * 1e3,
+        "decode_ops_a_step": ops,
+        "decode_device_busy_share": busy,
+    }
+
+
+class OpCount(TorchDispatchMode):
+    """Counts the aten operations dispatched inside it."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
+def decode_profile(step, steps: int) -> tuple:
+    """The aten operations of one ``step()`` (each a launch or a view), and
+    the share of ``steps`` steps' wall time in which the card ran a kernel
+    (``torch.profiler``'s kernel intervals over the host clock around
+    them); None where the profiler saw no kernel."""
+    with OpCount() as count:
+        step()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == torch.profiler.DeviceType.CUDA)
+    return count.n, (busy_us / wall_us if busy_us else None)
+
+
+def serve_phase(device, kernels) -> dict:
+    """Phase serve: the five GQA archs at smoke size on the card against the
+    CPU; then ``SERVE_ARCH`` at full width from a seeded CUDA generator,
+    served by ``launch/serve.py``'s ``serve`` at its defaults in
+    front of the prefix cache (its state against a CPU cache's, the QF
+    kernels' launches counted), decode against the full forward at 16 x 64
+    and over a chunked 2 x 4,096 prefill, one decode step under the sync
+    debug mode, and the prefill and decode times beside their bounds."""
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in float32
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"smoke_card_vs_cpu": smoke_card_vs_cpu(device)}
+
+    cfg = get_config(SERVE_ARCH)
+    t0 = time.perf_counter()
+    params = llm.init(cfg, SEED, device)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for _, t in llm_schema.tree_items(params))
+    if n != llm_params(cfg):
+        raise AssertionError(f"{n} params, the schema has {llm_params(cfg)}")
+    out["params"] = n
+    out["init_s"] = time.perf_counter() - t0
+
+    prompts = serve_launch.make_prompts(cfg, SERVE_REQUESTS, SERVE_PROMPT_LEN, SEED)
+    t0 = time.perf_counter()
+    (hits, tokens, pcache), launched = counted(
+        kernels, ("fingerprint", "qf_positions", "qf_build_planes", "qf_probe"), "serve",
+        lambda: serve_launch.serve(cfg, params, prompts, SERVE_GEN, device),
+    )
+    serve_s = time.perf_counter() - t0
+    B = SERVE_REQUESTS
+    if not hits[B // 2 :].all():
+        raise AssertionError("a repeated prompt missed the prefix cache")
+    cpu_cache = PrefixCacheFilter(q=16, r=14, device="cpu")
+    if not np.array_equal(cpu_cache.check_and_insert(prompts), hits):
+        raise AssertionError("the card's prefix-cache hits differ from the CPU's")
+    card_state = filters.to_numpy(pcache.cfg, pcache.state)
+    cpu_state = filters.to_numpy(cpu_cache.cfg, cpu_cache.state)
+    if pcache.cfg._replace(backend="reference") != cpu_cache.cfg or not (
+        len(card_state) == len(cpu_state)
+        and all(np.array_equal(a, b) for a, b in zip(card_state, cpu_state))
+    ):
+        raise AssertionError("the card's prefix cache differs from the CPU's")
+    if tokens.shape != (B, SERVE_GEN) or not bool(
+        ((tokens >= 0) & (tokens < cfg.vocab_size)).all()
+    ):
+        raise AssertionError(f"served tokens {tuple(tokens.shape)} out of range")
+    out["serve"] = {"requests": B, "prompt_len": SERVE_PROMPT_LEN, "gen": SERVE_GEN,
+                    "hits": int(hits.sum()), "wall_s": serve_s,
+                    "launches": {k: launched[k] for k in
+                                 ("fingerprint", "qf_positions", "qf_build_planes", "qf_probe")}}
+
+    rng = np.random.default_rng(SEED + 61)
+    short = torch.as_tensor(prompts, dtype=torch.int32, device=device)
+    nxt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, 1)).astype(np.int32)).to(device)
+    out["decode_vs_forward_16x64"] = decode_against_forward(
+        params, cfg, short, nxt, sync_check=True
+    )
+    log("  no host sync in a full-width decode step (sync debug mode \"error\")")
+    LB, LS = SERVE_LONG
+    long_seq = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (LB, LS + 1)).astype(np.int32)
+    ).to(device)
+    out[f"decode_vs_forward_{LB}x{LS}"] = decode_against_forward(
+        params, cfg, long_seq[:, :LS], long_seq[:, LS:]
+    )
+    torch.cuda.empty_cache()
+    out["timing_16x64"] = timed_serving(params, cfg, short, SERVE_DECODE_STEPS)
+    out[f"timing_{LB}x{LS}"] = timed_serving(params, cfg, long_seq[:, :LS], SERVE_DECODE_STEPS)
+    return out
+
+
 def main(device: str = "cuda") -> int:
     if filters is None:
         print("chip_smoke.py: src/repro_torch is missing", file=sys.stderr)
@@ -3937,7 +4247,16 @@ def main(device: str = "cuda") -> int:
     peaks["figures"] = torch.cuda.max_memory_allocated()
     phase_s["figures"] = time.perf_counter() - t0
 
-    # 17. report
+    # 17. serve: the LLM serving path in front of the prefix cache
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    serve_report = serve_phase(device, kernels)
+    peaks["serve"] = torch.cuda.max_memory_allocated()
+    log(f"phase serve ({card_line()}): " + json.dumps(serve_report))
+    phase_s["serve"] = time.perf_counter() - t0
+
+    # 18. report
     for n, row in rows.items():
         row["launches"] = launches[n]
         if row["max_abs_err"] != 0:

@@ -1,0 +1,108 @@
+"""Shared model building blocks (pure functions over param dicts).
+
+The port of ``repro.models.layers``.  Norms and rotary embeddings compute
+in float32 and cast back to the input's dtype at the same points as the
+JAX package, so bfloat16 activations round where the reference rounds.
+``conv1d_causal`` comes with the SSM slice.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def rms_norm(x, scale, eps: float = 1e-6, offset: float = 0.0):
+    dt = x.dtype
+    x = x.float()
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    y = x * torch.rsqrt(var + eps)
+    return (y * (offset + scale.float())).to(dt)
+
+
+def layer_norm(x, scale, bias, eps: float = 1e-5):
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Rotary embeddings
+# ---------------------------------------------------------------------------
+
+
+def rope_frequencies(head_dim: int, theta: float, device=None):
+    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta**exponent)
+
+
+def _rotate(x, ang):
+    """Rotate the two halves of ``x``'s last axis by ``ang`` (..., S, D/2)."""
+    sin, cos = torch.sin(ang)[..., None, :], torch.cos(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_rope(x, positions, theta: float = 10_000.0):
+    """x: (..., S, H, D); positions: broadcastable to (..., S)."""
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)  # (D/2,)
+    return _rotate(x, positions[..., None].float() * freqs)
+
+
+def apply_mrope(x, positions3, sections, theta: float = 1_000_000.0):
+    """Multimodal RoPE (Qwen2-VL): rotary dims split into (t, h, w)
+    sections, each rotated by its own position stream.
+
+    x: (B, S, H, D); positions3: (3, B, S) — equal streams for text.
+    sections: per-section half-dim counts, sum == D/2.
+    """
+    D = x.shape[-1]
+    half = D // 2
+    assert sum(sections) == half, (sections, D)
+    freqs = rope_frequencies(D, theta, x.device)  # (half,)
+    # each rotary dim's position stream, by section: positions3's slices
+    # concatenated on the host's static section widths
+    pos = torch.cat(
+        [positions3[i, ..., None].expand(*positions3.shape[1:], n)
+         for i, n in enumerate(sections)],
+        dim=-1,
+    )  # (B, S, half)
+    return _rotate(x, pos.float() * freqs)
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+
+def _act(kind: str, x):
+    if kind == "swiglu":
+        return F.silu(x)
+    return F.gelu(x, approximate="tanh")  # geglu and gelu
+
+
+def mlp(p, x, kind: str):
+    """Gated (swiglu/geglu) or plain (gelu) MLP. x: (B, S, d)."""
+    if kind in ("swiglu", "geglu"):
+        h = _act(kind, x @ p["wg"]) * (x @ p["wi"])
+    else:
+        h = _act(kind, x @ p["wi"])
+    return h @ p["wo"]
+
+
+def embed_tokens(embedding, tokens, scale: bool, d_model: int):
+    x = embedding[tokens]
+    if scale:
+        # the factor rounded to the table's dtype first, as the reference does
+        x = x * torch.tensor(d_model**0.5, dtype=x.dtype).item()
+    return x
+
+
+def unembed(p, x, tie_embeddings: bool):
+    if tie_embeddings:
+        return x @ p["tok_embed"].T
+    return x @ p["lm_head"]

@@ -1,0 +1,478 @@
+"""Model assembly: parameter schema, forward, prefill, decode.
+
+The port of ``repro.models.model``'s serving half:
+
+  schema(cfg)                  -> Param tree (every architecture; data only)
+  init(cfg, seed, device)      -> random params, on the card unless asked
+  abstract(cfg)                -> params on the ``meta`` device (no memory)
+  forward(params, cfg, batch)  -> (logits, collected, aux)
+  prefill(params, cfg, batch)  -> (logits_last, cache)
+  decode_step(params, cfg, cache, tokens) -> (logits, cache)
+  init_cache(cfg, batch, ctx)  -> empty decode cache (pos = 0)
+  from_numpy(cfg, tree) / to_numpy(params) -> the JAX package's params
+
+Params and caches are nested dicts of tensors with the reference's paths,
+the units' leaves stacked on a leading layer axis.  ``forward`` and the
+decode path apply the GQA decoder families (dense, vlm); the others raise
+``NotImplementedError`` naming the slice that ports them
+(``transformer.refuse_unported``).  ``decode_step`` writes the cache in
+place, where the reference donates it, and reads nothing back to the
+host: the position stays a device scalar.  ``loss_fn`` comes with the
+training slice.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from ..core.quotient_filter import resolve_device
+from . import schema as S
+from .layers import embed_tokens, unembed
+from .transformer import (
+    MOE_MLA_SLICE,
+    SSM_SLICE,
+    layer_kinds,
+    norm,
+    refuse_unported,
+    scan_units,
+    split_layers,
+    unit_pattern,
+)
+
+Param = S.Param
+
+
+# ---------------------------------------------------------------------------
+# Schemas
+# ---------------------------------------------------------------------------
+
+
+def _norm_schema(cfg, dim=None):
+    d = dim or cfg.d_model
+    if cfg.is_encoder_decoder:  # whisper: LayerNorm
+        return {
+            "scale": Param((d,), ("embed",), "ones"),
+            "bias": Param((d,), ("embed",), "zeros"),
+        }
+    return {
+        "scale": Param((d,), ("embed",), "ones" if not cfg.embed_scale else "zeros")
+    }
+
+
+def _attn_schema(cfg):
+    d, H, KV, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    out = {
+        "wq": Param((d, H, Dh), ("embed", "heads", "head_dim")),
+        "wk": Param((d, KV, Dh), ("embed", "kv_heads", "head_dim")),
+        "wv": Param((d, KV, Dh), ("embed", "kv_heads", "head_dim")),
+        "wo": Param((H, Dh, d), ("heads", "head_dim", "embed"), scale=0.02),
+    }
+    if cfg.qk_norm:
+        out["q_norm"] = Param((Dh,), (None,), "ones")
+        out["k_norm"] = Param((Dh,), (None,), "ones")
+    return out
+
+
+def _mla_schema(cfg):
+    d, H = cfg.d_model, cfg.n_heads
+    nope, rdim, vdim, lora = (
+        cfg.qk_nope_dim,
+        cfg.qk_rope_dim,
+        cfg.v_head_dim,
+        cfg.kv_lora_rank,
+    )
+    return {
+        "wq": Param((d, H, nope + rdim), ("embed", "heads", "qk_dim")),
+        "w_dkv": Param((d, lora + rdim), ("embed", None)),
+        "kv_norm": Param((lora,), (None,), "ones"),
+        "w_uk": Param((lora, H, nope), (None, "heads", "qk_dim")),
+        "w_uv": Param((lora, H, vdim), (None, "heads", "qk_dim")),
+        "wo": Param((H, vdim, d), ("heads", "qk_dim", "embed"), scale=0.02),
+    }
+
+
+def _mlp_schema(cfg, width=None):
+    d, ff = cfg.d_model, width or cfg.d_ff
+    out = {
+        "wi": Param((d, ff), ("embed", "ffn")),
+        "wo": Param((ff, d), ("ffn", "embed")),
+    }
+    if cfg.mlp_kind in ("swiglu", "geglu"):
+        out["wg"] = Param((d, ff), ("embed", "ffn"))
+    return out
+
+
+def _moe_schema(cfg):
+    d, E = cfg.d_model, cfg.n_experts
+    ff = cfg.moe_d_ff or cfg.d_ff
+    out = {
+        "router": Param((d, E), ("embed", None), scale=0.02),
+        "wi": Param((E, d, ff), ("experts", "embed", "expert_ffn")),
+        "wo": Param((E, ff, d), ("experts", "expert_ffn", "embed")),
+    }
+    if cfg.mlp_kind in ("swiglu", "geglu"):
+        out["wg"] = Param((E, d, ff), ("experts", "embed", "expert_ffn"))
+    if cfg.n_shared_experts:
+        w = cfg.n_shared_experts * ff
+        out["shared_wi"] = Param((d, w), ("embed", "ffn"))
+        out["shared_wo"] = Param((w, d), ("ffn", "embed"))
+        if cfg.mlp_kind in ("swiglu", "geglu"):
+            out["shared_wg"] = Param((d, w), ("embed", "ffn"))
+    return out
+
+
+def _ssm_schema(cfg):
+    d = cfg.d_model
+    d_in = cfg.ssm_expand * d
+    G, N, K = cfg.ssm_n_groups, cfg.ssm_d_state, cfg.ssm_d_conv
+    H = d_in // cfg.ssm_head_dim
+    conv_dim = d_in + 2 * G * N
+    return {
+        "in_proj": Param((d, 2 * d_in + 2 * G * N + H), ("embed", "ssm_inner")),
+        "conv_w": Param((K, conv_dim), (None, "ssm_inner"), scale=0.2),
+        "conv_b": Param((conv_dim,), ("ssm_inner",), "zeros"),
+        "A_log": Param((H,), (None,), "const", scale=1.39),  # A ~ -4
+        "dt_bias": Param((H,), (None,), "const", scale=-4.6),  # dt ~ 0.01
+        "D": Param((H,), (None,), "ones"),
+        "out_norm": Param((d_in,), ("ssm_inner",), "ones"),
+        "out_proj": Param((d_in, d), ("ssm_inner", "embed")),
+    }
+
+
+def _rec_schema(cfg):
+    d = cfg.d_model
+    w = cfg.lru_width or d
+    return {
+        "w_gate": Param((d, w), ("embed", "lru")),
+        "w_rec": Param((d, w), ("embed", "lru")),
+        "conv_w": Param((4, w), (None, "lru"), scale=0.2),
+        "conv_b": Param((w,), ("lru",), "zeros"),
+        "w_a": Param((w, w), (None, "lru")),
+        "b_a": Param((w,), ("lru",), "zeros"),
+        "w_x": Param((w, w), (None, "lru")),
+        "b_x": Param((w,), ("lru",), "zeros"),
+        "lam": Param((w,), (None,), "const", scale=1.0),
+        "w_out": Param((w, d), ("lru", "embed")),
+    }
+
+
+def _subblock_schema(cfg, kind: str, moe_layer: bool):
+    if kind == "ssm":
+        return {"norm": _norm_schema(cfg), "ssm": _ssm_schema(cfg)}
+    if kind == "rec":
+        return {
+            "norm": _norm_schema(cfg),
+            "rec": _rec_schema(cfg),
+            "mlp_norm": _norm_schema(cfg),
+            "mlp": _mlp_schema(cfg),
+        }
+    if kind == "xattn":
+        return {
+            "norm1": _norm_schema(cfg),
+            "self_attn": _attn_schema(cfg),
+            "norm2": _norm_schema(cfg),
+            "cross_attn": _attn_schema(cfg),
+            "norm3": _norm_schema(cfg),
+            "mlp": _mlp_schema(cfg),
+        }
+    attn = _mla_schema(cfg) if cfg.attn_kind == "mla" else _attn_schema(cfg)
+    out = {"norm": _norm_schema(cfg), "attn": attn, "mlp_norm": _norm_schema(cfg)}
+    if moe_layer:
+        out["moe"] = _moe_schema(cfg)
+    else:
+        out["mlp"] = _mlp_schema(cfg)
+    return out
+
+
+def _unit_schema(cfg, pat, moe_flags):
+    return {
+        f"b{i}": _subblock_schema(cfg, k, moe_flags[i]) for i, k in enumerate(pat)
+    }
+
+
+def _stack(schema_tree, n: int):
+    return S.tree_map(
+        lambda p: Param((n,) + p.shape, ("layers",) + p.axes, p.init, p.scale, p.dtype),
+        schema_tree,
+    )
+
+
+def moe_flags_for(cfg, pat) -> tuple:
+    return tuple(cfg.is_moe for _ in pat)
+
+
+def schema(cfg) -> dict:
+    d, V = cfg.d_model, cfg.vocab_size
+    pat = unit_pattern(cfg)
+    prefix, n_units, tail = split_layers(cfg)
+    flags = moe_flags_for(cfg, pat)
+
+    out: dict[str, Any] = {
+        "tok_embed": Param((V, d), ("vocab", "embed"), "normal"),
+        "final_norm": _norm_schema(cfg),
+        "layers": _stack(_unit_schema(cfg, pat, flags), n_units),
+    }
+    if not cfg.tie_embeddings:
+        out["lm_head"] = Param((d, V), ("embed", "vocab"))
+    if cfg.rope == "learned":
+        out["pos_embed"] = Param((cfg.max_seq, d), (None, "embed"), "normal")
+    for i in range(prefix):  # unscanned leading dense layers (dsv2)
+        out[f"prefix_{i}"] = _subblock_schema(cfg, layer_kinds(cfg)[i], False)
+    for i, k in enumerate(tail):  # remainder layers (recurrentgemma 38 % 3)
+        out[f"tail_{i}"] = _subblock_schema(cfg, k, cfg.is_moe)
+    if cfg.is_encoder_decoder:
+        enc_unit = {
+            "b0": {
+                "norm1": _norm_schema(cfg),
+                "self_attn": _attn_schema(cfg),
+                "norm3": _norm_schema(cfg),
+                "mlp": _mlp_schema(cfg),
+            }
+        }
+        out["encoder"] = {
+            "pos_embed": Param((cfg.encoder_seq, d), (None, "embed"), "normal"),
+            "layers": _stack(enc_unit, cfg.encoder_layers),
+            "final_norm": _norm_schema(cfg),
+        }
+    return out
+
+
+def init(cfg, seed: int = 0, device=None):
+    """Random params from a ``torch.Generator`` seeded with ``seed`` on
+    ``device`` (the card unless asked; without one this raises)."""
+    gen = torch.Generator(device=resolve_device(device))
+    gen.manual_seed(seed)
+    return S.init_params(schema(cfg), gen, cfg.param_dtype)
+
+
+def abstract(cfg):
+    return S.abstract_params(schema(cfg), cfg.param_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Weights carried across from the JAX package
+# ---------------------------------------------------------------------------
+
+
+def from_numpy(cfg, tree, device=None):
+    """Params from the JAX package's params as nested dicts of numpy arrays.
+
+    Every leaf's path, shape and dtype must be the schema's.  bfloat16
+    leaves may come as numpy bfloat16 arrays (what ``np.asarray`` of a JAX
+    array gives) or as their uint16 bit patterns (what :func:`to_numpy`
+    gives); either is read by its bits, with no bfloat16 type in numpy."""
+    device = resolve_device(device)
+
+    def build(sch, tr, path):
+        if isinstance(sch, dict):
+            if not isinstance(tr, dict) or set(tr) != set(sch):
+                got = sorted(tr) if isinstance(tr, dict) else type(tr).__name__
+                raise ValueError(f"{'/'.join(path) or 'params'}: keys {got}, want {sorted(sch)}")
+            return {k: build(sch[k], tr[k], path + (k,)) for k in sch}
+        name = "/".join(path)
+        a = np.asarray(tr)
+        if a.shape != sch.shape:
+            raise ValueError(f"{name}: shape {a.shape}, want {sch.shape}")
+        dtype = sch.dtype or cfg.param_dtype
+        if dtype == "bfloat16" and a.dtype.name in ("bfloat16", "uint16"):
+            a = a.view(np.int16)
+        elif a.dtype.name != dtype:
+            raise ValueError(f"{name}: dtype {a.dtype.name}, want {dtype}")
+        t = torch.from_numpy(np.array(a))  # a copy: the caller's arrays stay theirs
+        return (t.view(torch.bfloat16) if dtype == "bfloat16" else t).to(device)
+
+    return build(schema(cfg), tree, ())
+
+
+def to_numpy(params):
+    """The params as nested dicts of numpy arrays, bfloat16 leaves as their
+    uint16 bit patterns (numpy has no bfloat16)."""
+
+    def one(t):
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.uint16)
+        return t.numpy()
+
+    return S.tree_map(one, params)
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+
+def _units(cfg) -> tuple:
+    """The unit pattern and the number of units.  This slice applies the
+    looped units only; a config with leading or remainder layers outside
+    them is refused by name."""
+    prefix, n_units, tail = split_layers(cfg)
+    if prefix:
+        raise NotImplementedError(f"{cfg.name}: leading dense layers come with {MOE_MLA_SLICE}")
+    if tail:
+        raise NotImplementedError(f"{cfg.name}: remainder layers come with {SSM_SLICE}")
+    return unit_pattern(cfg), n_units
+
+
+def _embed_in(params, cfg, tokens):
+    x = embed_tokens(params["tok_embed"], tokens, cfg.embed_scale, cfg.d_model)
+    return x.to(getattr(torch, cfg.act_dtype))
+
+
+def _apply_stack(params, cfg, x, positions, *, mode, cache=None, mrope_positions=None):
+    """The looped units.  Returns (x, collected): collected["layers"] the
+    units' K/V (prefill) or deltas (decode), stacked."""
+    pat, _ = _units(cfg)
+    x, col = scan_units(
+        pat, params["layers"], x, cfg, positions, mode=mode,
+        cache=None if cache is None else cache["layers"],
+        mrope_positions=mrope_positions, moe_flags=moe_flags_for(cfg, pat),
+    )
+    return x, ({} if col is None else {"layers": col})
+
+
+def _text_positions(cfg, positions, mrope_positions):
+    """The three M-RoPE streams, all equal to the text positions, unless given."""
+    if cfg.rope == "mrope" and mrope_positions is None:
+        return positions[None].expand(3, *positions.shape)
+    return mrope_positions
+
+
+def forward(params, cfg, batch, *, mode="train"):
+    """batch: dict(tokens (B,S) [, mrope_positions]).
+
+    Returns (logits, collected, aux): logits at every position; aux, the
+    MoE balance loss, is 0.0 until the MoE slice."""
+    tokens = batch["tokens"]
+    B, Sq = tokens.shape
+    x = _embed_in(params, cfg, tokens)
+    positions = torch.arange(Sq, dtype=torch.int32, device=tokens.device).expand(B, Sq)
+    mrope_positions = _text_positions(cfg, positions, batch.get("mrope_positions"))
+    x, collected = _apply_stack(
+        params, cfg, x, positions, mode=mode, mrope_positions=mrope_positions
+    )
+    x = norm(params["final_norm"], x, cfg)
+    return unembed(params, x, cfg.tie_embeddings), collected, 0.0
+
+
+# ---------------------------------------------------------------------------
+# Decode: cache init, prefill, single-token step
+# ---------------------------------------------------------------------------
+
+
+def _subblock_cache(cfg, kind: str, n_units: int, B: int, ctx: int, dtype, device):
+    """Empty cache for one GQA sub-block, its leaves stacked over the units."""
+    refuse_unported(cfg, kind, cfg.is_moe)
+    length = min(ctx, cfg.attn_window) if cfg.attn_window else ctx
+    shape = (n_units, B, length, cfg.n_kv_heads, cfg.head_dim)
+    return {
+        "attn": {
+            "k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "kpos": torch.full(shape[:3], -1, dtype=torch.int32, device=device),
+        }
+    }
+
+
+def init_cache(cfg, B: int, ctx: int, dtype=None, device=None):
+    device = resolve_device(device)
+    dt = getattr(torch, dtype or cfg.act_dtype)
+    pat, n_units = _units(cfg)
+    return {
+        "layers": {
+            f"b{i}": _subblock_cache(cfg, k, n_units, B, ctx, dt, device)
+            for i, k in enumerate(pat)
+        },
+        "pos": torch.zeros((), dtype=torch.int32, device=device),
+    }
+
+
+def prefill(params, cfg, batch, *, headroom: int = 128):
+    """Full-sequence forward that also fills a decode cache.
+
+    ``headroom`` extra KV slots let decoding continue past the prompt
+    without wrapping onto cached context."""
+    tokens = batch["tokens"]
+    B, Sq = tokens.shape
+    logits, collected, _ = forward(params, cfg, batch, mode="prefill")
+    cache = init_cache(cfg, B, Sq + headroom, cfg.act_dtype, tokens.device)
+    cache = _fill_cache_from_collected(cache, collected, Sq)
+    cache["pos"] = torch.tensor(Sq, dtype=torch.int32, device=tokens.device)
+    return logits[:, -1], cache
+
+
+def _ring_gather(kv, S, length, axis: int = 1):
+    """Place K/V with S positions on ``axis`` into a length-L ring keyed by p % L.
+
+    Slot j holds the latest position p < S with p % L == j (or is empty
+    when L >= S and j >= S). Returns (cache_kv, kpos)."""
+    device = kv.device
+    if length >= S:
+        pad = [0, 0] * (kv.ndim - 1 - axis) + [0, length - S]
+        idx = torch.cat([
+            torch.arange(S, dtype=torch.int32, device=device),
+            torch.full((length - S,), -1, dtype=torch.int32, device=device),
+        ])
+        return torch.nn.functional.pad(kv, pad), idx
+    offs = (torch.arange(length, device=device) - S) % length
+    idx = (S - length + offs).to(torch.int32)
+    return torch.index_select(kv, axis, idx), idx
+
+
+def _fill_unit_cache(cache_b, col_b, S):
+    """Ring-gather one sub-block's stacked K/V (n_units, B, S, KV, Dh) into
+    its cache, with the slots' positions."""
+    k, v = col_b["kv"]
+    sub = cache_b["attn"]
+    length = sub["k"].shape[2]
+    ck, idx = _ring_gather(k, S, length, axis=2)
+    cv, _ = _ring_gather(v, S, length, axis=2)
+    sub["k"], sub["v"] = ck, cv
+    sub["kpos"] = idx.expand(ck.shape[:3]).contiguous()
+    return cache_b
+
+
+def _fill_cache_from_collected(cache, collected, S):
+    for key, col in collected["layers"].items():
+        _fill_unit_cache(cache["layers"][key], col, S)
+    return cache
+
+
+def _write_delta(sub: dict, delta: dict, pos):
+    """Write one sub-block's stacked decode delta (n_units, B, 1, KV, Dh) into
+    its cache slot ``pos % ring``, in place, with the slot as a device
+    tensor (no host read)."""
+    tgt = sub["attn"]
+    slot = (pos % tgt["k"].shape[2]).to(torch.int64).reshape(1)
+    tgt["k"].index_copy_(2, slot, delta["k"].to(tgt["k"].dtype))
+    tgt["v"].index_copy_(2, slot, delta["v"].to(tgt["v"].dtype))
+    kp = tgt["kpos"]
+    kp.index_copy_(2, slot, pos.expand(kp.shape[:2] + (1,)).contiguous())
+    return sub
+
+
+def decode_step(params, cfg, cache, tokens, *, mrope_positions=None):
+    """tokens: (B, 1). Returns (logits (B, V), cache).
+
+    The attention layers read the cache and return their K/V deltas;
+    each leaf's deltas are then written into the cache's slot in place
+    (the cache passed in is the one returned), and ``cache["pos"]``
+    advances on the device."""
+    B = tokens.shape[0]
+    pos = cache["pos"]
+    positions = pos.expand(B, 1)
+    x = _embed_in(params, cfg, tokens)
+    mrope_positions = _text_positions(cfg, positions, mrope_positions)
+    x, collected = _apply_stack(
+        params, cfg, x, positions, mode="decode", cache=cache,
+        mrope_positions=mrope_positions,
+    )
+    x = norm(params["final_norm"], x, cfg)
+    logits = unembed(params, x, cfg.tie_embeddings)[:, 0]
+    for key, col in collected["layers"].items():
+        _write_delta(cache["layers"][key], col["delta"], pos)
+    cache["pos"] = pos + 1
+    return logits, cache

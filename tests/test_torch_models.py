@@ -1,0 +1,399 @@
+"""The port's LLM skeleton (``repro_torch.configs``, ``repro_torch.models``)
+against the JAX package on the CPU.
+
+The five GQA decoder architectures run under ``make_smoke`` (float32) with
+the JAX package's ``model.init(cfg, 0)`` carried across by
+``model.from_numpy``, so both packages hold the same weights.  Integer
+results are exact: greedy tokens, ``kpos``, ``pos``, schemas and
+parameter counts.  Float results are held to
+
+    max |port - jax| / max |jax|  <  RTOL = 1e-4
+
+(float32 throughout; the two frameworks sum in other orders, which moves
+the last few bits of a float32, about 1e-6 of the largest value at these
+sizes).  Each architecture's JAX side runs once, in a thread of its own
+started with the first test that needs one, and is shared by its tests.
+"""
+
+import functools
+from concurrent.futures import ThreadPoolExecutor
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as jconfigs
+from repro.models import attention as jattention
+from repro.models import model as jmodel
+from repro.models import schema as jschema
+from repro_torch import configs as tconfigs
+from repro_torch.models import attention as tattention
+from repro_torch.models import model as tmodel
+from repro_torch.models import schema as tschema
+
+RTOL = 1e-4
+GQA_ARCHS = ["qwen3-8b", "deepseek-7b", "gemma-7b", "starcoder2-15b", "qwen2-vl-7b"]
+UNPORTED = ["grok-1-314b", "deepseek-v2-lite-16b", "mamba2-130m",
+            "recurrentgemma-9b", "whisper-large-v3"]
+B, S, STEPS = 2, 24, 4
+
+
+def rel_err(got, want) -> float:
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    assert got.shape == want.shape
+    return float(np.max(np.abs(got - want)) / np.max(np.abs(want)))
+
+
+def cpu(t) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def jax_tree(tree):
+    """A JAX pytree of nested dicts as numpy arrays."""
+    if isinstance(tree, dict):
+        return {k: jax_tree(v) for k, v in tree.items()}
+    return np.asarray(tree)
+
+
+@functools.cache
+def _jax_jobs():
+    """Every arch's JAX side, started at once, a thread each (the JAX package
+    compiles while it runs, outside the interpreter lock)."""
+    pool = ThreadPoolExecutor(len(GQA_ARCHS))
+    return {name: pool.submit(_jax_side, name) for name in GQA_ARCHS}
+
+
+def jax_side(name):
+    return _jax_jobs()[name].result()
+
+
+def _jax_side(name):
+    """The JAX package's forward, prefill and greedy decode on one arch."""
+    cfg = jconfigs.make_smoke(jconfigs.get_config(name))
+    params = jmodel.init(cfg, 0)
+    tokens = np.random.default_rng(7).integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    batch = {"tokens": jnp.asarray(tokens)}
+    logits, _, _ = jmodel.forward(params, cfg, batch, remat=False)
+    last, cache = jmodel.prefill(params, cfg, batch, remat=False)
+    out = {
+        "params": jax_tree(params),
+        "tokens": tokens,
+        "logits": np.asarray(logits),
+        "last": np.asarray(last),
+        "cache": jax_tree(cache),
+    }
+    tok = jnp.argmax(last, axis=-1)[:, None].astype(jnp.int32)
+    steps = []
+    for _ in range(STEPS):
+        lg, cache = jmodel.decode_step(params, cfg, cache, tok)
+        tok = jnp.argmax(lg, axis=-1)[:, None].astype(jnp.int32)
+        steps.append((np.asarray(lg), np.asarray(tok)))
+    out["steps"] = steps
+    out["decoded"] = jax_tree(cache)
+    return out
+
+
+def port_side(name):
+    cfg = tconfigs.make_smoke(tconfigs.get_config(name))
+    ref = jax_side(name)
+    params = tmodel.from_numpy(cfg, ref["params"], device="cpu")
+    return cfg, params, ref, {"tokens": torch.from_numpy(ref["tokens"])}
+
+
+def check_cache(got, want):
+    """k/v within tolerance, kpos and pos exact, leaf for leaf."""
+    assert sorted(got) == sorted(want)
+    for key in want:
+        if isinstance(want[key], dict):
+            check_cache(got[key], want[key])
+        elif key in ("kpos", "pos"):
+            np.testing.assert_array_equal(cpu(got[key]), want[key])
+            assert got[key].dtype == torch.int32
+        else:
+            assert rel_err(cpu(got[key]), want[key]) < RTOL, key
+
+
+@pytest.mark.parametrize("name", GQA_ARCHS)
+def test_forward_matches_jax(name):
+    cfg, params, ref, batch = port_side(name)
+    logits, _, _ = tmodel.forward(params, cfg, batch)
+    assert rel_err(cpu(logits), ref["logits"]) < RTOL
+
+
+@pytest.mark.parametrize("name", GQA_ARCHS)
+def test_prefill_matches_jax(name):
+    cfg, params, ref, batch = port_side(name)
+    last, cache = tmodel.prefill(params, cfg, batch)
+    assert rel_err(cpu(last), ref["last"]) < RTOL
+    check_cache(cache, ref["cache"])
+
+
+@pytest.mark.parametrize("name", GQA_ARCHS)
+def test_greedy_decode_matches_jax(name):
+    cfg, params, ref, batch = port_side(name)
+    last, cache = tmodel.prefill(params, cfg, batch)
+    tok = torch.argmax(last, dim=-1)[:, None].to(torch.int32)
+    for want_logits, want_tok in ref["steps"]:
+        logits, cache = tmodel.decode_step(params, cfg, cache, tok)
+        tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+        assert rel_err(cpu(logits), want_logits) < RTOL
+        np.testing.assert_array_equal(cpu(tok), want_tok)
+    check_cache(cache, ref["decoded"])
+
+
+@pytest.mark.parametrize("window", [0, 8])
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+@pytest.mark.parametrize("path", ["naive", "chunked"])
+def test_attend_matches_jax(path, softcap, window):
+    """Both of ``attend``'s paths; the chunked one on a ragged KV length
+    (padded with kpos = -1 slots) and a query chunk of 8."""
+    rng = np.random.default_rng(11)
+    Bq, Sq, Sk, KV, G, Dh = 2, 16, 20, 2, 3, 8
+    q = rng.normal(size=(Bq, Sq, KV, G, Dh)).astype(np.float32) * 3
+    k = rng.normal(size=(Bq, Sk, KV, Dh)).astype(np.float32) * 3
+    v = rng.normal(size=(Bq, Sk, KV, Dh)).astype(np.float32)
+    q_pos = np.broadcast_to(np.arange(Sk - Sq, Sk, dtype=np.int32), (Bq, Sq))
+    k_pos = np.broadcast_to(np.arange(Sk, dtype=np.int32), (Bq, Sk)).copy()
+    k_pos[1, :3] = -1  # empty slots
+    kw = dict(causal=True, window=window, softcap=softcap)
+    if path == "chunked":
+        kw.update(chunk_threshold=8, q_chunk=8, kv_chunk=8)
+    want = jattention.attend(*map(jnp.asarray, (q, k, v, q_pos, k_pos)), **kw)
+    got = tattention.attend(*map(torch.from_numpy, (q, k, v, q_pos.copy(), k_pos)), **kw)
+    assert rel_err(cpu(got), np.asarray(want)) < RTOL
+
+
+@pytest.mark.parametrize(
+    "fn", ["rms_norm", "rms_norm_offset", "layer_norm", "rope", "mrope",
+           "swiglu", "geglu", "gelu", "embed_scaled"],
+)
+def test_layers_match_jax(fn):
+    """The layer functions, float32 and bfloat16 (cast back at the reference's
+    points: bf16 results equal to the last bit or within one bf16 step)."""
+    from repro.models import layers as jl
+    from repro_torch.models import layers as tl
+
+    rng = np.random.default_rng(13)
+    x = rng.normal(size=(2, 6, 4, 16)).astype(np.float32)
+    w = rng.normal(size=(16,)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(6, dtype=np.int32) * 7, (2, 6)).copy()
+    p = {k: rng.normal(size=s).astype(np.float32) * 0.3
+         for k, s in (("wi", (16, 24)), ("wg", (16, 24)), ("wo", (24, 16)))}
+    table = rng.normal(size=(50, 16)).astype(np.float32)
+    tokens = rng.integers(0, 50, (2, 6)).astype(np.int32)
+    calls = {
+        "rms_norm": lambda m, a: m.rms_norm(a(x), a(w), 1e-6),
+        "rms_norm_offset": lambda m, a: m.rms_norm(a(x), a(w), 1e-6, offset=1.0),
+        "layer_norm": lambda m, a: m.layer_norm(a(x), a(w), a(w[::-1].copy()), 1e-5),
+        "rope": lambda m, a: m.apply_rope(a(x), a(pos), 10_000.0),
+        "mrope": lambda m, a: m.apply_mrope(a(x), a(np.stack([pos, pos + 1, pos * 2])), (2, 3, 3)),
+        "swiglu": lambda m, a: m.mlp({k: a(v) for k, v in p.items()}, a(x[..., 0, :]), "swiglu"),
+        "geglu": lambda m, a: m.mlp({k: a(v) for k, v in p.items()}, a(x[..., 0, :]), "geglu"),
+        "gelu": lambda m, a: m.mlp({k: a(v) for k, v in p.items()}, a(x[..., 0, :]), "gelu"),
+        "embed_scaled": lambda m, a: m.embed_tokens(a(table), a(tokens), True, 3072),
+    }
+    for dtype in ("float32", "bfloat16"):
+        def to_jax(a, dtype=dtype):
+            return jnp.asarray(a).astype(dtype) if a.dtype == np.float32 else jnp.asarray(a)
+
+        def to_torch(a, dtype=dtype):
+            t = torch.from_numpy(np.ascontiguousarray(a))
+            return t.to(getattr(torch, dtype)) if t.dtype == torch.float32 else t
+
+        want = calls[fn](jl, to_jax)
+        got = calls[fn](tl, to_torch)
+        assert str(got.dtype) == f"torch.{want.dtype}"
+        want = np.asarray(want.astype(jnp.float32))
+        got = cpu(got.float())
+        if dtype == "float32":
+            assert rel_err(got, want) < RTOL
+        elif fn not in ("swiglu", "geglu", "gelu"):  # bf16 products: summed in another order
+            np.testing.assert_allclose(got, want, rtol=2**-7, atol=0)
+
+
+@pytest.mark.parametrize("kind", ["self", "cross", "no_rope"])
+def test_gqa_attention_matches_jax(kind):
+    """The GQA layer with qk-norm and RoPE, as cross-attention over an encoder
+    output, and without RoPE."""
+    cfg = jconfigs.make_smoke(jconfigs.get_config("qwen3-8b"))
+    tcfg = tconfigs.make_smoke(tconfigs.get_config("qwen3-8b"))
+    rng = np.random.default_rng(14)
+    d, H, KV, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    p = {
+        "wq": rng.normal(size=(d, H, Dh)) * d**-0.5,
+        "wk": rng.normal(size=(d, KV, Dh)) * d**-0.5,
+        "wv": rng.normal(size=(d, KV, Dh)) * d**-0.5,
+        "wo": rng.normal(size=(H, Dh, d)) * 0.02,
+        "q_norm": 1 + 0.1 * rng.normal(size=(Dh,)),
+        "k_norm": 1 + 0.1 * rng.normal(size=(Dh,)),
+    }
+    p = {k: v.astype(np.float32) for k, v in p.items()}
+    x = rng.normal(size=(2, 10, d)).astype(np.float32)
+    enc = rng.normal(size=(2, 7, d)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(10, dtype=np.int32), (2, 10)).copy()
+    kw = {"self": {}, "cross": {"is_cross": True, "causal": False},
+          "no_rope": {"use_rope": False}}[kind]
+
+    def run(attention, a):
+        kv_from = a(enc) if kind == "cross" else None
+        return attention.gqa_attention({k: a(v) for k, v in p.items()}, a(x), cfg_of[attention],
+                                       a(pos), kv_from=kv_from, **kw)
+
+    cfg_of = {jattention: cfg, tattention: tcfg}
+    want, _, (wk, wv) = run(jattention, jnp.asarray)
+    got, (gk, gv) = run(tattention, torch.from_numpy)
+    assert rel_err(cpu(got), np.asarray(want)) < RTOL
+    assert rel_err(cpu(gk), np.asarray(wk)) < RTOL
+    assert rel_err(cpu(gv), np.asarray(wv)) < RTOL
+
+
+@pytest.mark.parametrize("length", [40, 10])  # length >= S, and a wrapped ring
+def test_ring_gather_matches_jax(length):
+    rng = np.random.default_rng(12)
+    S_ = 24
+    kv = rng.normal(size=(2, S_, 3, 4)).astype(np.float32)
+    want, want_idx = jmodel._ring_gather(jnp.asarray(kv), S_, length)
+    got, got_idx = tmodel._ring_gather(torch.from_numpy(kv), S_, length)
+    np.testing.assert_array_equal(cpu(got), np.asarray(want))
+    np.testing.assert_array_equal(cpu(got_idx), np.asarray(want_idx))
+    assert got_idx.dtype == torch.int32
+    # the stacked layout: the sequence on axis 2, behind a layer axis
+    stacked, idx = tmodel._ring_gather(torch.from_numpy(np.stack([kv, -kv])), S_, length, axis=2)
+    np.testing.assert_array_equal(cpu(stacked), np.stack([np.asarray(want), -np.asarray(want)]))
+    np.testing.assert_array_equal(cpu(idx), np.asarray(want_idx))
+
+
+def schema_leaves(schema, is_leaf):
+    import jax
+
+    flat, _ = jax.tree_util.tree_flatten_with_path(schema, is_leaf=is_leaf)
+    return [(tuple(p.key for p in path), tuple(leaf)) for path, leaf in flat]
+
+
+@pytest.mark.parametrize("name", jconfigs.ARCHS)
+def test_full_schema_matches_jax(name):
+    """Every leaf at full width: path, shape, logical axes, init, scale and
+    dtype, without allocating; the ``meta`` params have its shapes and dtypes."""
+    assert tconfigs.ARCHS == jconfigs.ARCHS
+    tcfg, jcfg = tconfigs.get_config(name), jconfigs.get_config(name)
+    assert tcfg == tconfigs.ModelConfig(**jcfg.__dict__)
+    want = schema_leaves(jmodel.schema(jcfg), jschema.is_param)
+    tsch = tmodel.schema(tcfg)
+    got = [(path, tuple(leaf)) for path, leaf in tschema.tree_items(tsch)]
+    assert got == want
+    abstract = dict(tschema.tree_items(tmodel.abstract(tcfg)))
+    for path, p in tschema.tree_items(tsch):
+        t = abstract[path]
+        assert t.device.type == "meta"
+        assert tuple(t.shape) == p.shape
+        assert str(t.dtype) == f"torch.{p.dtype or tcfg.param_dtype}"
+
+
+def schema_total(cfg) -> int:
+    return sum(int(np.prod(p.shape)) for _, p in tschema.tree_items(tmodel.schema(cfg)))
+
+
+def test_param_count_vs_schema():
+    """Analytic param count must be within 1.5% of the real tree (big cfgs)."""
+    for name in tconfigs.ARCHS:
+        cfg = tconfigs.get_config(name)
+        total, analytic = schema_total(cfg), cfg.param_count()
+        jax_leaves = schema_leaves(jmodel.schema(jconfigs.get_config(name)), jschema.is_param)
+        assert total == sum(int(np.prod(leaf[0])) for _, leaf in jax_leaves)
+        rel = abs(total - analytic) / total
+        assert rel < 0.015, f"{name}: schema {total:,} vs analytic {analytic:,}"
+
+
+def test_full_config_headline_params():
+    """Sanity: full configs land near their nameplate sizes."""
+    expect = {
+        "grok-1-314b": (290e9, 340e9),
+        "deepseek-v2-lite-16b": (14e9, 18e9),
+        "qwen3-8b": (7e9, 9.5e9),
+        "gemma-7b": (7.5e9, 9.5e9),
+        "deepseek-7b": (6e9, 8e9),
+        "starcoder2-15b": (14e9, 17e9),
+        "mamba2-130m": (0.1e9, 0.2e9),
+        "recurrentgemma-9b": (8e9, 11e9),
+        "qwen2-vl-7b": (6.5e9, 8.5e9),
+        "whisper-large-v3": (1.2e9, 2.2e9),
+    }
+    for name, (lo, hi) in expect.items():
+        total = schema_total(tconfigs.get_config(name))
+        assert lo <= total <= hi, f"{name}: {total/1e9:.2f}B not in [{lo/1e9}, {hi/1e9}]"
+    assert schema_total(tconfigs.get_config("qwen3-8b")) == 8_190_735_360
+
+
+@pytest.mark.parametrize("name", ["qwen3-8b", "gemma-7b", "mamba2-130m"])
+def test_init_fixed_leaves_equal_the_schema(name):
+    """``init``'s zeros/ones/const leaves hold the schema's values (the JAX
+    package's, by the schema test); random leaves have its shapes and dtypes."""
+    cfg = tconfigs.make_smoke(tconfigs.get_config(name))
+    params = dict(tschema.tree_items(tmodel.init(cfg, 3, device="cpu")))
+    again = dict(tschema.tree_items(tmodel.init(cfg, 3, device="cpu")))
+    for path, p in tschema.tree_items(tmodel.schema(cfg)):
+        t = params[path]
+        assert tuple(t.shape) == p.shape and t.dtype == getattr(torch, p.dtype or cfg.param_dtype)
+        fixed = {"zeros": 0.0, "ones": 1.0, "const": p.scale}.get(p.init)
+        if fixed is not None:
+            assert bool((t == fixed).all()), path
+        assert torch.equal(t, again[path])  # one seed, one draw
+
+
+def test_numpy_round_trip_keeps_bf16_bits():
+    """The JAX package's bfloat16 params go across by their bits and come back."""
+    jcfg = jconfigs.make_smoke(jconfigs.get_config("qwen3-8b")).replace(
+        param_dtype="bfloat16", act_dtype="bfloat16"
+    )
+    tcfg = tconfigs.make_smoke(tconfigs.get_config("qwen3-8b")).replace(
+        param_dtype="bfloat16", act_dtype="bfloat16"
+    )
+    tree = jax_tree(jmodel.init(jcfg, 0))
+    params = tmodel.from_numpy(tcfg, tree, device="cpu")
+    assert params["tok_embed"].dtype == torch.bfloat16
+    back = tmodel.to_numpy(params)
+    want = dict(tschema.tree_items(tree))
+    for path, a in tschema.tree_items(back):
+        assert a.dtype == np.uint16
+        np.testing.assert_array_equal(a, want[path].view(np.uint16))
+    again = tmodel.to_numpy(tmodel.from_numpy(tcfg, back, device="cpu"))
+    for (path, a), (_, b) in zip(tschema.tree_items(back), tschema.tree_items(again)):
+        np.testing.assert_array_equal(a, b)
+    # the same bits as float32 values, cast the way JAX casts
+    embed = jnp.asarray(tree["tok_embed"]).astype(jnp.float32)
+    np.testing.assert_array_equal(cpu(params["tok_embed"].float()), np.asarray(embed))
+
+
+@pytest.mark.parametrize("fault", ["missing", "extra", "shape", "dtype"])
+def test_from_numpy_rejects_a_wrong_tree(fault):
+    cfg = tconfigs.make_smoke(tconfigs.get_config("deepseek-7b"))
+    tree = tmodel.to_numpy(tmodel.init(cfg, 0, device="cpu"))
+    if fault == "missing":
+        del tree["layers"]["b0"]["mlp"]["wg"]
+    elif fault == "extra":
+        tree["layers"]["b0"]["attn"]["q_norm"] = np.ones(32, np.float32)
+    elif fault == "shape":
+        tree["lm_head"] = tree["lm_head"].T
+    else:
+        tree["final_norm"]["scale"] = tree["final_norm"]["scale"].astype(np.float64)
+    with pytest.raises(ValueError):
+        tmodel.from_numpy(cfg, tree, device="cpu")
+
+
+@pytest.mark.parametrize("name", UNPORTED)
+def test_unported_arch_is_refused(name):
+    cfg = tconfigs.make_smoke(tconfigs.get_config(name))
+    params = tmodel.init(cfg, 0, device="cpu")
+    tokens = torch.zeros((1, 8), dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="slice"):
+        tmodel.forward(params, cfg, {"tokens": tokens})
+    with pytest.raises(NotImplementedError, match="slice"):
+        tmodel.init_cache(cfg, 1, 8, device="cpu")
+
+
+def test_init_without_a_device_needs_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tconfigs.make_smoke(tconfigs.get_config("qwen3-8b"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tmodel.init(cfg, 0)

@@ -37,6 +37,8 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
         "import repro_torch.filters.steady, repro_torch.data.pipeline\n"
         "import repro_torch.serve.prefix_cache\n"
         "import repro_torch.core.buffered_qf, repro_torch.core.cascade_filter\n"
+        "import repro_torch.configs, repro_torch.models, repro_torch.serve.serve_step\n"
+        "import repro_torch.launch.serve\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))\n"
         "assert not bad, bad\n"
     )
