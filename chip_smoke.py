@@ -235,7 +235,31 @@ Phases, each timed, any failure fatal (a traceback and exit code 1):
             decode ms a step and tokens/s at B = 16, beside their bounds,
             the aten operations of a decode step and the card's busy share
             of it (``torch.profiler``), and the phase's peak memory.
-18. report  one JSON line of per-kernel results (nine rows), then the
+18. serve_moe  the MoE + MLA serving path (``serve_moe_phase``), after
+            phase 17's weights are freed: deepseek-v2-lite-16b and
+            grok-1-314b under ``make_smoke`` on the card against the CPU as
+            in phase 17; then ``deepseek-v2-lite-16b`` at full width and
+            depth (27 layers, the first dense, MLA with kv_lora_rank 512,
+            64 routed experts top-6 and 2 shared, bf16, 15,706,484,224
+            params), its readings at ``init``'s scale reported, then its
+            leaves brought to their true fan-in (``at_true_fan_in``;
+            ``init``, as the JAX package's, takes a stacked leaf's fan-in
+            from its layer axis), in bf16 through phase 17's path:
+            ``serve`` at its defaults in front of the prefix cache (hits
+            and state against a CPU cache's, the four QF kernels
+            launched), one decode step under the sync debug mode, the
+            timings beside bounds that count the active parameters and the
+            experts a decode step's tokens pick, and decode against
+            ``forward`` at 16 x 64 and over a chunked 2 x 4,096 prefill,
+            routed as ``forward`` routed, under 0.125, and routed freely,
+            reported with the (layer, row) routing decisions that differ
+            (bf16 rounding flips near-tied routing).  Every decode check
+            runs at a capacity factor of E / top_k + 1 (no pair dropped;
+            serving and timing keep the config's 1.25).  Then
+            ``grok-1-314b`` at full width cut to 2 of its 64 layers (633 GB
+            do not fit 80 GB) the same way at ``init``'s scale, at 16 x 64,
+            its free routing held too where no decision differs.
+19. report  one JSON line of per-kernel results (nine rows), then the
             card's name and power limit, then the result line.
 
 The whole run must stay within 1200 s of command time on one H100.
@@ -278,6 +302,7 @@ try:
     from repro_torch.configs import get_config, make_smoke
     from repro_torch.launch import serve as serve_launch
     from repro_torch.models import model as llm
+    from repro_torch.models import moe as llm_moe
     from repro_torch.models import schema as llm_schema
     from repro_torch.serve import serve_step
 except ModuleNotFoundError as e:  # run outside the repository
@@ -399,6 +424,7 @@ SHIM_BATCHES = 40
 # phase serve: the LLM serving path (launch/serve.py's defaults)
 SERVE_ARCH = "qwen3-8b"  # served at full width, bf16
 SERVE_SMOKE_ARCHS = ("qwen3-8b", "deepseek-7b", "gemma-7b", "starcoder2-15b", "qwen2-vl-7b")
+SERVE_MOE_SMOKE_ARCHS = ("deepseek-v2-lite-16b", "grok-1-314b")  # phase serve_moe
 SERVE_SMOKE_STEPS = 8  # greedy decode steps, card against CPU
 SERVE_REQUESTS, SERVE_PROMPT_LEN, SERVE_GEN = 16, 64, 16
 SERVE_LONG = (2, 4096)  # a prefill on the chunked attention path: S > 2048, S % 512 == 0
@@ -407,6 +433,9 @@ SERVE_REPS = 3  # timed prefills; their median is reported
 SERVE_PROFILED_STEPS = 2  # decode steps under torch.profiler, for the device's busy share
 SERVE_RTOL = 1e-4  # float32 logits and K/V, card against CPU (tests/test_torch_models.py)
 SERVE_BF16_BOUND = 0.125  # bf16 decode against the full forward, max|d| / max|logit| (PERF.md §2)
+SERVE_MOE_ARCH = "deepseek-v2-lite-16b"  # phase 18, at full width and depth, bf16
+SERVE_MOE_PARAMS = 15_706_484_224  # its schema's count
+SERVE_GROK_LAYERS = 2  # grok-1-314b at full width, 2 of its 64 layers
 H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak of the H100 SXM data sheet
 
 
@@ -3528,12 +3557,12 @@ def check_cache_equal(label, got, want, path=()) -> float:
     return worst
 
 
-def smoke_card_vs_cpu(device) -> dict:
-    """Each ported arch under ``make_smoke`` (float32): params made once on the
-    CPU and copied to the card; the prefill and ``SERVE_SMOKE_STEPS`` greedy
-    decode steps on the card against the CPU port."""
+def smoke_card_vs_cpu(device, names) -> dict:
+    """Each arch of ``names`` under ``make_smoke`` (float32): params made once
+    on the CPU and copied to the card; the prefill and ``SERVE_SMOKE_STEPS``
+    greedy decode steps on the card against the CPU port."""
     out = {}
-    for name in SERVE_SMOKE_ARCHS:
+    for name in names:
         cfg = make_smoke(get_config(name))
         params = llm.init(cfg, SEED, device="cpu")
         on_card = llm_schema.tree_map(lambda t: t.to(device), params)
@@ -3562,45 +3591,137 @@ def llm_params(cfg) -> int:
     return sum(math.prod(p.shape) for _, p in llm_schema.tree_items(llm.schema(cfg)))
 
 
+def routed_params(cfg) -> int:
+    """The routed experts' parameters, all MoE layers (0 for a dense model)."""
+    return sum(math.prod(p.shape) for path, p in llm_schema.tree_items(llm.schema(cfg))
+               if "moe" in path and path[-1] in ("wi", "wg", "wo"))
+
+
+def moe_layers(cfg) -> int:
+    return cfg.n_layers - cfg.first_dense_layers if cfg.is_moe else 0
+
+
+def expert_params(cfg) -> float:
+    """One routed expert's parameters in one MoE layer."""
+    return routed_params(cfg) / (moe_layers(cfg) * cfg.n_experts) if cfg.is_moe else 0.0
+
+
+def attn_flops_a_pair(cfg) -> int:
+    """Flops of QK^T and PV for one query-key pair in one layer: GQA's
+    4 H Dh; MLA's fewer of its two forms, the absorbed 2 H (2 kv_lora_rank +
+    rope dim) and the up-projected 2 H (nope + rope + v_head_dim), whose
+    up-projection of each cached position is among the 2 N flops a token."""
+    if cfg.attn_kind == "mla":
+        absorbed = 2 * cfg.kv_lora_rank + cfg.qk_rope_dim
+        projected = cfg.qk_nope_dim + cfg.qk_rope_dim + cfg.v_head_dim
+        return 2 * cfg.n_heads * min(absorbed, projected)
+    return 4 * cfg.n_heads * cfg.head_dim
+
+
+def cache_bytes_a_position(cfg) -> int:
+    """bf16 cache bytes of one position in one layer: GQA's K and V, MLA's
+    latent and rope key."""
+    if cfg.attn_kind == "mla":
+        return 2 * (cfg.kv_lora_rank + cfg.qk_rope_dim)
+    return 2 * 2 * cfg.n_kv_heads * cfg.head_dim
+
+
 def prefill_bound_ms(cfg, B: int, S: int) -> tuple:
     """The least time for a prefill of B x S tokens: 2 N flops a token (N the
-    ``mm_params``) plus the causal half of QK^T and PV, over the card's dense
-    bf16 peak, or the weights read once over the HBM rate if that is longer.
-    Returns (ms, flops, what bounds it)."""
-    attn = 4 * B * cfg.n_heads * cfg.head_dim * (S * (S + 1) // 2) * cfg.n_layers
-    flops = 2 * mm_params(cfg) * B * S + attn
+    active ``mm_params``: dense and shared weights and the router, and
+    top_k / E of the routed experts) plus the causal half of QK^T and PV,
+    over the card's dense bf16 peak, or the weights read once over the HBM
+    rate if that is longer.  Returns (ms, flops, what bounds it)."""
+    routed = routed_params(cfg)
+    active = mm_params(cfg) - routed + (routed * cfg.top_k / cfg.n_experts if routed else 0)
+    attn = attn_flops_a_pair(cfg) * B * (S * (S + 1) // 2) * cfg.n_layers
+    flops = 2 * active * B * S + attn
     ops_ms = flops / H100_BF16_FLOPS * 1e3
     bytes_ms = 2 * llm_params(cfg) / H100_BYTES_PER_S * 1e3
     return max(ops_ms, bytes_ms), flops, "operations" if ops_ms >= bytes_ms else "bytes"
 
 
-def decode_bound_ms(cfg, B: int, cached: float) -> float:
-    """The least time for one decode step of B rows over ``cached`` valid K/V
-    positions a row: the weights but the embedding table, B of its rows and
-    the cached K/V, each read once, over the HBM rate."""
-    kv = B * cached * cfg.n_layers * 2 * cfg.n_kv_heads * cfg.head_dim * 2
-    nbytes = 2 * mm_params(cfg) + 2 * B * cfg.d_model + kv
+def decode_bound_ms(cfg, B: int, cached: float, picked: int = 0) -> float:
+    """The least time for one decode step of B rows over ``cached`` valid
+    cache positions a row: the weights but the embedding table and the
+    routed experts, the ``picked`` routed experts (over all MoE layers) that
+    the step's tokens pick, B rows of the table and the cache, each read
+    once, over the HBM rate."""
+    kv = B * cached * cfg.n_layers * cache_bytes_a_position(cfg)
+    weights = mm_params(cfg) - routed_params(cfg) + picked * expert_params(cfg)
+    nbytes = 2 * weights + 2 * B * cfg.d_model + kv
     return nbytes / H100_BYTES_PER_S * 1e3
 
 
-def decode_against_forward(params, cfg, tokens, nxt, sync_check=False) -> dict:
+@contextlib.contextmanager
+def recorded_picks(cfg, passes: int):
+    """The experts each ``moe.route`` call picks (B, S, top_k), in call
+    (layer) order, while the block runs ``passes`` passes of ``cfg``'s
+    model: one call a MoE layer a pass, or the block fails."""
+    picks, route = [], llm_moe.route
+
+    def recording(p, x, cfg):
+        out = route(p, x, cfg)
+        picks.append(out[2])
+        return out
+
+    llm_moe.route = recording
+    try:
+        yield picks
+    finally:
+        llm_moe.route = route
+    if len(picks) != passes * moe_layers(cfg):
+        raise AssertionError(f"{cfg.name}: {len(picks)} routings recorded in {passes} passes "
+                             f"of {moe_layers(cfg)} MoE layers")
+
+
+@contextlib.contextmanager
+def forced_picks(cfg, picks, positions: slice):
+    """One pass of ``cfg``'s model routed as ``forward`` routed: each
+    ``moe.route`` call runs the router and takes its experts from ``picks``
+    (forward's, in layer order) at ``positions``, weighted by its own
+    probabilities renormalised as ``route`` does."""
+    route, left = llm_moe.route, list(picks)
+
+    def forcing(p, x, cfg):
+        probs, _, _ = route(p, x, cfg)
+        idx = left.pop(0)[:, positions]
+        w = probs.gather(-1, idx)
+        return probs, w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9), idx
+
+    llm_moe.route = forcing
+    try:
+        yield
+    finally:
+        llm_moe.route = route
+    if left:
+        raise AssertionError(f"{cfg.name}: {len(left)} of forward's routings left unused")
+
+
+def decode_readings(params, cfg, tokens, nxt, sync_check=False) -> dict:
     """Prefill ``tokens`` and decode ``nxt``; their logits against ``forward``
     over the whole sequence (``forward`` takes the naive attention path at
-    S + 1; a prefill of S > 2048, a multiple of 512, the chunked one)."""
+    S + 1; a prefill of S > 2048, a multiple of 512, the chunked one), as
+    max |d| / max |logit|.  For a MoE model also the (layer, row) routing
+    decisions that differ between ``forward`` and the prefill, and between
+    ``forward`` and the step at the decoded position, and the same prefill
+    and step again routed as ``forward`` routed (``forced_*``)."""
     S = tokens.shape[1]
-    full, _, _ = llm.forward(params, cfg, {"tokens": torch.cat([tokens, nxt], dim=1)})
+    with recorded_picks(cfg, 1) as full_picks:
+        full, _, _ = llm.forward(params, cfg, {"tokens": torch.cat([tokens, nxt], dim=1)})
     want_last, want_step = full[:, S - 1].clone(), full[:, S].clone()
     del full
-    last, cache = llm.prefill(params, cfg, {"tokens": tokens})
-    if sync_check:
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
+    with recorded_picks(cfg, 2) as picks:
+        last, cache = llm.prefill(params, cfg, {"tokens": tokens})
+        if sync_check:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                step, cache = llm.decode_step(params, cfg, cache, nxt)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        else:
             step, cache = llm.decode_step(params, cfg, cache, nxt)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    else:
-        step, cache = llm.decode_step(params, cfg, cache, nxt)
     out = {
         "prefill_rel_err": rel_err(last, want_last),
         "decode_rel_err": rel_err(step, want_step),
@@ -3608,11 +3729,48 @@ def decode_against_forward(params, cfg, tokens, nxt, sync_check=False) -> dict:
                                      / want_step.float().abs().max()),
         "pos": int(cache["pos"]),
     }
-    for key in ("prefill_rel_err", "decode_rel_err"):
+    if not cfg.is_moe:
+        return out
+    n = len(full_picks)
+    out["routing_decisions_differing"] = sum(
+        int((f[:, S].sort(-1).values != d[:, 0].sort(-1).values).any(-1).sum())
+        for f, d in zip(full_picks, picks[n:])
+    )
+    out["routing_decisions"] = n * tokens.shape[0]
+    out["prefill_routing_decisions_differing"] = sum(
+        int((f[:, :S].sort(-1).values != p.sort(-1).values).any(-1).sum())
+        for f, p in zip(full_picks, picks[:n])
+    )
+    with forced_picks(cfg, full_picks, slice(0, S)):
+        last, cache = llm.prefill(params, cfg, {"tokens": tokens})
+    with forced_picks(cfg, full_picks, slice(S, S + 1)):
+        step, cache = llm.decode_step(params, cfg, cache, nxt)
+    out["forced_prefill_rel_err"] = rel_err(last, want_last)
+    out["forced_decode_rel_err"] = rel_err(step, want_step)
+    log(f"  {cfg.name} ({cfg.act_dtype}) at {tuple(tokens.shape)}: "
+        f"{out['routing_decisions_differing']} of {out['routing_decisions']} (layer, row) "
+        "routing decisions of the decoded position differ from forward's, "
+        f"{out['prefill_routing_decisions_differing']} of the prefill's {n * tokens.numel()}; "
+        f"decode off by {out['decode_rel_err']}, prefill by {out['prefill_rel_err']}; "
+        f"routed as forward, {out['forced_decode_rel_err']} and {out['forced_prefill_rel_err']}")
+    return out
+
+
+def decode_against_forward(params, cfg, tokens, nxt, sync_check=False) -> dict:
+    """``decode_readings`` held to ``SERVE_BF16_BOUND`` where decode and
+    forward route alike: a dense model's, a MoE model's routed as forward
+    routed, and its own too where no routing decision differs."""
+    out = decode_readings(params, cfg, tokens, nxt, sync_check)
+    held = ["prefill_rel_err", "decode_rel_err"]
+    if cfg.is_moe:
+        alike = out["routing_decisions_differing"] + out["prefill_routing_decisions_differing"] == 0
+        held = [f"forced_{k}" for k in held] + (held if alike else [])
+    for key in held:
         if not out[key] < SERVE_BF16_BOUND:
             raise AssertionError(
                 f"{cfg.name} at {tuple(tokens.shape)}: {key} {out[key]} >= {SERVE_BF16_BOUND}"
             )
+    S = tokens.shape[1]
     if out["pos"] != S + 1:
         raise AssertionError(f"decode left pos at {out['pos']}, not {S + 1}")
     return out
@@ -3620,7 +3778,9 @@ def decode_against_forward(params, cfg, tokens, nxt, sync_check=False) -> dict:
 
 def timed_serving(params, cfg, tokens, steps: int) -> dict:
     """Prefill ms (median of ``SERVE_REPS`` by CUDA events) and decode ms a
-    step (``steps`` greedy steps after two untimed ones), beside their bounds."""
+    step (``steps`` greedy steps after two untimed ones), beside their
+    bounds; for a MoE model the decode bound reads the experts that one
+    more step's tokens pick, counted outside the timed window."""
     B, S = tokens.shape
     prefill_ms = median_ms(lambda: llm.prefill(params, cfg, {"tokens": tokens}), SERVE_REPS)
     logits, cache = llm.prefill(params, cfg, {"tokens": tokens})
@@ -3633,10 +3793,13 @@ def timed_serving(params, cfg, tokens, steps: int) -> dict:
 
     decode_ms = cuda_ms(step, steps, warmup=2)
     ops, busy = decode_profile(step, SERVE_PROFILED_STEPS)
+    with recorded_picks(cfg, 1) as picks:
+        step()
+    picked = sum(int(torch.unique(t).numel()) for t in picks)
     bound_ms, flops, bound_by = prefill_bound_ms(cfg, B, S)
     cached = S + 2 + (steps - 1) / 2  # cached positions a row, the timed steps' mean
-    d_bound = decode_bound_ms(cfg, B, cached)
-    return {
+    d_bound = decode_bound_ms(cfg, B, cached, picked)
+    out = {
         "prefill_ms": prefill_ms, "prefill_bound_ms": bound_ms, "prefill_bound_by": bound_by,
         "prefill_tflops": flops / prefill_ms / 1e9,
         "decode_ms_a_step": decode_ms, "decode_bound_ms": d_bound,
@@ -3645,6 +3808,9 @@ def timed_serving(params, cfg, tokens, steps: int) -> dict:
         "decode_ops_a_step": ops,
         "decode_device_busy_share": busy,
     }
+    if picks:
+        out["decode_experts_picked_a_layer"] = picked / len(picks)
+    return out
 
 
 class OpCount(TorchDispatchMode):
@@ -3679,28 +3845,24 @@ def decode_profile(step, steps: int) -> tuple:
     return count.n, (busy_us / wall_us if busy_us else None)
 
 
-def serve_phase(device, kernels) -> dict:
-    """Phase serve: the five GQA archs at smoke size on the card against the
-    CPU; then ``SERVE_ARCH`` at full width from a seeded CUDA generator,
-    served by ``launch/serve.py``'s ``serve`` at its defaults in
-    front of the prefix cache (its state against a CPU cache's, the QF
-    kernels' launches counted), decode against the full forward at 16 x 64
-    and over a chunked 2 x 4,096 prefill, one decode step under the sync
-    debug mode, and the prefill and decode times beside their bounds."""
-    torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in float32
-    torch.backends.cudnn.allow_tf32 = False
-    out = {"smoke_card_vs_cpu": smoke_card_vs_cpu(device)}
-
-    cfg = get_config(SERVE_ARCH)
+def full_width_params(cfg, device) -> tuple:
+    """``cfg``'s params from a seeded CUDA generator, their count held against
+    the schema's.  Returns (params, {params, weights' bytes, init s})."""
     t0 = time.perf_counter()
     params = llm.init(cfg, SEED, device)
     torch.cuda.synchronize()
-    n = sum(t.numel() for _, t in llm_schema.tree_items(params))
+    leaves = [t for _, t in llm_schema.tree_items(params)]
+    n = sum(t.numel() for t in leaves)
     if n != llm_params(cfg):
         raise AssertionError(f"{n} params, the schema has {llm_params(cfg)}")
-    out["params"] = n
-    out["init_s"] = time.perf_counter() - t0
+    return params, {"params": n, "weights_bytes": sum(t.numel() * t.element_size() for t in leaves),
+                    "init_s": time.perf_counter() - t0}
 
+
+def served(cfg, params, device, kernels) -> tuple:
+    """``launch/serve.py``'s ``serve`` at its defaults under ``counted`` (the
+    four QF kernels), its prefix cache's hits and state against a CPU
+    cache's.  Returns (prompts, report)."""
     prompts = serve_launch.make_prompts(cfg, SERVE_REQUESTS, SERVE_PROMPT_LEN, SEED)
     t0 = time.perf_counter()
     (hits, tokens, pcache), launched = counted(
@@ -3725,28 +3887,133 @@ def serve_phase(device, kernels) -> dict:
         ((tokens >= 0) & (tokens < cfg.vocab_size)).all()
     ):
         raise AssertionError(f"served tokens {tuple(tokens.shape)} out of range")
-    out["serve"] = {"requests": B, "prompt_len": SERVE_PROMPT_LEN, "gen": SERVE_GEN,
-                    "hits": int(hits.sum()), "wall_s": serve_s,
-                    "launches": {k: launched[k] for k in
-                                 ("fingerprint", "qf_positions", "qf_build_planes", "qf_probe")}}
+    return prompts, {"requests": B, "prompt_len": SERVE_PROMPT_LEN, "gen": SERVE_GEN,
+                     "hits": int(hits.sum()), "wall_s": serve_s,
+                     "launches": {k: launched[k] for k in
+                                  ("fingerprint", "qf_positions", "qf_build_planes", "qf_probe")}}
 
+
+def check_inputs(cfg, prompts, device) -> tuple:
+    """The decode checks' inputs: the served prompts (16 x 64) and a next
+    token a row, and a ``SERVE_LONG`` sequence with its next token."""
     rng = np.random.default_rng(SEED + 61)
     short = torch.as_tensor(prompts, dtype=torch.int32, device=device)
-    nxt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, 1)).astype(np.int32)).to(device)
+    nxt = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (short.shape[0], 1)).astype(np.int32)
+    ).to(device)
+    LB, LS = SERVE_LONG
+    long_seq = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (LB, LS + 1)).astype(np.int32)
+    ).to(device)
+    return short, nxt, long_seq
+
+
+def serve_phase(device, kernels) -> dict:
+    """Phase serve: the five GQA archs at smoke size on the card against the
+    CPU; then ``SERVE_ARCH`` at full width from a seeded CUDA generator,
+    served by ``launch/serve.py``'s ``serve`` at its defaults in
+    front of the prefix cache (its state against a CPU cache's, the QF
+    kernels' launches counted), decode against the full forward at 16 x 64
+    and over a chunked 2 x 4,096 prefill, one decode step under the sync
+    debug mode, and the prefill and decode times beside their bounds."""
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in float32
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"smoke_card_vs_cpu": smoke_card_vs_cpu(device, SERVE_SMOKE_ARCHS)}
+    cfg = get_config(SERVE_ARCH)
+    params, made = full_width_params(cfg, device)
+    out.update(made)
+    prompts, out["serve"] = served(cfg, params, device, kernels)
+    short, nxt, long_seq = check_inputs(cfg, prompts, device)
     out["decode_vs_forward_16x64"] = decode_against_forward(
         params, cfg, short, nxt, sync_check=True
     )
     log("  no host sync in a full-width decode step (sync debug mode \"error\")")
     LB, LS = SERVE_LONG
-    long_seq = torch.from_numpy(
-        rng.integers(0, cfg.vocab_size, (LB, LS + 1)).astype(np.int32)
-    ).to(device)
     out[f"decode_vs_forward_{LB}x{LS}"] = decode_against_forward(
         params, cfg, long_seq[:, :LS], long_seq[:, LS:]
     )
     torch.cuda.empty_cache()
     out["timing_16x64"] = timed_serving(params, cfg, short, SERVE_DECODE_STEPS)
     out[f"timing_{LB}x{LS}"] = timed_serving(params, cfg, long_seq[:, :LS], SERVE_DECODE_STEPS)
+    return out
+
+
+def at_true_fan_in(params, cfg) -> None:
+    """Scale in place each leaf that ``init`` draws at 1/sqrt(fan_in) to the
+    fan-in of its product.  The schema, as the JAX package's, takes
+    ``fan_in`` from a leaf's first axis: a stacked leaf's is the layer axis,
+    so its values come out sqrt(fan-in / n_layers) times too large.  The
+    fan-in is the leaf's first axis that is neither ``layers`` nor
+    ``experts``: the one its product sums over."""
+    for path, p in llm_schema.tree_items(llm.schema(cfg)):
+        if p.init != "fan_in" or p.scale is not None:
+            continue
+        fan_in = next(n for n, a in zip(p.shape, p.axes) if a not in ("layers", "experts"))
+        leaf = params
+        for key in path:
+            leaf = leaf[key]
+        leaf.mul_(math.sqrt(p.shape[0] / fan_in))
+
+
+def serve_moe_phase(device, kernels) -> dict:
+    """Phase serve_moe: the MoE archs at smoke size on the card against the
+    CPU; then, in bf16, ``SERVE_MOE_ARCH`` at full width and depth and
+    grok-1-314b at full width and ``SERVE_GROK_LAYERS`` layers.
+
+    DeepSeek is served by ``launch/serve.py`` at its defaults in front of
+    the prefix cache (its state against a CPU cache's, the QF kernels
+    counted).  Each model's ``decode_against_forward`` at 16 x 64 (the step
+    under the sync debug mode) and, for DeepSeek, over a chunked 2 x 4,096
+    prefill, at a capacity factor of E / top_k + 1 (at least S slots an
+    expert: no pair dropped, so forward and decode see the same tokens);
+    serving and timing keep the config's.  DeepSeek's leaves are first
+    brought to their true fan-in (``at_true_fan_in``; its readings at
+    ``init``'s scale are reported): at ``init``'s scale its queries and
+    latent keys are about nine and four times too large, MLA, which has
+    no q-norm, scores keys almost one-hot, and bf16 decode misses forward
+    even routed alike.  Grok's scores pass a softcap; it runs at
+    ``init``'s scale.  Then the prefill and decode times beside their
+    bounds, and each model's peak memory."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"smoke_card_vs_cpu": smoke_card_vs_cpu(device, SERVE_MOE_SMOKE_ARCHS)}
+    LB, LS = SERVE_LONG
+    for cfg, full_depth in (
+        (get_config(SERVE_MOE_ARCH), True),
+        (get_config("grok-1-314b").replace(n_layers=SERVE_GROK_LAYERS), False),
+    ):
+        no_drop = cfg.replace(capacity_factor=cfg.n_experts / cfg.top_k + 1)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params, report = full_width_params(cfg, device)
+        prompts = serve_launch.make_prompts(cfg, SERVE_REQUESTS, SERVE_PROMPT_LEN, SEED)
+        short, nxt, long_seq = check_inputs(cfg, prompts, device)
+        if full_depth:
+            if report["params"] != SERVE_MOE_PARAMS:
+                raise AssertionError(
+                    f"{cfg.name}: {report['params']} params, not {SERVE_MOE_PARAMS}"
+                )
+            report["init_scale_16x64"] = decode_readings(params, no_drop, short, nxt)
+            at_true_fan_in(params, cfg)
+            _, report["serve"] = served(cfg, params, device, kernels)
+        report["decode_vs_forward_16x64"] = decode_against_forward(
+            params, no_drop, short, nxt, sync_check=True
+        )
+        log(f"  no host sync in a full-width {cfg.name} decode step (sync debug mode \"error\")")
+        if full_depth:
+            report[f"decode_vs_forward_{LB}x{LS}"] = decode_against_forward(
+                params, no_drop, long_seq[:, :LS], long_seq[:, LS:]
+            )
+        torch.cuda.empty_cache()
+        report["timing_16x64"] = timed_serving(params, cfg, short, SERVE_DECODE_STEPS)
+        if full_depth:
+            report[f"timing_{LB}x{LS}"] = timed_serving(
+                params, cfg, long_seq[:, :LS], SERVE_DECODE_STEPS
+            )
+        del params
+        report["peak_bytes"] = torch.cuda.max_memory_allocated()
+        out[f"{cfg.name}_{cfg.n_layers}_layers"] = report
+    torch.cuda.empty_cache()
     return out
 
 
@@ -4256,7 +4523,16 @@ def main(device: str = "cuda") -> int:
     log(f"phase serve ({card_line()}): " + json.dumps(serve_report))
     phase_s["serve"] = time.perf_counter() - t0
 
-    # 18. report
+    # 18. serve_moe: the MoE + MLA serving path (phase 17's weights are freed)
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    moe_report = serve_moe_phase(device, kernels)
+    peaks["serve_moe"] = max(r.get("peak_bytes", 0) for r in moe_report.values())
+    log(f"phase serve_moe ({card_line()}): " + json.dumps(moe_report))
+    phase_s["serve_moe"] = time.perf_counter() - t0
+
+    # 19. report
     for n, row in rows.items():
         row["launches"] = launches[n]
         if row["max_abs_err"] != 0:

@@ -1,4 +1,5 @@
-"""The LLM skeleton's models (the port of ``repro.models``): the GQA decoder
-families' forward, prefill and decode."""
+"""The LLM skeleton's models (the port of ``repro.models``): the decoder
+families' forward, prefill and decode, GQA or MLA attention with a dense
+MLP or MoE."""
 
-from . import attention, layers, model, schema, transformer  # noqa
+from . import attention, layers, model, moe, schema, transformer  # noqa

@@ -1,6 +1,6 @@
-"""Attention: GQA/MQA/MHA, sliding-window, cross-attention.
+"""Attention: GQA/MQA/MHA, MLA (DeepSeek-V2), sliding-window, cross-attention.
 
-The port of ``repro.models.attention``'s GQA half, in plain torch ops
+The port of ``repro.models.attention``, in plain torch ops
 that mirror the reference's math: scores in the input dtype cast to
 float32, the softcap before the ``-1e30`` mask, a float32 softmax whose
 weights are cast back to the values' dtype.  Two paths, as there:
@@ -9,9 +9,8 @@ weights are cast back to the values' dtype.  Two paths, as there:
   single-token decode.
 * ``_attend_chunked`` is the online softmax over KV chunks with the
   query dimension also chunked, loops in place of ``lax.scan``/``lax.map``
-  (no remat: serving has no backward pass).
-
-``mla_attention`` comes with the MoE + MLA slice.
+  (no remat: serving has no backward pass).  Its values may be narrower
+  than its queries (absorbed MLA attends latent values).
 """
 
 from __future__ import annotations
@@ -195,3 +194,59 @@ def gqa_attention(
     )
     out = torch.einsum("bshk,hkd->bsd", o.reshape(B, S, H, Dh), p["wo"])
     return out, (k, v)
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2): latent-compressed KV with decode-time absorption
+# ---------------------------------------------------------------------------
+
+
+def mla_attention(p, x, cfg, positions, *, cache=None):
+    """x: (B, S, d). Returns (out, kv): kv (c_kv, k_rope) for prefill
+    collection, or the fresh token's {"c_kv", "k_rope"} delta in decode.
+
+    cache: dict(c_kv, k_rope, kpos), the latent cache, for decode."""
+    nope, rdim, lora = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.kv_lora_rank
+    scale = (nope + rdim) ** -0.5
+
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])  # (B,S,H,nope+rope)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+
+    ckv_full = torch.einsum("bsd,dk->bsk", x, p["w_dkv"])  # (B,S,lora+rope)
+    c_kv = rms_norm(ckv_full[..., :lora], p["kv_norm"], cfg.norm_eps)
+    # the shared single-head rope key
+    k_rope = apply_rope(ckv_full[..., None, lora:], positions, cfg.rope_theta)[:, :, 0, :]
+    q_lat = torch.einsum("bshn,lhn->bshl", q_nope, p["w_uk"])  # (B,S,H,lora)
+
+    if cache is not None:
+        # decode: latent and rope scores against the read-only cache and
+        # the fresh token, softmaxed together; no cache-wide concat
+        s_c = (
+            torch.einsum("bshl,btl->bhst", q_lat, cache["c_kv"])
+            + torch.einsum("bshr,btr->bhst", q_rope, cache["k_rope"])
+        ).float() * scale
+        s_n = (
+            torch.einsum("bshl,btl->bhst", q_lat, c_kv)
+            + torch.einsum("bshr,btr->bhst", q_rope, k_rope)
+        ).float() * scale
+        valid = (cache["kpos"] >= 0) & (cache["kpos"] <= positions[:, :1])
+        s_c = torch.where(valid[:, None, None, :], s_c, NEG_INF)
+        w = torch.softmax(torch.cat([s_c, s_n], dim=-1), dim=-1)
+        ctx = torch.einsum(
+            "bhst,btl->bshl", w[..., :-1].to(x.dtype), cache["c_kv"]
+        ) + torch.einsum("bhst,btl->bshl", w[..., -1:].to(x.dtype), c_kv)
+        o = torch.einsum("bshl,lhv->bshv", ctx, p["w_uv"])
+        out = torch.einsum("bshv,hvd->bsd", o, p["wo"])
+        return out, {"c_kv": c_kv, "k_rope": k_rope}
+
+    # Absorbed MLA == GQA with ONE latent KV head: queries in (lora + rope)
+    # space, keys concat(c_kv, k_rope), values the latent c_kv itself
+    q_all = torch.cat([q_lat, q_rope], dim=-1)[:, :, None]  # (B,S,KV=1,G=H,lora+rope)
+    k_all = torch.cat([c_kv, k_rope], dim=-1)[:, :, None, :]
+    ctx = attend(
+        q_all, k_all, c_kv[:, :, None, :], positions, positions, causal=True, scale=scale
+    )[:, :, 0]  # (B, S, H, lora)
+    o = torch.einsum("bshl,lhv->bshv", ctx.to(x.dtype), p["w_uv"])
+    out = torch.einsum("bshv,hvd->bsd", o, p["wo"])
+    return out, (c_kv, k_rope)

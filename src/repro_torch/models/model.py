@@ -12,12 +12,13 @@ The port of ``repro.models.model``'s serving half:
   from_numpy(cfg, tree) / to_numpy(params) -> the JAX package's params
 
 Params and caches are nested dicts of tensors with the reference's paths,
-the units' leaves stacked on a leading layer axis.  ``forward`` and the
-decode path apply the GQA decoder families (dense, vlm); the others raise
-``NotImplementedError`` naming the slice that ports them
-(``transformer.refuse_unported``).  ``decode_step`` writes the cache in
-place, where the reference donates it, and reads nothing back to the
-host: the position stays a device scalar.  ``loss_fn`` comes with the
+the units' leaves stacked on a leading layer axis, the leading dense
+layers (``prefix_{i}``) unstacked.  ``forward`` and the decode path apply
+the decoder families with GQA or MLA attention and a dense MLP or MoE
+(dense, vlm, moe); the others raise ``NotImplementedError`` naming the
+slice that ports them (``transformer.refuse_unported``).  ``decode_step``
+writes the cache in place, where the reference donates it, and reads
+nothing back to the host: the position stays a device scalar.  ``loss_fn`` comes with the
 training slice.
 """
 
@@ -32,8 +33,8 @@ from ..core.quotient_filter import resolve_device
 from . import schema as S
 from .layers import embed_tokens, unembed
 from .transformer import (
-    MOE_MLA_SLICE,
     SSM_SLICE,
+    apply_unit,
     layer_kinds,
     norm,
     refuse_unported,
@@ -306,15 +307,12 @@ def to_numpy(params):
 
 
 def _units(cfg) -> tuple:
-    """The unit pattern and the number of units.  This slice applies the
-    looped units only; a config with leading or remainder layers outside
-    them is refused by name."""
+    """The unit pattern, the number of leading dense layers and of units.
+    A config with remainder layers after the units is refused by name."""
     prefix, n_units, tail = split_layers(cfg)
-    if prefix:
-        raise NotImplementedError(f"{cfg.name}: leading dense layers come with {MOE_MLA_SLICE}")
     if tail:
         raise NotImplementedError(f"{cfg.name}: remainder layers come with {SSM_SLICE}")
-    return unit_pattern(cfg), n_units
+    return unit_pattern(cfg), prefix, n_units
 
 
 def _embed_in(params, cfg, tokens):
@@ -323,15 +321,31 @@ def _embed_in(params, cfg, tokens):
 
 
 def _apply_stack(params, cfg, x, positions, *, mode, cache=None, mrope_positions=None):
-    """The looped units.  Returns (x, collected): collected["layers"] the
-    units' K/V (prefill) or deltas (decode), stacked."""
-    pat, _ = _units(cfg)
-    x, col = scan_units(
+    """The leading dense layers unlooped, then the looped units.  Returns
+    (x, collected, aux): collected["prefix_{i}"] a leading layer's K/V
+    (prefill) or delta (decode), collected["layers"] the units', stacked;
+    aux the MoE balance losses summed."""
+    pat, prefix, _ = _units(cfg)
+    kinds = layer_kinds(cfg)
+    collected, aux = {}, 0.0
+    for i in range(prefix):
+        grp = f"prefix_{i}"
+        x, col, a = apply_unit(
+            (kinds[i],), {"b0": params[grp]}, x, cfg, positions, mode=mode,
+            cache=None if cache is None else {"b0": cache[grp]},
+            mrope_positions=mrope_positions, moe_flags=(False,),
+        )
+        aux = aux + a
+        if col is not None:
+            collected[grp] = col["b0"]
+    x, col, a = scan_units(
         pat, params["layers"], x, cfg, positions, mode=mode,
         cache=None if cache is None else cache["layers"],
         mrope_positions=mrope_positions, moe_flags=moe_flags_for(cfg, pat),
     )
-    return x, ({} if col is None else {"layers": col})
+    if col is not None:
+        collected["layers"] = col
+    return x, collected, aux + a
 
 
 def _text_positions(cfg, positions, mrope_positions):
@@ -345,17 +359,18 @@ def forward(params, cfg, batch, *, mode="train"):
     """batch: dict(tokens (B,S) [, mrope_positions]).
 
     Returns (logits, collected, aux): logits at every position; aux, the
-    MoE balance loss, is 0.0 until the MoE slice."""
+    MoE balance losses summed over the layers (float32; 0 without MoE)."""
     tokens = batch["tokens"]
     B, Sq = tokens.shape
     x = _embed_in(params, cfg, tokens)
     positions = torch.arange(Sq, dtype=torch.int32, device=tokens.device).expand(B, Sq)
     mrope_positions = _text_positions(cfg, positions, batch.get("mrope_positions"))
-    x, collected = _apply_stack(
+    x, collected, aux = _apply_stack(
         params, cfg, x, positions, mode=mode, mrope_positions=mrope_positions
     )
     x = norm(params["final_norm"], x, cfg)
-    return unembed(params, x, cfg.tie_embeddings), collected, 0.0
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=x.device)
+    return unembed(params, x, cfg.tie_embeddings), collected, aux
 
 
 # ---------------------------------------------------------------------------
@@ -363,31 +378,40 @@ def forward(params, cfg, batch, *, mode="train"):
 # ---------------------------------------------------------------------------
 
 
-def _subblock_cache(cfg, kind: str, n_units: int, B: int, ctx: int, dtype, device):
-    """Empty cache for one GQA sub-block, its leaves stacked over the units."""
-    refuse_unported(cfg, kind, cfg.is_moe)
+def _subblock_cache(cfg, kind: str, lead: tuple, B: int, ctx: int, dtype, device):
+    """Empty cache for one attention sub-block: K/V, or MLA's latents
+    ``c_kv`` and ``k_rope``, and the slots' positions; ``lead`` is
+    (n_units,) for the looped units' stacked leaves, () for a leading layer."""
+    refuse_unported(cfg, kind)
     length = min(ctx, cfg.attn_window) if cfg.attn_window else ctx
-    shape = (n_units, B, length, cfg.n_kv_heads, cfg.head_dim)
-    return {
-        "attn": {
-            "k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device),
-            "kpos": torch.full(shape[:3], -1, dtype=torch.int32, device=device),
-        }
-    }
+    rows = lead + (B, length)
+
+    def zeros(*width):
+        return torch.zeros(rows + width, dtype=dtype, device=device)
+
+    if cfg.attn_kind == "mla":
+        leaves = {"c_kv": zeros(cfg.kv_lora_rank), "k_rope": zeros(cfg.qk_rope_dim)}
+    else:
+        leaves = {"k": zeros(cfg.n_kv_heads, cfg.head_dim), "v": zeros(cfg.n_kv_heads, cfg.head_dim)}
+    leaves["kpos"] = torch.full(rows, -1, dtype=torch.int32, device=device)
+    return {"attn": leaves}
 
 
 def init_cache(cfg, B: int, ctx: int, dtype=None, device=None):
     device = resolve_device(device)
     dt = getattr(torch, dtype or cfg.act_dtype)
-    pat, n_units = _units(cfg)
-    return {
+    pat, prefix, n_units = _units(cfg)
+    kinds = layer_kinds(cfg)
+    cache: dict[str, Any] = {
         "layers": {
-            f"b{i}": _subblock_cache(cfg, k, n_units, B, ctx, dt, device)
+            f"b{i}": _subblock_cache(cfg, k, (n_units,), B, ctx, dt, device)
             for i, k in enumerate(pat)
         },
         "pos": torch.zeros((), dtype=torch.int32, device=device),
     }
+    for i in range(prefix):
+        cache[f"prefix_{i}"] = _subblock_cache(cfg, kinds[i], (), B, ctx, dt, device)
+    return cache
 
 
 def prefill(params, cfg, batch, *, headroom: int = 128):
@@ -423,34 +447,49 @@ def _ring_gather(kv, S, length, axis: int = 1):
 
 
 def _fill_unit_cache(cache_b, col_b, S):
-    """Ring-gather one sub-block's stacked K/V (n_units, B, S, KV, Dh) into
-    its cache, with the slots' positions."""
-    k, v = col_b["kv"]
+    """Ring-gather one sub-block's K/V (or MLA's ``c_kv``, ``k_rope``) into
+    its cache, with the slots' positions.  The positions run along the
+    cache's ring axis: 2 for the units' stacked leaves (n_units, B, S, ...),
+    1 for a leading layer's (B, S, ...)."""
     sub = cache_b["attn"]
-    length = sub["k"].shape[2]
-    ck, idx = _ring_gather(k, S, length, axis=2)
-    cv, _ = _ring_gather(v, S, length, axis=2)
-    sub["k"], sub["v"] = ck, cv
-    sub["kpos"] = idx.expand(ck.shape[:3]).contiguous()
+    axis = sub["kpos"].ndim - 1
+    length = sub["kpos"].shape[axis]
+    names = ("c_kv", "k_rope") if "c_kv" in sub else ("k", "v")
+    for name, leaf in zip(names, col_b["kv"]):
+        sub[name], idx = _ring_gather(leaf, S, length, axis=axis)
+    sub["kpos"] = idx.expand(sub["kpos"].shape).contiguous()
     return cache_b
 
 
+def _sub_blocks(cache, collected):
+    """Each attention sub-block's cache beside what it collected: the
+    looped units' (stacked), then the leading layers'."""
+    for grp, col in collected.items():
+        if grp == "layers":
+            for key, col_b in col.items():
+                yield cache["layers"][key], col_b
+        else:  # a leading layer
+            yield cache[grp], col
+
+
 def _fill_cache_from_collected(cache, collected, S):
-    for key, col in collected["layers"].items():
-        _fill_unit_cache(cache["layers"][key], col, S)
+    for cache_b, col_b in _sub_blocks(cache, collected):
+        _fill_unit_cache(cache_b, col_b, S)
     return cache
 
 
 def _write_delta(sub: dict, delta: dict, pos):
-    """Write one sub-block's stacked decode delta (n_units, B, 1, KV, Dh) into
-    its cache slot ``pos % ring``, in place, with the slot as a device
-    tensor (no host read)."""
+    """Write one sub-block's decode delta (K/V or MLA's latents, one position)
+    into its cache slot ``pos % ring``, in place, with the slot as a device
+    tensor (no host read).  The ring axis is the cache's: 2 for the units'
+    stacked leaves, 1 for a leading layer's."""
     tgt = sub["attn"]
-    slot = (pos % tgt["k"].shape[2]).to(torch.int64).reshape(1)
-    tgt["k"].index_copy_(2, slot, delta["k"].to(tgt["k"].dtype))
-    tgt["v"].index_copy_(2, slot, delta["v"].to(tgt["v"].dtype))
     kp = tgt["kpos"]
-    kp.index_copy_(2, slot, pos.expand(kp.shape[:2] + (1,)).contiguous())
+    axis = kp.ndim - 1
+    slot = (pos % kp.shape[axis]).to(torch.int64).reshape(1)
+    for name, leaf in delta.items():
+        tgt[name].index_copy_(axis, slot, leaf.to(tgt[name].dtype))
+    kp.index_copy_(axis, slot, pos.expand(kp.shape[:axis] + (1,)).contiguous())
     return sub
 
 
@@ -466,13 +505,13 @@ def decode_step(params, cfg, cache, tokens, *, mrope_positions=None):
     positions = pos.expand(B, 1)
     x = _embed_in(params, cfg, tokens)
     mrope_positions = _text_positions(cfg, positions, mrope_positions)
-    x, collected = _apply_stack(
+    x, collected, _ = _apply_stack(
         params, cfg, x, positions, mode="decode", cache=cache,
         mrope_positions=mrope_positions,
     )
     x = norm(params["final_norm"], x, cfg)
     logits = unembed(params, x, cfg.tie_embeddings)[:, 0]
-    for key, col in collected["layers"].items():
-        _write_delta(cache["layers"][key], col["delta"], pos)
+    for cache_b, col_b in _sub_blocks(cache, collected):
+        _write_delta(cache_b, col_b["delta"], pos)
     cache["pos"] = pos + 1
     return logits, cache

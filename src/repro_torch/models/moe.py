@@ -1,0 +1,113 @@
+"""Mixture-of-experts FFN with capacity-based sort dispatch.
+
+The port of ``repro.models.moe``.  Tokens pick top-k experts; each row's
+(token, expert) pairs are sorted by expert and gathered into a dense
+capacity buffer, each expert runs a batched product, and the results
+scatter back weighted.  Shared experts (DeepSeek-V2) run densely as one
+MLP.
+
+The reference ``vmap``s its per-row dispatch over the batch; here the
+rows go through one batched pass with the reference's order: pairs
+flattened token-major, a stable sort on the expert, each expert's start
+from a left ``searchsorted``, rank = position - start, kept while
+rank < capacity.  The reference drops the rows past capacity by
+scattering them to an out-of-range slot (``mode="drop"``); an
+out-of-range index raises in torch, so they go to one dump row past
+the buffer, sliced off.  No boolean-mask indexing and no host read: a
+decode step stays free of syncs.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .layers import _act, mlp
+
+
+def expert_capacity(cfg, S: int) -> int:
+    """Slots an expert takes a row, from static shapes, as the reference
+    computes it: ``S k / E`` times the capacity factor, rounded up to a
+    multiple of 8, at most ``S k``."""
+    k = cfg.top_k
+    capacity = max(1, int(S * k / cfg.n_experts * cfg.capacity_factor))
+    return min(capacity + (-capacity) % 8, S * k)
+
+
+def route(p, x, cfg):
+    """Router probabilities (B, S, E) float32 and each token's top-k
+    weights (renormalised) and experts (B, S, k)."""
+    logits = torch.einsum("bsd,de->bse", x, p["router"]).float()
+    probs = torch.softmax(logits, dim=-1)
+    # lax.top_k's order: the larger first, the lower expert first on a tie
+    # (bf16 logits tie often); torch.topk leaves ties in no set order
+    top_w, top_idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_w, top_idx = top_w[..., : cfg.top_k], top_idx[..., : cfg.top_k]
+    top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
+    return probs, top_w, top_idx
+
+
+def _dispatch(x, top_idx, top_w, n_experts: int, capacity: int):
+    """Dispatch every row: x (B, S, d), top_idx/top_w (B, S, k).
+
+    Returns (xe (B, E, C, d), combine metadata (slot, st, sw, keep), each
+    (B, S k) in the sorted order); a dropped pair's slot is ``E C``, the
+    dump row."""
+    B, S, k = top_idx.shape
+    d = x.shape[-1]
+    dev = x.device
+    flat_e = top_idx.reshape(B, S * k)
+    flat_t = torch.arange(S, device=dev)[:, None].expand(S, k).reshape(S * k)
+    se, order = torch.sort(flat_e, dim=-1, stable=True)
+    st = flat_t[order]
+    sw = top_w.reshape(B, S * k).gather(1, order)
+    experts = torch.arange(n_experts, device=dev).expand(B, n_experts).contiguous()
+    start = torch.searchsorted(se, experts)
+    rank = torch.arange(S * k, device=dev) - start.gather(1, se)
+    keep = rank < capacity
+    slot = torch.where(keep, se * capacity + rank, n_experts * capacity)
+
+    rows = n_experts * capacity
+    xe = x.new_zeros((B, rows + 1, d)).scatter_(
+        1, slot[..., None].expand(B, S * k, d), x.gather(1, st[..., None].expand(B, S * k, d))
+    )
+    return xe[:, :rows].reshape(B, n_experts, capacity, d), (slot, st, sw, keep)
+
+
+def _combine(ye, meta, S: int):
+    """Each pair's expert output, weighted, summed back onto its token:
+    ye (B, E, C, d) -> (B, S, d)."""
+    slot, st, sw, keep = meta
+    B, E, C, d = ye.shape
+    yf = ye.reshape(B, E * C, d)
+    idx = torch.clamp(slot, max=E * C - 1)[..., None].expand(-1, -1, d)
+    contrib = yf.gather(1, idx) * sw[..., None].to(yf.dtype)
+    contrib = torch.where(keep[..., None], contrib, 0)
+    return ye.new_zeros((B, S, d)).scatter_add_(1, st[..., None].expand(-1, -1, d), contrib)
+
+
+def moe_ffn(p, x, cfg):
+    """x: (B, S, d) -> (B, S, d), plus the load-balance aux loss (float32)."""
+    S = x.shape[1]
+    E, k = cfg.n_experts, cfg.top_k
+
+    probs, top_w, top_idx = route(p, x, cfg)
+    xe, meta = _dispatch(x, top_idx, top_w, E, expert_capacity(cfg, S))
+
+    if "wg" in p:
+        g = torch.einsum("becd,edf->becf", xe, p["wg"])
+        h = _act(cfg.mlp_kind, g) * torch.einsum("becd,edf->becf", xe, p["wi"])
+    else:
+        h = _act(cfg.mlp_kind, torch.einsum("becd,edf->becf", xe, p["wi"]))
+    ye = torch.einsum("becf,efd->becd", h, p["wo"])
+    y = _combine(ye, meta, S)
+
+    if cfg.n_shared_experts:
+        shared = {key[len("shared_"):]: w for key, w in p.items() if key.startswith("shared_")}
+        y = y + mlp(shared, x, cfg.mlp_kind)
+
+    # load-balance aux (Switch-style): E * sum_e f_e * p_e, f_e from the
+    # one-hot of the picks
+    picks = top_idx[..., None] == torch.arange(E, device=x.device)
+    frac = picks.float().sum(2).mean((0, 1)) / k
+    aux = E * torch.sum(frac * probs.mean((0, 1)))
+    return y, aux

@@ -3,12 +3,12 @@
 The port of ``repro.models.transformer``.  A model is a stack of units
 whose parameters (and decode caches) are stacked on a leading layer axis,
 as in the reference; ``scan_units`` walks that axis in a Python loop (no
-remat: serving has no backward pass).  This slice applies the ``attn``
-sub-block with GQA attention and a dense MLP.  The other kinds are
+remat: serving has no backward pass).  This port applies the ``attn``
+sub-block: GQA or MLA attention, then a dense MLP or the MoE FFN, whose
+load-balance aux loss is summed through the units.  The other kinds are
 refused by name until the slice that ports them:
   ssm, rec    — the SSM / RG-LRU / encoder slice
   xattn       — the same slice (the encoder-decoder block)
-  MLA, MoE    — the MoE + MLA slice
 """
 
 from __future__ import annotations
@@ -17,12 +17,12 @@ from typing import Optional
 
 import torch
 
-from .attention import gqa_attention
+from .attention import gqa_attention, mla_attention
 from .layers import layer_norm, mlp, rms_norm
+from .moe import moe_ffn
 from .schema import tree_items, tree_map
 
 SSM_SLICE = "the SSM / RG-LRU / encoder slice"
-MOE_MLA_SLICE = "the MoE + MLA slice"
 
 
 def norm(p, x, cfg):
@@ -65,15 +65,11 @@ def split_layers(cfg) -> tuple[int, int, list[str]]:
     return prefix, n_units, tail
 
 
-def refuse_unported(cfg, kind: str, is_moe_layer: bool = False) -> None:
+def refuse_unported(cfg, kind: str) -> None:
     """Raise ``NotImplementedError`` for a sub-block this port cannot apply
     yet, naming the slice that brings it."""
     if kind in ("ssm", "rec", "xattn"):
         raise NotImplementedError(f"{cfg.name}: '{kind}' blocks come with {SSM_SLICE}")
-    if cfg.attn_kind == "mla":
-        raise NotImplementedError(f"{cfg.name}: MLA attention comes with {MOE_MLA_SLICE}")
-    if is_moe_layer:
-        raise NotImplementedError(f"{cfg.name}: MoE layers come with {MOE_MLA_SLICE}")
 
 
 # ---------------------------------------------------------------------------
@@ -93,27 +89,38 @@ def apply_subblock(
     mrope_positions=None,
     is_moe_layer: bool = False,
 ):
-    """Returns (x, collected): the K/V for prefill, the delta for decode."""
-    refuse_unported(cfg, kind, is_moe_layer)
+    """Returns (x, collected, aux): collected the K/V (or latents) for
+    prefill, the delta for decode; aux the MoE balance loss, 0.0 for a
+    dense MLP."""
+    refuse_unported(cfg, kind)
     sub_cache = cache.get("attn") if cache else None
-    h, kv = gqa_attention(
-        p["attn"],
-        norm(p["norm"], x, cfg),
-        cfg,
-        positions,
-        causal=True,
-        window=cfg.attn_window,
-        cache=sub_cache,
-        mrope_positions=mrope_positions,
-    )
+    if cfg.attn_kind == "mla":
+        h, kv = mla_attention(p["attn"], norm(p["norm"], x, cfg), cfg, positions, cache=sub_cache)
+    else:
+        h, kv = gqa_attention(
+            p["attn"],
+            norm(p["norm"], x, cfg),
+            cfg,
+            positions,
+            causal=True,
+            window=cfg.attn_window,
+            cache=sub_cache,
+            mrope_positions=mrope_positions,
+        )
     x = x + h
-    x = x + mlp(p["mlp"], norm(p["mlp_norm"], x, cfg), cfg.mlp_kind)
+
+    aux = 0.0
+    if is_moe_layer:
+        h2, aux = moe_ffn(p["moe"], norm(p["mlp_norm"], x, cfg), cfg)
+    else:
+        h2 = mlp(p["mlp"], norm(p["mlp_norm"], x, cfg), cfg.mlp_kind)
+    x = x + h2
 
     if mode == "prefill":
-        return x, {"kv": kv}
+        return x, {"kv": kv}, aux
     if mode == "decode" and sub_cache is not None:
-        return x, {"delta": kv}
-    return x, None
+        return x, {"delta": kv}, aux
+    return x, None, aux
 
 
 def apply_unit(
@@ -128,10 +135,10 @@ def apply_unit(
     mrope_positions=None,
     moe_flags: tuple = (),
 ):
-    collected = {}
+    collected, aux = {}, 0.0
     for i, kind in enumerate(pat):
         key = f"b{i}"
-        x, col = apply_subblock(
+        x, col, a = apply_subblock(
             kind,
             unit_params[key],
             x,
@@ -144,7 +151,8 @@ def apply_unit(
         )
         if col is not None:
             collected[key] = col
-    return x, (collected or None)
+        aux = aux + a
+    return x, (collected or None), aux
 
 
 def scan_units(
@@ -160,12 +168,12 @@ def scan_units(
     moe_flags=(),
 ):
     """The units over the leading axis of ``stacked_params`` (and ``cache``),
-    a loop in place of the reference's ``lax.scan``.  Returns (x, collected),
-    ``collected`` stacked on a leading unit axis."""
+    a loop in place of the reference's ``lax.scan``.  Returns (x, collected,
+    aux), ``collected`` stacked on a leading unit axis, ``aux`` summed."""
     n = next(tree_items(stacked_params))[1].shape[0]
-    per_unit = []
+    per_unit, aux = [], 0.0
     for i in range(n):
-        x, col = apply_unit(
+        x, col, a = apply_unit(
             pat,
             tree_map(lambda t: t[i], stacked_params),
             x,
@@ -177,7 +185,9 @@ def scan_units(
             moe_flags=moe_flags,
         )
         per_unit.append(col)
-    return x, (_stack(per_unit) if per_unit and per_unit[0] is not None else None)
+        aux = aux + a
+    col = _stack(per_unit) if per_unit and per_unit[0] is not None else None
+    return x, col, aux
 
 
 def _stack(trees: list):

@@ -1,23 +1,30 @@
 """The port's LLM skeleton (``repro_torch.configs``, ``repro_torch.models``)
 against the JAX package on the CPU.
 
-The five GQA decoder architectures run under ``make_smoke`` (float32) with
-the JAX package's ``model.init(cfg, 0)`` carried across by
-``model.from_numpy``, so both packages hold the same weights.  Integer
-results are exact: greedy tokens, ``kpos``, ``pos``, schemas and
-parameter counts.  Float results are held to
+The seven decoder architectures the port serves (the five GQA ones, and
+the MoE ones: DeepSeek-V2-Lite with MLA and a leading dense layer, Grok-1
+with GQA) run under ``make_smoke`` (float32) with the JAX package's
+``model.init(cfg, 0)`` carried across by ``model.from_numpy``, so both
+packages hold the same weights.  Integer results are exact: greedy
+tokens, ``kpos``, ``pos``, the routers' picks, slots and kept pairs,
+schemas and parameter counts.  Float results (the MoE aux loss among
+them) are held to
 
     max |port - jax| / max |jax|  <  RTOL = 1e-4
 
-(float32 throughout; the two frameworks sum in other orders, which moves
-the last few bits of a float32, about 1e-6 of the largest value at these
-sizes).  Each architecture's JAX side runs once, in a thread of its own
-started with the first test that needs one, and is shared by its tests.
+(float32; the two frameworks sum in other orders, which moves the last
+few bits of a float32, about 1e-6 of the largest value at these sizes).
+``moe_ffn`` and ``mla_attention`` also run on bfloat16 leaves and
+activations, cast at the reference's points, held to ``BF16_RTOL`` = 2^-6,
+four bf16 steps of the largest value.  Each architecture's JAX side
+runs once, in a thread of its own started with the first test that needs
+one, and is shared by its tests.
 """
 
 import functools
 from concurrent.futures import ThreadPoolExecutor
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -26,16 +33,20 @@ import torch
 from repro import configs as jconfigs
 from repro.models import attention as jattention
 from repro.models import model as jmodel
+from repro.models import moe as jmoe
 from repro.models import schema as jschema
 from repro_torch import configs as tconfigs
 from repro_torch.models import attention as tattention
 from repro_torch.models import model as tmodel
+from repro_torch.models import moe as tmoe
 from repro_torch.models import schema as tschema
 
 RTOL = 1e-4
+BF16_RTOL = 2**-6
 GQA_ARCHS = ["qwen3-8b", "deepseek-7b", "gemma-7b", "starcoder2-15b", "qwen2-vl-7b"]
-UNPORTED = ["grok-1-314b", "deepseek-v2-lite-16b", "mamba2-130m",
-            "recurrentgemma-9b", "whisper-large-v3"]
+MOE_ARCHS = ["deepseek-v2-lite-16b", "grok-1-314b"]
+SERVED_ARCHS = GQA_ARCHS + MOE_ARCHS
+UNPORTED = ["mamba2-130m", "recurrentgemma-9b", "whisper-large-v3"]
 B, S, STEPS = 2, 24, 4
 
 
@@ -60,8 +71,8 @@ def jax_tree(tree):
 def _jax_jobs():
     """Every arch's JAX side, started at once, a thread each (the JAX package
     compiles while it runs, outside the interpreter lock)."""
-    pool = ThreadPoolExecutor(len(GQA_ARCHS))
-    return {name: pool.submit(_jax_side, name) for name in GQA_ARCHS}
+    pool = ThreadPoolExecutor(len(SERVED_ARCHS))
+    return {name: pool.submit(_jax_side, name) for name in SERVED_ARCHS}
 
 
 def jax_side(name):
@@ -74,12 +85,13 @@ def _jax_side(name):
     params = jmodel.init(cfg, 0)
     tokens = np.random.default_rng(7).integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
     batch = {"tokens": jnp.asarray(tokens)}
-    logits, _, _ = jmodel.forward(params, cfg, batch, remat=False)
+    logits, _, aux = jmodel.forward(params, cfg, batch, remat=False)
     last, cache = jmodel.prefill(params, cfg, batch, remat=False)
     out = {
         "params": jax_tree(params),
         "tokens": tokens,
         "logits": np.asarray(logits),
+        "aux": np.asarray(aux),
         "last": np.asarray(last),
         "cache": jax_tree(cache),
     }
@@ -114,14 +126,18 @@ def check_cache(got, want):
             assert rel_err(cpu(got[key]), want[key]) < RTOL, key
 
 
-@pytest.mark.parametrize("name", GQA_ARCHS)
+@pytest.mark.parametrize("name", SERVED_ARCHS)
 def test_forward_matches_jax(name):
+    """Logits, and the MoE aux loss summed over the layers (0 without MoE)."""
     cfg, params, ref, batch = port_side(name)
-    logits, _, _ = tmodel.forward(params, cfg, batch)
+    logits, _, aux = tmodel.forward(params, cfg, batch)
     assert rel_err(cpu(logits), ref["logits"]) < RTOL
+    assert aux.dtype == torch.float32 and aux.shape == ()
+    np.testing.assert_allclose(cpu(aux), ref["aux"], rtol=RTOL, atol=0)
+    assert (float(ref["aux"]) > 0) == cfg.is_moe
 
 
-@pytest.mark.parametrize("name", GQA_ARCHS)
+@pytest.mark.parametrize("name", SERVED_ARCHS)
 def test_prefill_matches_jax(name):
     cfg, params, ref, batch = port_side(name)
     last, cache = tmodel.prefill(params, cfg, batch)
@@ -129,7 +145,7 @@ def test_prefill_matches_jax(name):
     check_cache(cache, ref["cache"])
 
 
-@pytest.mark.parametrize("name", GQA_ARCHS)
+@pytest.mark.parametrize("name", SERVED_ARCHS)
 def test_greedy_decode_matches_jax(name):
     cfg, params, ref, batch = port_side(name)
     last, cache = tmodel.prefill(params, cfg, batch)
@@ -397,3 +413,237 @@ def test_init_without_a_device_needs_a_card(monkeypatch):
     cfg = tconfigs.make_smoke(tconfigs.get_config("qwen3-8b"))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tmodel.init(cfg, 0)
+
+
+# ---------------------------------------------------------------------------
+# The MoE + MLA slice's parts
+# ---------------------------------------------------------------------------
+
+
+def moe_params(cfg, rng):
+    """Random MoE leaves of the schema's shapes; the router at 1/sqrt(d), so
+    the picks are uneven enough that the capacity drops pairs."""
+    sch = tmodel._moe_schema(cfg)
+    p = {k: rng.normal(size=v.shape) * v.shape[-2] ** -0.5 for k, v in sch.items()}
+    return {k: v.astype(np.float32) for k, v in p.items()}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", MOE_ARCHS)
+def test_moe_ffn_matches_jax(name, dtype):
+    """``moe_ffn`` at the config's capacity factor, with drops: the router's
+    picks, each pair's slot (where kept), ``keep`` and token exact; the
+    output and the aux loss within ``RTOL`` (``BF16_RTOL`` in bf16).  A pick
+    flipped at a gap between the k-th and (k+1)-th probability above the
+    dtype's noise is a fault; the smallest gap at this seed is reported."""
+    jcfg = jconfigs.make_smoke(jconfigs.get_config(name))
+    tcfg = tconfigs.make_smoke(tconfigs.get_config(name))
+    rng = np.random.default_rng(15)
+    p = moe_params(tcfg, rng)
+    x = rng.normal(size=(B, S, tcfg.d_model)).astype(np.float32)
+    E, k = tcfg.n_experts, tcfg.top_k
+    capacity = tmoe.expert_capacity(tcfg, S)
+    assert capacity == 8  # int(24 * 2 / 8 * 1.25) = 7, rounded up to a multiple of 8
+    tol = RTOL if dtype == "float32" else BF16_RTOL
+
+    jp = {key: jnp.asarray(v).astype(dtype) for key, v in p.items()}
+    tp = {key: torch.from_numpy(v).to(getattr(torch, dtype)) for key, v in p.items()}
+    jx, tx = jnp.asarray(x).astype(dtype), torch.from_numpy(x).to(getattr(torch, dtype))
+    want_y, want_aux = jmoe.moe_ffn(jp, jx, jcfg)
+    got_y, got_aux = tmoe.moe_ffn(tp, tx, tcfg)
+    assert str(got_y.dtype) == f"torch.{want_y.dtype}"
+    assert rel_err(cpu(got_y.float()), np.asarray(want_y.astype(jnp.float32))) < tol
+    np.testing.assert_allclose(cpu(got_aux), np.asarray(want_aux), rtol=tol, atol=0)
+
+    # the routing, as the reference's moe_ffn computes it (moe.py:75-78)
+    logits = jnp.einsum("bsd,de->bse", jx, jp["router"]).astype(jnp.float32)
+    probs = jax.nn.softmax(logits, axis=-1)
+    want_w, want_idx = jax.lax.top_k(probs, k)
+    want_w = want_w / jnp.maximum(want_w.sum(-1, keepdims=True), 1e-9)
+    got_probs, got_w, got_idx = tmoe.route(tp, tx, tcfg)
+    ranked = np.sort(np.asarray(probs), axis=-1)[..., ::-1]
+    gap = float(np.min(ranked[..., k - 1] - ranked[..., k]))
+    print(f"{name} ({dtype}): smallest gap between a token's probabilities {k} and {k + 1}: "
+          f"{gap:.3e}")
+    np.testing.assert_array_equal(cpu(got_idx), np.asarray(want_idx), err_msg=f"gap {gap}")
+    assert rel_err(cpu(got_probs), np.asarray(probs)) < tol
+    assert rel_err(cpu(got_w), np.asarray(want_w)) < tol
+
+    want = jax.vmap(lambda xr, ti, tw: jmoe._dispatch_row(xr, ti, tw, E, capacity)[1])(
+        jx, want_idx.astype(jnp.int32), want_w
+    )
+    _, (slot, st, _, keep) = tmoe._dispatch(tx, got_idx, got_w, E, capacity)
+    w_slot, w_st, _, w_keep = map(np.asarray, want)
+    np.testing.assert_array_equal(cpu(keep), w_keep)
+    assert not w_keep.all()  # the capacity drops pairs at this seed
+    np.testing.assert_array_equal(cpu(st), w_st)
+    np.testing.assert_array_equal(cpu(slot)[w_keep], w_slot[w_keep])
+
+
+@pytest.mark.parametrize("name", MOE_ARCHS)
+def test_route_breaks_ties_to_the_lower_expert(name):
+    """Tied router probabilities (bf16 logits tie often) pick as
+    ``lax.top_k`` does: the larger first, the lower expert first on a tie."""
+    cfg = tconfigs.make_smoke(tconfigs.get_config(name))
+    E, k, d = cfg.n_experts, cfg.top_k, cfg.d_model
+    router = np.zeros((d, E), np.float32)
+    router[0, ::3] = 1.0  # experts 0, 3, 6, ... tie high on the first feature
+    router[1, 1::2] = 0.5  # the odd experts tie lower on the second
+    x = np.zeros((B, S, d), np.float32)
+    x[0, :, 0] = 1.0
+    x[1, :, 1] = 1.0
+    x[1, :4] = 0.0  # all E tie
+    want_w, want_idx = jax.lax.top_k(
+        jax.nn.softmax(jnp.einsum("bsd,de->bse", jnp.asarray(x), jnp.asarray(router)), -1), k
+    )
+    _, got_w, got_idx = tmoe.route({"router": torch.from_numpy(router)}, torch.from_numpy(x), cfg)
+    np.testing.assert_array_equal(cpu(got_idx), np.asarray(want_idx))
+    np.testing.assert_array_equal(cpu(got_idx)[1, :4], np.broadcast_to(np.arange(k), (4, k)))
+    want_w = want_w / jnp.maximum(want_w.sum(-1, keepdims=True), 1e-9)
+    assert rel_err(cpu(got_w), np.asarray(want_w)) < RTOL
+
+
+@pytest.mark.parametrize("capacity", [4, S * 2])  # drops, and none
+def test_dispatch_and_combine_match_the_jax_vmap(capacity):
+    """The batched dispatch and combine against the reference's per-row
+    functions under ``jax.vmap``: the capacity buffer and the metadata
+    exact (a dropped pair's slot is the dump row ``E C`` here, 2^31 - 1
+    there), the combined rows within ``RTOL``."""
+    rng = np.random.default_rng(16)
+    E, k, d = 8, 2, 16
+    x = rng.normal(size=(B, S, d)).astype(np.float32)
+    top_idx = np.argsort(rng.random((B, S, E)) ** 3, axis=-1)[..., :k].astype(np.int32)
+    top_w = rng.random((B, S, k)).astype(np.float32)
+    ye = rng.normal(size=(B, E, capacity, d)).astype(np.float32)
+
+    want_xe, want_meta = jax.vmap(lambda xr, ti, tw: jmoe._dispatch_row(xr, ti, tw, E, capacity))(
+        *map(jnp.asarray, (x, top_idx, top_w))
+    )
+    want_y = jax.vmap(lambda yr, mt: jmoe._combine_row(yr, mt, S))(jnp.asarray(ye), want_meta)
+    got_xe, got_meta = tmoe._dispatch(
+        torch.from_numpy(x), torch.from_numpy(top_idx).long(), torch.from_numpy(top_w), E, capacity
+    )
+    got_y = tmoe._combine(torch.from_numpy(ye), got_meta, S)
+
+    np.testing.assert_array_equal(cpu(got_xe), np.asarray(want_xe))
+    slot, st, sw, keep = map(cpu, got_meta)
+    w_slot, w_st, w_sw, w_keep = map(np.asarray, want_meta)
+    np.testing.assert_array_equal(keep, w_keep)
+    np.testing.assert_array_equal(st, w_st)
+    np.testing.assert_array_equal(sw, w_sw)
+    np.testing.assert_array_equal(slot, np.where(w_keep, w_slot, E * capacity))
+    assert keep.all() == (capacity == S * 2)
+    assert rel_err(cpu(got_y), np.asarray(want_y)) < RTOL
+
+
+def mla_params(cfg, rng):
+    sch = tmodel._mla_schema(cfg)
+    p = {key: rng.normal(size=v.shape) * v.shape[0] ** -0.5 for key, v in sch.items()}
+    p["kv_norm"] = 1 + 0.1 * rng.normal(size=sch["kv_norm"].shape)
+    return {key: v.astype(np.float32) for key, v in p.items()}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("path", ["naive", "chunked", "decode"])
+def test_mla_attention_matches_jax(path, dtype, monkeypatch):
+    """MLA's absorbed prefill on ``attend``'s naive and chunked paths (the
+    chunked one with 8-position chunks over a ragged 24, values of the
+    latent width 32 beside queries of 48), and the split decode over a
+    cache with empty and future slots; float32 within ``RTOL``, bf16
+    within ``BF16_RTOL``."""
+    jcfg = jconfigs.make_smoke(jconfigs.get_config("deepseek-v2-lite-16b"))
+    tcfg = tconfigs.make_smoke(tconfigs.get_config("deepseek-v2-lite-16b"))
+    rng = np.random.default_rng(17)
+    p = mla_params(tcfg, rng)
+    Sq = 1 if path == "decode" else S
+    x = rng.normal(size=(B, Sq, tcfg.d_model)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(Sq, dtype=np.int32), (B, Sq)).copy()
+    cache = None
+    if path == "decode":
+        T = 20
+        pos[:] = 13
+        cache = {
+            "c_kv": rng.normal(size=(B, T, tcfg.kv_lora_rank)).astype(np.float32),
+            "k_rope": rng.normal(size=(B, T, tcfg.qk_rope_dim)).astype(np.float32),
+            "kpos": np.where(np.arange(T) < 16, np.arange(T), -1).astype(np.int32)[None].repeat(B, 0),
+        }
+        cache["kpos"][1, 3] = -1
+    if path == "chunked":
+        for job in _jax_jobs().values():
+            job.result()  # no JAX model of the pool runs while attend is patched
+        kw = dict(chunk_threshold=8, q_chunk=8, kv_chunk=16)
+        monkeypatch.setattr(jattention, "attend", functools.partial(jattention.attend, **kw))
+        monkeypatch.setattr(tattention, "attend", functools.partial(tattention.attend, **kw))
+
+    def run(attention, cfg, a):
+        c = None if cache is None else {key: a(v) for key, v in cache.items()}
+        return attention.mla_attention({key: a(v) for key, v in p.items()}, a(x), cfg, a(pos), cache=c)
+
+    def to_jax(a):
+        return jnp.asarray(a).astype(dtype) if a.dtype == np.float32 else jnp.asarray(a)
+
+    def to_torch(a):
+        t = torch.from_numpy(a)
+        return t.to(getattr(torch, dtype)) if t.dtype == torch.float32 else t
+
+    tol = RTOL if dtype == "float32" else BF16_RTOL
+    want = run(jattention, jcfg, to_jax)
+    got_out, got_kv = run(tattention, tcfg, to_torch)
+    want_out, want_kv = want[0], want[2]
+    if path == "decode":
+        assert sorted(got_kv) == ["c_kv", "k_rope"]
+        got_kv, want_kv = (got_kv["c_kv"], got_kv["k_rope"]), (want_kv["c_kv"], want_kv["k_rope"])
+    for g, w in zip((got_out, *got_kv), (want_out, *want_kv)):
+        assert str(g.dtype) == f"torch.{w.dtype}"
+        assert rel_err(cpu(g.float()), np.asarray(w.astype(jnp.float32))) < tol
+
+
+@pytest.mark.parametrize("name", SERVED_ARCHS)
+def test_init_cache_matches_jax(name):
+    """The empty cache leaf for leaf: paths, shapes, dtypes and values
+    (the MLA latents ``c_kv``/``k_rope`` and the ``prefix_0`` group too)."""
+    jcfg = jconfigs.make_smoke(jconfigs.get_config(name))
+    tcfg = tconfigs.make_smoke(tconfigs.get_config(name))
+    want = dict(tschema.tree_items(jax_tree(jmodel.init_cache(jcfg, B, 40))))
+    got = dict(tschema.tree_items(tmodel.init_cache(tcfg, B, 40, device="cpu")))
+    assert sorted(got) == sorted(want)
+    if name == "deepseek-v2-lite-16b":
+        assert ("prefix_0", "attn", "c_kv") in got and ("layers", "b0", "attn", "k_rope") in got
+    for path, w in want.items():
+        assert str(got[path].dtype) == f"torch.{w.dtype}", path
+        np.testing.assert_array_equal(cpu(got[path]), w)
+
+
+@pytest.mark.parametrize("name", MOE_ARCHS)
+def test_decode_matches_full_forward(name):
+    """Prefill S and decode the next token against ``forward`` over S + 1,
+    at a capacity factor that drops no pair (as ``tests/test_archs.py``)."""
+    cfg = tconfigs.make_smoke(tconfigs.get_config(name)).replace(capacity_factor=64.0)
+    params = tmodel.init(cfg, 0, device="cpu")
+    toks = torch.from_numpy(
+        np.random.default_rng(2).integers(0, cfg.vocab_size, (B, S + 1)).astype(np.int32)
+    )
+    full, _, _ = tmodel.forward(params, cfg, {"tokens": toks})
+    last, cache = tmodel.prefill(params, cfg, {"tokens": toks[:, :S]})
+    step, cache = tmodel.decode_step(params, cfg, cache, toks[:, S:])
+    assert rel_err(cpu(last), cpu(full[:, S - 1])) < RTOL
+    assert rel_err(cpu(step), cpu(full[:, S])) < RTOL
+    assert int(cache["pos"]) == S + 1
+
+
+def test_numpy_round_trip_carries_moe_and_prefix_leaves():
+    """DeepSeek-V2-Lite's tree (its leading dense layer ``prefix_0``, the
+    stacked ``moe`` and MLA leaves) goes across by its bits and comes back."""
+    cfg = dict(param_dtype="bfloat16", act_dtype="bfloat16")
+    jcfg = jconfigs.make_smoke(jconfigs.get_config("deepseek-v2-lite-16b")).replace(**cfg)
+    tcfg = tconfigs.make_smoke(tconfigs.get_config("deepseek-v2-lite-16b")).replace(**cfg)
+    tree = jax_tree(jmodel.init(jcfg, 0))
+    want = dict(tschema.tree_items(tree))
+    for path in [("prefix_0", "mlp", "wg"), ("prefix_0", "attn", "w_uk"),
+                 ("layers", "b0", "moe", "router"), ("layers", "b0", "moe", "shared_wg"),
+                 ("layers", "b0", "attn", "kv_norm")]:
+        assert path in want
+    back = dict(tschema.tree_items(tmodel.to_numpy(tmodel.from_numpy(tcfg, tree, device="cpu"))))
+    assert sorted(back) == sorted(want)
+    for path, a in back.items():
+        np.testing.assert_array_equal(a, want[path].view(np.uint16), err_msg="/".join(path))

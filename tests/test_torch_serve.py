@@ -1,8 +1,9 @@
 """The port's serving path (``repro_torch.serve.serve_step``,
 ``repro_torch.launch.serve``) against the JAX package on the CPU.
 
-The serve function runs deepseek-7b under ``make_smoke`` (the serve test
-of ``tests/test_system.py``: 4 requests of 16 tokens, 3 generated) on the
+The serve function runs deepseek-7b, and the MoE + MLA model
+deepseek-v2-lite-16b, under ``make_smoke`` (the serve test of
+``tests/test_system.py``: 4 requests of 16 tokens, 3 generated) on the
 JAX package's weights carried across by ``model.from_numpy``, and must give
 the prefix-cache hits, the cache's state and the greedy tokens of the JAX
 package's ``prefill``, ``decode_step``, ``sample_greedy`` and
@@ -32,9 +33,9 @@ ARCH, REQUESTS, PROMPT_LEN, GEN, SEED = "deepseek-7b", 4, 16, 3, 0
 
 
 @functools.cache
-def jax_served():
+def jax_served(arch):
     """``repro/launch/serve.py``'s body on the JAX package."""
-    cfg = jconfigs.make_smoke(jconfigs.get_config(ARCH))
+    cfg = jconfigs.make_smoke(jconfigs.get_config(arch))
     params = jmodel.init(cfg, SEED)
     rng = np.random.default_rng(SEED)
     pcache = JaxPrefixCache(q=16, r=14)
@@ -58,9 +59,11 @@ def jax_served():
     }
 
 
-def test_serve_matches_the_jax_serve_script():
-    ref = jax_served()
-    cfg = tconfigs.make_smoke(tconfigs.get_config(ARCH))
+def check_served(arch):
+    """``serve`` on the JAX package's weights: prompts, hits, tokens and the
+    prefix cache's state equal to the JAX serve script's."""
+    ref = jax_served(arch)
+    cfg = tconfigs.make_smoke(tconfigs.get_config(arch))
     prompts = tserve.make_prompts(cfg, REQUESTS, PROMPT_LEN, SEED)
     np.testing.assert_array_equal(prompts, ref["prompts"])
     params = tmodel.from_numpy(cfg, ref["params"], device="cpu")
@@ -76,10 +79,20 @@ def test_serve_matches_the_jax_serve_script():
         np.testing.assert_array_equal(a, b)
 
 
+def test_serve_matches_the_jax_serve_script():
+    check_served(ARCH)
+
+
+def test_serve_moe_matches_the_jax_serve_script():
+    """The same on deepseek-v2-lite-16b: MLA, a leading dense layer and MoE
+    layers at the config's capacity factor."""
+    check_served("deepseek-v2-lite-16b")
+
+
 def test_serve_and_prefill_steps_match_the_model():
     """``make_prefill_step`` is ``prefill`` with no headroom; ``make_serve_step``
     is ``decode_step``."""
-    ref = jax_served()
+    ref = jax_served(ARCH)
     cfg = tconfigs.make_smoke(tconfigs.get_config(ARCH))
     params = tmodel.from_numpy(cfg, ref["params"], device="cpu")
     batch = {"tokens": torch.as_tensor(ref["prompts"], dtype=torch.int32)}
@@ -106,6 +119,15 @@ def test_main_on_the_cpu(capsys):
     out = capsys.readouterr().out
     assert f"prefix-cache hits: {REQUESTS // 2}/{REQUESTS}" in out
     assert f"generated {REQUESTS}x{GEN} tokens" in out
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "grok-1-314b"])
+def test_main_serves_the_moe_archs_on_the_cpu(arch, capsys):
+    rc = tserve.main(["--arch", arch, "--smoke", "--requests", "4", "--prompt-len", "16",
+                      "--gen", "2", "--device", "cpu"])
+    assert rc == 0
+    out = capsys.readouterr().out
+    assert "prefix-cache hits: 2/4" in out and "generated 4x2 tokens" in out
 
 
 def test_main_without_a_device_needs_a_card(monkeypatch):
