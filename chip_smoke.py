@@ -259,7 +259,23 @@ Phases, each timed, any failure fatal (a traceback and exit code 1):
             ``grok-1-314b`` at full width cut to 2 of its 64 layers (633 GB
             do not fit 80 GB) the same way at ``init``'s scale, at 16 x 64,
             its free routing held too where no decision differs.
-19. report  one JSON line of per-kernel results (nine rows), then the
+19. serve_recurrent  the SSM / RG-LRU / encoder-decoder serving path
+            (``serve_recurrent_phase``): mamba2-130m, recurrentgemma-9b and
+            whisper-large-v3 under ``make_smoke`` on the card against the
+            CPU as in phase 17 (whisper with frames); then each at full
+            width and depth in bf16 (128,983,488; 9,396,408,320; and
+            1,608,360,960 params, 631,232,000 of them whisper's encoder),
+            its readings at ``init``'s scale reported, then its leaves
+            brought to their true fan-in and driven through phase 17's
+            path: ``serve`` at its defaults (whisper's frames drawn after
+            the prompts) in front of the prefix cache, the four QF kernels
+            launched; decode against ``forward`` under 0.125 at 16 x 64
+            (the step under the sync debug mode) and over a chunked
+            2 x 4,096 prefill (whisper 2 x 3,584; RecurrentGemma's
+            2,048-slot attention ring wraps); timings beside bounds that
+            count the SSM and RG-LRU layers' fixed state, the window, the
+            cross K/V and the encoder; each model's peak memory.
+20. report  one JSON line of per-kernel results (nine rows), then the
             card's name and power limit, then the result line.
 
 The whole run must stay within 1200 s of command time on one H100.
@@ -304,6 +320,7 @@ try:
     from repro_torch.models import model as llm
     from repro_torch.models import moe as llm_moe
     from repro_torch.models import schema as llm_schema
+    from repro_torch.models import transformer as llm_transformer
     from repro_torch.serve import serve_step
 except ModuleNotFoundError as e:  # run outside the repository
     if not (e.name or "").startswith("repro_torch"):
@@ -436,6 +453,14 @@ SERVE_BF16_BOUND = 0.125  # bf16 decode against the full forward, max|d| / max|l
 SERVE_MOE_ARCH = "deepseek-v2-lite-16b"  # phase 18, at full width and depth, bf16
 SERVE_MOE_PARAMS = 15_706_484_224  # its schema's count
 SERVE_GROK_LAYERS = 2  # grok-1-314b at full width, 2 of its 64 layers
+SERVE_RECURRENT_SMOKE_ARCHS = ("mamba2-130m", "recurrentgemma-9b", "whisper-large-v3")
+SERVE_RECURRENT_PARAMS = {  # phase 19, each at full width and depth: its schema's count
+    "mamba2-130m": 128_983_488,
+    "recurrentgemma-9b": 9_396_408_320,
+    "whisper-large-v3": 1_608_360_960,
+}
+SERVE_WHISPER_ENCODER_PARAMS = 631_232_000
+SERVE_WHISPER_LONG = (2, 3584)  # chunked prefill whose forward over S + 1 fits max_seq 4,096
 H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak of the H100 SXM data sheet
 
 
@@ -3523,10 +3548,11 @@ def rel_err(got, want) -> float:
     return float((got - want).abs().max() / want.abs().max())
 
 
-def greedy(params, cfg, tokens, steps: int):
-    """Prefill ``tokens``, then ``steps`` greedy decode steps: every step's
-    logits (the prefill's last first), the greedy tokens and the cache."""
-    logits, cache = llm.prefill(params, cfg, {"tokens": tokens})
+def greedy(params, cfg, batch, steps: int):
+    """Prefill ``batch`` (tokens, and frames for an encoder-decoder), then
+    ``steps`` greedy decode steps: every step's logits (the prefill's last
+    first), the greedy tokens and the cache."""
+    logits, cache = llm.prefill(params, cfg, batch)
     out = [logits]
     tok = serve_step.sample_greedy(logits)[:, None]
     toks = [tok]
@@ -3559,17 +3585,29 @@ def check_cache_equal(label, got, want, path=()) -> float:
 
 def smoke_card_vs_cpu(device, names) -> dict:
     """Each arch of ``names`` under ``make_smoke`` (float32): params made once
-    on the CPU and copied to the card; the prefill and ``SERVE_SMOKE_STEPS``
-    greedy decode steps on the card against the CPU port."""
+    on the CPU and copied to the card; the prefill (of frames too, for an
+    encoder-decoder) and ``SERVE_SMOKE_STEPS`` greedy decode steps on the
+    card against the CPU port.  A model with RG-LRU layers takes its
+    leaves at their true fan-in, as ``tests/test_torch_recurrent.py``
+    does: at ``init``'s scale (a smoke stacked leaf's fan-in is 1) its
+    gates saturate, a_t comes within float32 rounding of 1, and
+    sqrt(1 - a_t^2) turns a last-bit difference into about 2e-4 of the
+    state in eight steps."""
     out = {}
     for name in names:
         cfg = make_smoke(get_config(name))
         params = llm.init(cfg, SEED, device="cpu")
+        if "rec" in llm_transformer.layer_kinds(cfg):
+            at_true_fan_in(params, cfg)
         on_card = llm_schema.tree_map(lambda t: t.to(device), params)
         rng = np.random.default_rng(SEED + 60)
-        tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 24)).astype(np.int32))
-        c_logits, c_toks, c_cache = greedy(params, cfg, tokens, SERVE_SMOKE_STEPS)
-        g_logits, g_toks, g_cache = greedy(on_card, cfg, tokens.to(device), SERVE_SMOKE_STEPS)
+        batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 24)).astype(np.int32))}
+        if cfg.is_encoder_decoder:
+            batch["frames"] = torch.from_numpy(
+                rng.normal(size=(2, cfg.encoder_seq, cfg.d_model)).astype(np.float32))
+        c_logits, c_toks, c_cache = greedy(params, cfg, batch, SERVE_SMOKE_STEPS)
+        g_logits, g_toks, g_cache = greedy(
+            on_card, cfg, {k: t.to(device) for k, t in batch.items()}, SERVE_SMOKE_STEPS)
         if not torch.equal(g_toks.cpu(), c_toks):
             raise AssertionError(f"{name}: the card's greedy tokens differ from the CPU's")
         errs = [rel_err(g.cpu(), c) for g, c in zip(g_logits, c_logits)]
@@ -3581,20 +3619,38 @@ def smoke_card_vs_cpu(device, names) -> dict:
     return out
 
 
+def schema_params(cfg, keep) -> int:
+    """The parameters of the schema's leaves whose path ``keep`` accepts."""
+    return sum(math.prod(p.shape) for path, p in llm_schema.tree_items(llm.schema(cfg))
+               if keep(path))
+
+
+def gathered(path) -> bool:
+    """A table that a token or frame gathers a row of: the position tables,
+    and the token embedding where the unembedding does not reuse it."""
+    return path[-1] == "pos_embed" or path == ("tok_embed",)
+
+
 def mm_params(cfg) -> int:
-    """Parameters that take part in a matrix product: all but the embedding
-    table, which a token gathers a row of."""
-    return llm_params(cfg) - cfg.vocab_size * cfg.d_model
+    """The decoder's parameters that take part in a matrix product: all but
+    the gathered tables (a tied embedding is the unembedding's product)
+    and the encoder."""
+    return schema_params(cfg, lambda path: path[0] != "encoder" and not (
+        gathered(path) and not (cfg.tie_embeddings and path == ("tok_embed",))))
+
+
+def encoder_mm_params(cfg) -> int:
+    """The encoder's parameters in its products: all but its position table."""
+    return schema_params(cfg, lambda path: path[0] == "encoder" and path[-1] != "pos_embed")
 
 
 def llm_params(cfg) -> int:
-    return sum(math.prod(p.shape) for _, p in llm_schema.tree_items(llm.schema(cfg)))
+    return schema_params(cfg, lambda path: True)
 
 
 def routed_params(cfg) -> int:
     """The routed experts' parameters, all MoE layers (0 for a dense model)."""
-    return sum(math.prod(p.shape) for path, p in llm_schema.tree_items(llm.schema(cfg))
-               if "moe" in path and path[-1] in ("wi", "wg", "wo"))
+    return schema_params(cfg, lambda path: "moe" in path and path[-1] in ("wi", "wg", "wo"))
 
 
 def moe_layers(cfg) -> int:
@@ -3604,6 +3660,12 @@ def moe_layers(cfg) -> int:
 def expert_params(cfg) -> float:
     """One routed expert's parameters in one MoE layer."""
     return routed_params(cfg) / (moe_layers(cfg) * cfg.n_experts) if cfg.is_moe else 0.0
+
+
+def kind_layers(cfg) -> dict:
+    """The decoder's layers of each sub-block kind."""
+    kinds = llm_transformer.layer_kinds(cfg)
+    return {k: kinds.count(k) for k in set(kinds)}
 
 
 def attn_flops_a_pair(cfg) -> int:
@@ -3626,16 +3688,58 @@ def cache_bytes_a_position(cfg) -> int:
     return 2 * 2 * cfg.n_kv_heads * cfg.head_dim
 
 
+def causal_pairs(S: int, window: int = 0) -> int:
+    """Query-key pairs of a causal attention over S positions, each query
+    seeing at most ``window`` keys (0: all before it)."""
+    if not window or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def ssd_flops_a_row(cfg, S: int) -> int:
+    """Flops of one Mamba-2 layer's SSD over S positions (one row), beyond
+    its projections: the intra-chunk causal pairs, each C_i . B_j (2 G N)
+    and its weighted sum of values (2 H P), over the padded chunks; the
+    chunk states and the inter-chunk term, 2 H P N each a position."""
+    d_in = cfg.ssm_expand * cfg.d_model
+    H, P = d_in // cfg.ssm_head_dim, cfg.ssm_head_dim
+    Q = min(cfg.ssm_chunk, S)
+    nc = -(-S // Q)
+    pair = 2 * cfg.ssm_n_groups * cfg.ssm_d_state + 2 * H * P
+    return nc * (Q * (Q + 1) // 2) * pair + nc * Q * 4 * H * P * cfg.ssm_d_state
+
+
+def state_bytes_a_layer(cfg, kind: str, B: int) -> int:
+    """bf16 bytes of one ``ssm`` or ``rec`` layer's decode state and conv
+    window at B rows (a step reads and writes each once)."""
+    if kind == "ssm":
+        d_in = cfg.ssm_expand * cfg.d_model
+        G, N, K = cfg.ssm_n_groups, cfg.ssm_d_state, cfg.ssm_d_conv
+        return 2 * B * (d_in * N + (K - 1) * (d_in + 2 * G * N))
+    w = cfg.lru_width or cfg.d_model
+    return 2 * B * (w + 3 * w)
+
+
 def prefill_bound_ms(cfg, B: int, S: int) -> tuple:
     """The least time for a prefill of B x S tokens: 2 N flops a token (N the
-    active ``mm_params``: dense and shared weights and the router, and
-    top_k / E of the routed experts) plus the causal half of QK^T and PV,
-    over the card's dense bf16 peak, or the weights read once over the HBM
-    rate if that is longer.  Returns (ms, flops, what bounds it)."""
+    active ``mm_params``: dense and shared weights, the router, top_k / E of
+    the routed experts, a tied unembedding) plus the attention's QK^T and
+    PV over its pairs (causal, at most ``attn_window`` keys a query;
+    whisper's cross-attention S x encoder_seq), SSD's chunk work
+    (``ssd_flops_a_row``) and an encoder's 2 N flops a frame and its
+    non-causal attention, over the card's dense bf16 peak, or the weights
+    read once over the HBM rate if that is longer.  Returns (ms, flops,
+    what bounds it)."""
     routed = routed_params(cfg)
     active = mm_params(cfg) - routed + (routed * cfg.top_k / cfg.n_experts if routed else 0)
-    attn = attn_flops_a_pair(cfg) * B * (S * (S + 1) // 2) * cfg.n_layers
-    flops = 2 * active * B * S + attn
+    layers = kind_layers(cfg)
+    pair = attn_flops_a_pair(cfg)
+    attn = pair * B * causal_pairs(S, cfg.attn_window) * layers.get("attn", 0)
+    attn += pair * B * (causal_pairs(S) + S * cfg.encoder_seq) * layers.get("xattn", 0)
+    attn += B * ssd_flops_a_row(cfg, S) * layers.get("ssm", 0)
+    frames = B * cfg.encoder_seq
+    encoder = 2 * encoder_mm_params(cfg) * frames + pair * B * cfg.encoder_seq**2 * cfg.encoder_layers
+    flops = 2 * active * B * S + attn + encoder
     ops_ms = flops / H100_BF16_FLOPS * 1e3
     bytes_ms = 2 * llm_params(cfg) / H100_BYTES_PER_S * 1e3
     return max(ops_ms, bytes_ms), flops, "operations" if ops_ms >= bytes_ms else "bytes"
@@ -3643,13 +3747,22 @@ def prefill_bound_ms(cfg, B: int, S: int) -> tuple:
 
 def decode_bound_ms(cfg, B: int, cached: float, picked: int = 0) -> float:
     """The least time for one decode step of B rows over ``cached`` valid
-    cache positions a row: the weights but the embedding table and the
-    routed experts, the ``picked`` routed experts (over all MoE layers) that
-    the step's tokens pick, B rows of the table and the cache, each read
-    once, over the HBM rate."""
-    kv = B * cached * cfg.n_layers * cache_bytes_a_position(cfg)
+    cache positions a row: the decoder's weights in products but the
+    routed experts, the ``picked`` routed experts (over all MoE layers)
+    that the step's tokens pick, B rows of the token table (and one of a
+    position table), and the caches, each read once, over the HBM rate.
+    An attention layer reads ``min(cached, attn_window)`` positions, an
+    ``xattn`` layer ``cached`` and the encoder_seq cross positions; an
+    ``ssm`` or ``rec`` layer reads and writes its fixed state and conv
+    window, and nothing a cached position."""
+    layers = kind_layers(cfg)
+    seen = min(cached, cfg.attn_window) if cfg.attn_window else cached
+    kv = B * seen * layers.get("attn", 0) * cache_bytes_a_position(cfg)
+    kv += B * (cached + cfg.encoder_seq) * layers.get("xattn", 0) * cache_bytes_a_position(cfg)
+    kv += sum(2 * state_bytes_a_layer(cfg, k, B) * layers.get(k, 0) for k in ("ssm", "rec"))
     weights = mm_params(cfg) - routed_params(cfg) + picked * expert_params(cfg)
-    nbytes = 2 * weights + 2 * B * cfg.d_model + kv
+    rows = B * cfg.d_model + (cfg.d_model if cfg.rope == "learned" else 0)
+    nbytes = 2 * weights + 2 * rows + kv
     return nbytes / H100_BYTES_PER_S * 1e3
 
 
@@ -3698,21 +3811,23 @@ def forced_picks(cfg, picks, positions: slice):
         raise AssertionError(f"{cfg.name}: {len(left)} of forward's routings left unused")
 
 
-def decode_readings(params, cfg, tokens, nxt, sync_check=False) -> dict:
-    """Prefill ``tokens`` and decode ``nxt``; their logits against ``forward``
-    over the whole sequence (``forward`` takes the naive attention path at
-    S + 1; a prefill of S > 2048, a multiple of 512, the chunked one), as
+def decode_readings(params, cfg, batch, nxt, sync_check=False) -> dict:
+    """Prefill ``batch`` (its tokens, and frames for an encoder-decoder) and
+    decode ``nxt``; their logits against ``forward`` over the whole
+    sequence (``forward`` takes the naive attention path at S + 1; a
+    prefill of S > 2048, a multiple of 512, the chunked one), as
     max |d| / max |logit|.  For a MoE model also the (layer, row) routing
     decisions that differ between ``forward`` and the prefill, and between
     ``forward`` and the step at the decoded position, and the same prefill
     and step again routed as ``forward`` routed (``forced_*``)."""
+    tokens = batch["tokens"]
     S = tokens.shape[1]
     with recorded_picks(cfg, 1) as full_picks:
-        full, _, _ = llm.forward(params, cfg, {"tokens": torch.cat([tokens, nxt], dim=1)})
+        full, _, _ = llm.forward(params, cfg, dict(batch, tokens=torch.cat([tokens, nxt], dim=1)))
     want_last, want_step = full[:, S - 1].clone(), full[:, S].clone()
     del full
     with recorded_picks(cfg, 2) as picks:
-        last, cache = llm.prefill(params, cfg, {"tokens": tokens})
+        last, cache = llm.prefill(params, cfg, batch)
         if sync_check:
             torch.cuda.synchronize()
             torch.cuda.set_sync_debug_mode("error")
@@ -3742,7 +3857,7 @@ def decode_readings(params, cfg, tokens, nxt, sync_check=False) -> dict:
         for f, p in zip(full_picks, picks[:n])
     )
     with forced_picks(cfg, full_picks, slice(0, S)):
-        last, cache = llm.prefill(params, cfg, {"tokens": tokens})
+        last, cache = llm.prefill(params, cfg, batch)
     with forced_picks(cfg, full_picks, slice(S, S + 1)):
         step, cache = llm.decode_step(params, cfg, cache, nxt)
     out["forced_prefill_rel_err"] = rel_err(last, want_last)
@@ -3756,11 +3871,12 @@ def decode_readings(params, cfg, tokens, nxt, sync_check=False) -> dict:
     return out
 
 
-def decode_against_forward(params, cfg, tokens, nxt, sync_check=False) -> dict:
+def decode_against_forward(params, cfg, batch, nxt, sync_check=False) -> dict:
     """``decode_readings`` held to ``SERVE_BF16_BOUND`` where decode and
     forward route alike: a dense model's, a MoE model's routed as forward
     routed, and its own too where no routing decision differs."""
-    out = decode_readings(params, cfg, tokens, nxt, sync_check)
+    out = decode_readings(params, cfg, batch, nxt, sync_check)
+    tokens = batch["tokens"]
     held = ["prefill_rel_err", "decode_rel_err"]
     if cfg.is_moe:
         alike = out["routing_decisions_differing"] + out["prefill_routing_decisions_differing"] == 0
@@ -3776,14 +3892,14 @@ def decode_against_forward(params, cfg, tokens, nxt, sync_check=False) -> dict:
     return out
 
 
-def timed_serving(params, cfg, tokens, steps: int) -> dict:
+def timed_serving(params, cfg, batch, steps: int) -> dict:
     """Prefill ms (median of ``SERVE_REPS`` by CUDA events) and decode ms a
     step (``steps`` greedy steps after two untimed ones), beside their
     bounds; for a MoE model the decode bound reads the experts that one
     more step's tokens pick, counted outside the timed window."""
-    B, S = tokens.shape
-    prefill_ms = median_ms(lambda: llm.prefill(params, cfg, {"tokens": tokens}), SERVE_REPS)
-    logits, cache = llm.prefill(params, cfg, {"tokens": tokens})
+    B, S = batch["tokens"].shape
+    prefill_ms = median_ms(lambda: llm.prefill(params, cfg, batch), SERVE_REPS)
+    logits, cache = llm.prefill(params, cfg, batch)
     tok = serve_step.sample_greedy(logits)[:, None]
 
     def step():
@@ -3859,15 +3975,15 @@ def full_width_params(cfg, device) -> tuple:
                     "init_s": time.perf_counter() - t0}
 
 
-def served(cfg, params, device, kernels) -> tuple:
-    """``launch/serve.py``'s ``serve`` at its defaults under ``counted`` (the
-    four QF kernels), its prefix cache's hits and state against a CPU
-    cache's.  Returns (prompts, report)."""
-    prompts = serve_launch.make_prompts(cfg, SERVE_REQUESTS, SERVE_PROMPT_LEN, SEED)
+def served(cfg, params, requests, device, kernels) -> dict:
+    """``launch/serve.py``'s ``serve`` at its defaults on ``requests``
+    (``make_requests``' prompts and frames) under ``counted`` (the four QF
+    kernels), its prefix cache's hits and state against a CPU cache's."""
+    prompts, frames = requests
     t0 = time.perf_counter()
     (hits, tokens, pcache), launched = counted(
         kernels, ("fingerprint", "qf_positions", "qf_build_planes", "qf_probe"), "serve",
-        lambda: serve_launch.serve(cfg, params, prompts, SERVE_GEN, device),
+        lambda: serve_launch.serve(cfg, params, prompts, SERVE_GEN, device, frames),
     )
     serve_s = time.perf_counter() - t0
     B = SERVE_REQUESTS
@@ -3887,25 +4003,35 @@ def served(cfg, params, device, kernels) -> tuple:
         ((tokens >= 0) & (tokens < cfg.vocab_size)).all()
     ):
         raise AssertionError(f"served tokens {tuple(tokens.shape)} out of range")
-    return prompts, {"requests": B, "prompt_len": SERVE_PROMPT_LEN, "gen": SERVE_GEN,
-                     "hits": int(hits.sum()), "wall_s": serve_s,
-                     "launches": {k: launched[k] for k in
-                                  ("fingerprint", "qf_positions", "qf_build_planes", "qf_probe")}}
+    return {"requests": B, "prompt_len": SERVE_PROMPT_LEN, "gen": SERVE_GEN,
+            "hits": int(hits.sum()), "wall_s": serve_s,
+            "launches": {k: launched[k] for k in
+                         ("fingerprint", "qf_positions", "qf_build_planes", "qf_probe")}}
 
 
-def check_inputs(cfg, prompts, device) -> tuple:
-    """The decode checks' inputs: the served prompts (16 x 64) and a next
-    token a row, and a ``SERVE_LONG`` sequence with its next token."""
+def check_inputs(cfg, requests, device, long=SERVE_LONG) -> tuple:
+    """The decode checks' inputs: the served requests (16 x 64, and their
+    frames cast to the activations' dtype) and a next token a row, and a
+    ``long`` (B, S) batch (frames drawn after its tokens) with its next
+    token.  Returns (short, nxt, long_batch, long_nxt)."""
     rng = np.random.default_rng(SEED + 61)
-    short = torch.as_tensor(prompts, dtype=torch.int32, device=device)
+    act = getattr(torch, cfg.act_dtype)
+    prompts, frames = requests
+    short = {"tokens": torch.as_tensor(prompts, dtype=torch.int32, device=device)}
+    if frames is not None:
+        short["frames"] = torch.as_tensor(frames, device=device).to(act)
     nxt = torch.from_numpy(
-        rng.integers(0, cfg.vocab_size, (short.shape[0], 1)).astype(np.int32)
+        rng.integers(0, cfg.vocab_size, (prompts.shape[0], 1)).astype(np.int32)
     ).to(device)
-    LB, LS = SERVE_LONG
+    LB, LS = long
     long_seq = torch.from_numpy(
         rng.integers(0, cfg.vocab_size, (LB, LS + 1)).astype(np.int32)
     ).to(device)
-    return short, nxt, long_seq
+    long_batch = {"tokens": long_seq[:, :LS]}
+    if cfg.is_encoder_decoder:
+        long_batch["frames"] = torch.from_numpy(
+            rng.normal(size=(LB, cfg.encoder_seq, cfg.d_model))).to(device=device, dtype=act)
+    return short, nxt, long_batch, long_seq[:, LS:]
 
 
 def serve_phase(device, kernels) -> dict:
@@ -3922,19 +4048,20 @@ def serve_phase(device, kernels) -> dict:
     cfg = get_config(SERVE_ARCH)
     params, made = full_width_params(cfg, device)
     out.update(made)
-    prompts, out["serve"] = served(cfg, params, device, kernels)
-    short, nxt, long_seq = check_inputs(cfg, prompts, device)
+    requests = serve_launch.make_requests(cfg, SERVE_REQUESTS, SERVE_PROMPT_LEN, SEED)
+    out["serve"] = served(cfg, params, requests, device, kernels)
+    short, nxt, long_batch, long_nxt = check_inputs(cfg, requests, device)
     out["decode_vs_forward_16x64"] = decode_against_forward(
         params, cfg, short, nxt, sync_check=True
     )
     log("  no host sync in a full-width decode step (sync debug mode \"error\")")
     LB, LS = SERVE_LONG
     out[f"decode_vs_forward_{LB}x{LS}"] = decode_against_forward(
-        params, cfg, long_seq[:, :LS], long_seq[:, LS:]
+        params, cfg, long_batch, long_nxt
     )
     torch.cuda.empty_cache()
     out["timing_16x64"] = timed_serving(params, cfg, short, SERVE_DECODE_STEPS)
-    out[f"timing_{LB}x{LS}"] = timed_serving(params, cfg, long_seq[:, :LS], SERVE_DECODE_STEPS)
+    out[f"timing_{LB}x{LS}"] = timed_serving(params, cfg, long_batch, SERVE_DECODE_STEPS)
     return out
 
 
@@ -3986,8 +4113,8 @@ def serve_moe_phase(device, kernels) -> dict:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         params, report = full_width_params(cfg, device)
-        prompts = serve_launch.make_prompts(cfg, SERVE_REQUESTS, SERVE_PROMPT_LEN, SEED)
-        short, nxt, long_seq = check_inputs(cfg, prompts, device)
+        requests = serve_launch.make_requests(cfg, SERVE_REQUESTS, SERVE_PROMPT_LEN, SEED)
+        short, nxt, long_batch, long_nxt = check_inputs(cfg, requests, device)
         if full_depth:
             if report["params"] != SERVE_MOE_PARAMS:
                 raise AssertionError(
@@ -3995,24 +4122,83 @@ def serve_moe_phase(device, kernels) -> dict:
                 )
             report["init_scale_16x64"] = decode_readings(params, no_drop, short, nxt)
             at_true_fan_in(params, cfg)
-            _, report["serve"] = served(cfg, params, device, kernels)
+            report["serve"] = served(cfg, params, requests, device, kernels)
         report["decode_vs_forward_16x64"] = decode_against_forward(
             params, no_drop, short, nxt, sync_check=True
         )
         log(f"  no host sync in a full-width {cfg.name} decode step (sync debug mode \"error\")")
         if full_depth:
             report[f"decode_vs_forward_{LB}x{LS}"] = decode_against_forward(
-                params, no_drop, long_seq[:, :LS], long_seq[:, LS:]
+                params, no_drop, long_batch, long_nxt
             )
         torch.cuda.empty_cache()
         report["timing_16x64"] = timed_serving(params, cfg, short, SERVE_DECODE_STEPS)
         if full_depth:
             report[f"timing_{LB}x{LS}"] = timed_serving(
-                params, cfg, long_seq[:, :LS], SERVE_DECODE_STEPS
+                params, cfg, long_batch, SERVE_DECODE_STEPS
             )
         del params
         report["peak_bytes"] = torch.cuda.max_memory_allocated()
         out[f"{cfg.name}_{cfg.n_layers}_layers"] = report
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_recurrent_phase(device, kernels) -> dict:
+    """Phase serve_recurrent: the SSM, RG-LRU and encoder-decoder archs of
+    ``SERVE_RECURRENT_SMOKE_ARCHS`` at smoke size on the card against the
+    CPU; then each at full width and depth in bf16 from a seeded CUDA
+    generator, its param count (and whisper's encoder's) held against the
+    schema's.  Each model's ``decode_readings`` at ``init``'s scale are
+    reported; then its leaves are brought to their true fan-in
+    (``at_true_fan_in``: ``init`` scales a stacked leaf by its layer axis,
+    mamba2's ``in_proj`` 5.7x, the RG-LRU gates 18.5x, whisper's ``wq``
+    6.3x too large) and it is served by ``launch/serve.py``'s ``serve``
+    at its defaults in front of the prefix cache (its state against a CPU
+    cache's, the four QF kernels counted), decoded against ``forward`` at
+    16 x 64 (the step under the sync debug mode) and over a chunked long
+    prefill (2 x 4,096; whisper 2 x 3,584, whose forward over S + 1 must
+    fit its 4,096 positions), and timed beside its bounds; its peak
+    memory last.  RecurrentGemma's long prefill wraps its 2,048-slot
+    attention ring."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"smoke_card_vs_cpu": smoke_card_vs_cpu(device, SERVE_RECURRENT_SMOKE_ARCHS)}
+    for name in SERVE_RECURRENT_SMOKE_ARCHS:
+        cfg = get_config(name)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params, report = full_width_params(cfg, device)
+        if report["params"] != SERVE_RECURRENT_PARAMS[name]:
+            raise AssertionError(
+                f"{name}: {report['params']} params, not {SERVE_RECURRENT_PARAMS[name]}"
+            )
+        if cfg.is_encoder_decoder:
+            report["encoder_params"] = sum(
+                t.numel() for _, t in llm_schema.tree_items(params["encoder"]))
+            if report["encoder_params"] != SERVE_WHISPER_ENCODER_PARAMS:
+                raise AssertionError(f"{name}: the encoder holds {report['encoder_params']}")
+        requests = serve_launch.make_requests(cfg, SERVE_REQUESTS, SERVE_PROMPT_LEN, SEED)
+        long = SERVE_WHISPER_LONG if cfg.is_encoder_decoder else SERVE_LONG
+        short, nxt, long_batch, long_nxt = check_inputs(cfg, requests, device, long)
+        report["init_scale_16x64"] = decode_readings(params, cfg, short, nxt)
+        at_true_fan_in(params, cfg)
+        report["serve"] = served(cfg, params, requests, device, kernels)
+        report["decode_vs_forward_16x64"] = decode_against_forward(
+            params, cfg, short, nxt, sync_check=True
+        )
+        log(f"  no host sync in a full-width {name} decode step (sync debug mode \"error\")")
+        LB, LS = long
+        report[f"decode_vs_forward_{LB}x{LS}"] = decode_against_forward(
+            params, cfg, long_batch, long_nxt
+        )
+        torch.cuda.empty_cache()
+        report["timing_16x64"] = timed_serving(params, cfg, short, SERVE_DECODE_STEPS)
+        report[f"timing_{LB}x{LS}"] = timed_serving(params, cfg, long_batch, SERVE_DECODE_STEPS)
+        del params, short, long_batch
+        report["peak_bytes"] = torch.cuda.max_memory_allocated()
+        log(f"  {name}: {json.dumps(report)}")
+        out[name] = report
     torch.cuda.empty_cache()
     return out
 
@@ -4532,7 +4718,16 @@ def main(device: str = "cuda") -> int:
     log(f"phase serve_moe ({card_line()}): " + json.dumps(moe_report))
     phase_s["serve_moe"] = time.perf_counter() - t0
 
-    # 19. report
+    # 19. serve_recurrent: the SSM, RG-LRU and encoder-decoder serving path
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    recurrent_report = serve_recurrent_phase(device, kernels)
+    peaks["serve_recurrent"] = max(r.get("peak_bytes", 0) for r in recurrent_report.values())
+    log(f"phase serve_recurrent ({card_line()}): " + json.dumps(recurrent_report))
+    phase_s["serve_recurrent"] = time.perf_counter() - t0
+
+    # 20. report
     for n, row in rows.items():
         row["launches"] = launches[n]
         if row["max_abs_err"] != 0:

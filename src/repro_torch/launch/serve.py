@@ -6,7 +6,7 @@ without paying the remote round trip for misses.  The model and the
 filter run on the card unless ``--device`` says otherwise; on the card
 the prefix cache takes the QF kernels (``kernels.dispatch.backend_for``).
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b --smoke \\
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m --smoke \\
       --requests 16 --gen 8 --device cpu
 """
 
@@ -26,18 +26,24 @@ from ..serve.prefix_cache import PrefixCacheFilter
 from ..serve.serve_step import sample_greedy
 
 
-def make_prompts(cfg, requests: int, prompt_len: int, seed: int) -> np.ndarray:
-    """The served prompts, drawn as the reference draws them: half the
-    requests repeat earlier prompts (cache hits)."""
+def make_requests(cfg, requests: int, prompt_len: int, seed: int) -> tuple:
+    """The served prompts and an encoder-decoder's frames, drawn as the
+    reference draws them, from one generator in its order: the prompts,
+    half the requests repeating earlier ones (cache hits), then the frames
+    (requests, encoder_seq, d_model) float64 (None for a decoder)."""
     rng = np.random.default_rng(seed)
     prompts = rng.integers(0, cfg.vocab_size, (requests, prompt_len))
     prompts[requests // 2 :] = prompts[: requests - requests // 2]
-    return prompts
+    frames = None
+    if cfg.is_encoder_decoder:
+        frames = rng.normal(size=(requests, cfg.encoder_seq, cfg.d_model))
+    return prompts, frames
 
 
-def serve(cfg, params, prompts: np.ndarray, gen: int, device=None):
-    """Check the prompts against a fresh prefix cache, then prefill them and
-    decode ``gen`` greedy tokens a request.
+def serve(cfg, params, prompts: np.ndarray, gen: int, device=None, frames=None):
+    """Check the prompts against a fresh prefix cache, then prefill them
+    (with ``frames``, cast to the activations' dtype, for an
+    encoder-decoder) and decode ``gen`` greedy tokens a request.
 
     Returns (hits, tokens, prefix_cache): the hit mask (numpy bool),
     the generated tokens (B, gen) int32 on ``device``, and the
@@ -50,6 +56,8 @@ def serve(cfg, params, prompts: np.ndarray, gen: int, device=None):
           f"(repeats should hit)")
 
     batch = {"tokens": torch.as_tensor(prompts, dtype=torch.int32, device=device)}
+    if frames is not None:
+        batch["frames"] = torch.as_tensor(frames, device=device).to(getattr(torch, cfg.act_dtype))
     t0 = time.time()
     logits, cache = model.prefill(params, cfg, batch)
     tok = sample_greedy(logits)[:, None]
@@ -83,8 +91,8 @@ def main(argv=None):
         cfg = make_smoke(cfg)
     device = resolve_device(args.device)
     params = model.init(cfg, args.seed, device)
-    prompts = make_prompts(cfg, args.requests, args.prompt_len, args.seed)
-    serve(cfg, params, prompts, args.gen, device)
+    prompts, frames = make_requests(cfg, args.requests, args.prompt_len, args.seed)
+    serve(cfg, params, prompts, args.gen, device, frames)
     return 0
 
 

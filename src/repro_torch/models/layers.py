@@ -106,3 +106,25 @@ def unembed(p, x, tie_embeddings: bool):
     if tie_embeddings:
         return x @ p["tok_embed"].T
     return x @ p["lm_head"]
+
+
+def conv1d_causal(x, w, b=None, cache=None):
+    """Depthwise causal 1D conv. x: (B, S, C); w: (K, C).
+
+    Returns (y, cache): the last K - 1 inputs (not outputs) as the cache.
+    With ``cache`` (B, K-1, C): a single-step decode of x (B, 1, C)."""
+    K = w.shape[0]
+    if cache is not None:
+        window = torch.cat([cache, x], dim=1)  # (B, K, C)
+        y = torch.einsum("bkc,kc->bc", window, w)[:, None, :]
+        if b is not None:
+            y = y + b
+        return y, window[:, 1:, :]
+    pad = torch.zeros(x.shape[:1] + (K - 1,) + x.shape[2:], dtype=x.dtype, device=x.device)
+    xp = torch.cat([pad, x], dim=1)
+    S = x.shape[1]
+    # K shifted products, summed in the reference's order
+    y = sum(xp[:, i : i + S, :] * w[i][None, None, :] for i in range(K))
+    if b is not None:
+        y = y + b
+    return y, xp[:, -(K - 1) :, :] if K > 1 else None

@@ -13,13 +13,14 @@ The port of ``repro.models.model``'s serving half:
 
 Params and caches are nested dicts of tensors with the reference's paths,
 the units' leaves stacked on a leading layer axis, the leading dense
-layers (``prefix_{i}``) unstacked.  ``forward`` and the decode path apply
-the decoder families with GQA or MLA attention and a dense MLP or MoE
-(dense, vlm, moe); the others raise ``NotImplementedError`` naming the
-slice that ports them (``transformer.refuse_unported``).  ``decode_step``
-writes the cache in place, where the reference donates it, and reads
-nothing back to the host: the position stays a device scalar.  ``loss_fn`` comes with the
-training slice.
+layers (``prefix_{i}``) and the remainder layers (``tail_{i}``)
+unstacked.  ``forward`` and the decode path apply every family: the
+decoders with GQA or MLA attention and a dense MLP or MoE, the Mamba-2
+SSM, the Griffin hybrid (RG-LRU and windowed attention) and the Whisper
+encoder-decoder (``batch["frames"]`` through ``_encode``).
+``decode_step`` writes the cache in place, where the reference donates
+it, and reads nothing back to the host: the position stays a device
+scalar.  ``loss_fn`` comes with the training slice.
 """
 
 from __future__ import annotations
@@ -31,13 +32,12 @@ import torch
 
 from ..core.quotient_filter import resolve_device
 from . import schema as S
-from .layers import embed_tokens, unembed
+from .attention import gqa_attention
+from .layers import embed_tokens, mlp, unembed
 from .transformer import (
-    SSM_SLICE,
     apply_unit,
     layer_kinds,
     norm,
-    refuse_unported,
     scan_units,
     split_layers,
     unit_pattern,
@@ -306,46 +306,77 @@ def to_numpy(params):
 # ---------------------------------------------------------------------------
 
 
-def _units(cfg) -> tuple:
-    """The unit pattern, the number of leading dense layers and of units.
-    A config with remainder layers after the units is refused by name."""
-    prefix, n_units, tail = split_layers(cfg)
-    if tail:
-        raise NotImplementedError(f"{cfg.name}: remainder layers come with {SSM_SLICE}")
-    return unit_pattern(cfg), prefix, n_units
+def _encode(params, cfg, frames):
+    """frames: (B, enc_seq, d), precomputed frame embeddings (the stub
+    front end).  The encoder's non-causal layers, no RoPE; its own
+    learned positions."""
+    enc = params["encoder"]
+    x = frames + enc["pos_embed"][None, : frames.shape[1], :].to(frames.dtype)
+    B, Se = frames.shape[:2]
+    pos = torch.arange(Se, dtype=torch.int32, device=frames.device).expand(B, Se)
+    layers = enc["layers"]["b0"]
+    for i in range(next(S.tree_items(layers))[1].shape[0]):
+        p = S.tree_map(lambda t: t[i], layers)
+        h, _ = gqa_attention(
+            p["self_attn"], norm(p["norm1"], x, cfg), cfg, pos, causal=False, use_rope=False
+        )
+        x = x + h
+        x = x + mlp(p["mlp"], norm(p["norm3"], x, cfg), cfg.mlp_kind)
+    return norm(enc["final_norm"], x, cfg)
 
 
-def _embed_in(params, cfg, tokens):
+def _embed_in(params, cfg, tokens, pos=None):
+    """Token embeddings in the activations' dtype, plus the learned
+    positions (whisper) at 0..S-1, or at the decode position ``pos`` (a
+    device scalar).  A position past the table reads its last row, as
+    the reference's clamping gather does."""
     x = embed_tokens(params["tok_embed"], tokens, cfg.embed_scale, cfg.d_model)
-    return x.to(getattr(torch, cfg.act_dtype))
+    x = x.to(getattr(torch, cfg.act_dtype))
+    if cfg.rope == "learned":
+        if pos is None:
+            pos = torch.arange(tokens.shape[1], device=tokens.device)
+        idx = torch.clamp(pos, max=cfg.max_seq - 1).to(torch.int64).reshape(-1)
+        x = x + params["pos_embed"].index_select(0, idx)[None].to(x.dtype)
+    return x
 
 
-def _apply_stack(params, cfg, x, positions, *, mode, cache=None, mrope_positions=None):
-    """The leading dense layers unlooped, then the looped units.  Returns
-    (x, collected, aux): collected["prefix_{i}"] a leading layer's K/V
+def _apply_stack(params, cfg, x, positions, *, mode, cache=None, enc_out=None,
+                 mrope_positions=None):
+    """The leading dense layers unlooped, the looped units, then the
+    remainder layers unlooped.  Returns (x, collected, aux):
+    collected["prefix_{i}"] / ["tail_{i}"] a single layer's K/V or state
     (prefill) or delta (decode), collected["layers"] the units', stacked;
     aux the MoE balance losses summed."""
-    pat, prefix, _ = _units(cfg)
+    pat = unit_pattern(cfg)
+    prefix, _, tail = split_layers(cfg)
     kinds = layer_kinds(cfg)
     collected, aux = {}, 0.0
-    for i in range(prefix):
-        grp = f"prefix_{i}"
+
+    def single(grp, kind, x, moe):
         x, col, a = apply_unit(
-            (kinds[i],), {"b0": params[grp]}, x, cfg, positions, mode=mode,
-            cache=None if cache is None else {"b0": cache[grp]},
-            mrope_positions=mrope_positions, moe_flags=(False,),
+            (kind,), {"b0": params[grp]}, x, cfg, positions, mode=mode,
+            cache=None if cache is None else {"b0": cache[grp]}, enc_out=enc_out,
+            mrope_positions=mrope_positions, moe_flags=(moe,),
         )
-        aux = aux + a
         if col is not None:
             collected[grp] = col["b0"]
+        return x, a
+
+    for i in range(prefix):
+        x, a = single(f"prefix_{i}", kinds[i], x, False)
+        aux = aux + a
     x, col, a = scan_units(
         pat, params["layers"], x, cfg, positions, mode=mode,
-        cache=None if cache is None else cache["layers"],
+        cache=None if cache is None else cache["layers"], enc_out=enc_out,
         mrope_positions=mrope_positions, moe_flags=moe_flags_for(cfg, pat),
     )
     if col is not None:
         collected["layers"] = col
-    return x, collected, aux + a
+    aux = aux + a
+    for i, kind in enumerate(tail):
+        x, a = single(f"tail_{i}", kind, x, cfg.is_moe)
+        aux = aux + a
+    return x, collected, aux
 
 
 def _text_positions(cfg, positions, mrope_positions):
@@ -356,18 +387,24 @@ def _text_positions(cfg, positions, mrope_positions):
 
 
 def forward(params, cfg, batch, *, mode="train"):
-    """batch: dict(tokens (B,S) [, mrope_positions]).
+    """batch: dict(tokens (B,S) [, frames, mrope_positions]).
 
     Returns (logits, collected, aux): logits at every position; aux, the
-    MoE balance losses summed over the layers (float32; 0 without MoE)."""
+    MoE balance losses summed over the layers (float32; 0 without MoE).
+    In prefill an encoder-decoder's collected also holds the encoder's
+    output, ``collected["enc_out"]``, for the cross-attention cache."""
     tokens = batch["tokens"]
     B, Sq = tokens.shape
     x = _embed_in(params, cfg, tokens)
     positions = torch.arange(Sq, dtype=torch.int32, device=tokens.device).expand(B, Sq)
     mrope_positions = _text_positions(cfg, positions, batch.get("mrope_positions"))
+    enc_out = _encode(params, cfg, batch["frames"]) if cfg.is_encoder_decoder else None
     x, collected, aux = _apply_stack(
-        params, cfg, x, positions, mode=mode, mrope_positions=mrope_positions
+        params, cfg, x, positions, mode=mode, enc_out=enc_out,
+        mrope_positions=mrope_positions,
     )
+    if mode == "prefill" and enc_out is not None:
+        collected["enc_out"] = enc_out
     x = norm(params["final_norm"], x, cfg)
     aux = torch.as_tensor(aux, dtype=torch.float32, device=x.device)
     return unembed(params, x, cfg.tie_embeddings), collected, aux
@@ -379,28 +416,53 @@ def forward(params, cfg, batch, *, mode="train"):
 
 
 def _subblock_cache(cfg, kind: str, lead: tuple, B: int, ctx: int, dtype, device):
-    """Empty cache for one attention sub-block: K/V, or MLA's latents
-    ``c_kv`` and ``k_rope``, and the slots' positions; ``lead`` is
-    (n_units,) for the looped units' stacked leaves, () for a leading layer."""
-    refuse_unported(cfg, kind)
+    """Empty cache for one sub-block; ``lead`` is (n_units,) for the looped
+    units' stacked leaves, () for a leading or remainder layer.
+
+    ``ssm``: the conv window (B, K-1, d_in + 2GN) and the state (B, H, P, N);
+    ``rec``: the conv window (B, 3, w) and the state (B, w); ``xattn``: a
+    ``self`` ring of ``ctx`` slots and a ``cross`` cache of the encoder's
+    ``encoder_seq`` slots; ``attn``: K/V, or MLA's latents ``c_kv`` and
+    ``k_rope``, in a ring of ``min(ctx, attn_window)`` slots.  Rings carry
+    their slots' positions, ``kpos``."""
+
+    def zeros(*shape):
+        return torch.zeros(lead + shape, dtype=dtype, device=device)
+
+    def kpos(length, fill):
+        return torch.full(lead + (B, length), fill, dtype=torch.int32, device=device)
+
+    KV, Dh = cfg.n_kv_heads, cfg.head_dim
+    if kind == "ssm":
+        d_in = cfg.ssm_expand * cfg.d_model
+        G, N, K = cfg.ssm_n_groups, cfg.ssm_d_state, cfg.ssm_d_conv
+        H = d_in // cfg.ssm_head_dim
+        return {"ssm": {"conv": zeros(B, K - 1, d_in + 2 * G * N),
+                        "state": zeros(B, H, cfg.ssm_head_dim, N)}}
+    if kind == "rec":
+        w = cfg.lru_width or cfg.d_model
+        return {"rec": {"conv": zeros(B, 3, w), "state": zeros(B, w)}}
+    if kind == "xattn":
+        Se = cfg.encoder_seq
+        return {
+            "self": {"k": zeros(B, ctx, KV, Dh), "v": zeros(B, ctx, KV, Dh), "kpos": kpos(ctx, -1)},
+            "cross": {"k": zeros(B, Se, KV, Dh), "v": zeros(B, Se, KV, Dh), "kpos": kpos(Se, 0)},
+        }
     length = min(ctx, cfg.attn_window) if cfg.attn_window else ctx
-    rows = lead + (B, length)
-
-    def zeros(*width):
-        return torch.zeros(rows + width, dtype=dtype, device=device)
-
     if cfg.attn_kind == "mla":
-        leaves = {"c_kv": zeros(cfg.kv_lora_rank), "k_rope": zeros(cfg.qk_rope_dim)}
+        leaves = {"c_kv": zeros(B, length, cfg.kv_lora_rank),
+                  "k_rope": zeros(B, length, cfg.qk_rope_dim)}
     else:
-        leaves = {"k": zeros(cfg.n_kv_heads, cfg.head_dim), "v": zeros(cfg.n_kv_heads, cfg.head_dim)}
-    leaves["kpos"] = torch.full(rows, -1, dtype=torch.int32, device=device)
+        leaves = {"k": zeros(B, length, KV, Dh), "v": zeros(B, length, KV, Dh)}
+    leaves["kpos"] = kpos(length, -1)
     return {"attn": leaves}
 
 
 def init_cache(cfg, B: int, ctx: int, dtype=None, device=None):
     device = resolve_device(device)
     dt = getattr(torch, dtype or cfg.act_dtype)
-    pat, prefix, n_units = _units(cfg)
+    pat = unit_pattern(cfg)
+    prefix, n_units, tail = split_layers(cfg)
     kinds = layer_kinds(cfg)
     cache: dict[str, Any] = {
         "layers": {
@@ -411,6 +473,8 @@ def init_cache(cfg, B: int, ctx: int, dtype=None, device=None):
     }
     for i in range(prefix):
         cache[f"prefix_{i}"] = _subblock_cache(cfg, kinds[i], (), B, ctx, dt, device)
+    for i, k in enumerate(tail):
+        cache[f"tail_{i}"] = _subblock_cache(cfg, k, (), B, ctx, dt, device)
     return cache
 
 
@@ -423,7 +487,10 @@ def prefill(params, cfg, batch, *, headroom: int = 128):
     B, Sq = tokens.shape
     logits, collected, _ = forward(params, cfg, batch, mode="prefill")
     cache = init_cache(cfg, B, Sq + headroom, cfg.act_dtype, tokens.device)
+    enc_out = collected.pop("enc_out", None)
     cache = _fill_cache_from_collected(cache, collected, Sq)
+    if enc_out is not None:
+        _fill_cross(cache["layers"]["b0"]["cross"], params["layers"]["b0"]["cross_attn"], enc_out)
     cache["pos"] = torch.tensor(Sq, dtype=torch.int32, device=tokens.device)
     return logits[:, -1], cache
 
@@ -447,28 +514,45 @@ def _ring_gather(kv, S, length, axis: int = 1):
 
 
 def _fill_unit_cache(cache_b, col_b, S):
-    """Ring-gather one sub-block's K/V (or MLA's ``c_kv``, ``k_rope``) into
-    its cache, with the slots' positions.  The positions run along the
-    cache's ring axis: 2 for the units' stacked leaves (n_units, B, S, ...),
-    1 for a leading layer's (B, S, ...)."""
-    sub = cache_b["attn"]
+    """Fill one sub-block's cache from what its prefill collected: an
+    ``ssm``/``rec`` state and conv window copied in; K/V (or MLA's
+    ``c_kv``, ``k_rope``) ring-gathered, with the slots' positions.  The
+    positions run along the cache's ring axis: 2 for the units' stacked
+    leaves (n_units, B, S, ...), 1 for a single layer's (B, S, ...)."""
+    for kind in ("ssm", "rec"):
+        if kind in col_b:
+            for name, leaf in col_b[kind].items():
+                cache_b[kind][name].copy_(leaf)
+            return cache_b
+    sub = cache_b["self"] if "self_kv" in col_b else cache_b["attn"]
     axis = sub["kpos"].ndim - 1
     length = sub["kpos"].shape[axis]
     names = ("c_kv", "k_rope") if "c_kv" in sub else ("k", "v")
-    for name, leaf in zip(names, col_b["kv"]):
+    for name, leaf in zip(names, col_b.get("self_kv", col_b.get("kv"))):
         sub[name], idx = _ring_gather(leaf, S, length, axis=axis)
     sub["kpos"] = idx.expand(sub["kpos"].shape).contiguous()
     return cache_b
 
 
+def _fill_cross(cross, p_cross, enc_out):
+    """The units' cross-attention cache from the encoder's output: each
+    layer's ``enc_out @ wk`` and ``enc_out @ wv`` (no RoPE, no k-norm) at
+    the frames' positions, written into the stacked leaves in place."""
+    for i in range(cross["k"].shape[0]):
+        cross["k"][i] = torch.einsum("bsd,dhk->bshk", enc_out, p_cross["wk"][i])
+        cross["v"][i] = torch.einsum("bsd,dhk->bshk", enc_out, p_cross["wv"][i])
+    cross["kpos"].copy_(torch.arange(cross["kpos"].shape[-1], device=enc_out.device)
+                        .expand(cross["kpos"].shape))
+
+
 def _sub_blocks(cache, collected):
-    """Each attention sub-block's cache beside what it collected: the
-    looped units' (stacked), then the leading layers'."""
+    """Each sub-block's cache beside what it collected: the looped units'
+    (stacked), then the single layers' (leading and remainder)."""
     for grp, col in collected.items():
         if grp == "layers":
             for key, col_b in col.items():
                 yield cache["layers"][key], col_b
-        else:  # a leading layer
+        else:  # a leading or remainder layer
             yield cache[grp], col
 
 
@@ -481,9 +565,10 @@ def _fill_cache_from_collected(cache, collected, S):
 def _write_delta(sub: dict, delta: dict, pos):
     """Write one sub-block's decode delta (K/V or MLA's latents, one position)
     into its cache slot ``pos % ring``, in place, with the slot as a device
-    tensor (no host read).  The ring axis is the cache's: 2 for the units'
-    stacked leaves, 1 for a leading layer's."""
-    tgt = sub["attn"]
+    tensor (no host read): ``attn``'s ring, or ``xattn``'s ``self`` ring.
+    The ring axis is the cache's: 2 for the units' stacked leaves, 1 for a
+    single layer's."""
+    tgt = sub["self"] if "self" in sub else sub["attn"]
     kp = tgt["kpos"]
     axis = kp.ndim - 1
     slot = (pos % kp.shape[axis]).to(torch.int64).reshape(1)
@@ -498,12 +583,13 @@ def decode_step(params, cfg, cache, tokens, *, mrope_positions=None):
 
     The attention layers read the cache and return their K/V deltas;
     each leaf's deltas are then written into the cache's slot in place
-    (the cache passed in is the one returned), and ``cache["pos"]``
-    advances on the device."""
+    (the cache passed in is the one returned), as the ``ssm`` and ``rec``
+    layers write their states and conv windows while they run, and
+    ``cache["pos"]`` advances on the device."""
     B = tokens.shape[0]
     pos = cache["pos"]
     positions = pos.expand(B, 1)
-    x = _embed_in(params, cfg, tokens)
+    x = _embed_in(params, cfg, tokens, pos)
     mrope_positions = _text_positions(cfg, positions, mrope_positions)
     x, collected, _ = _apply_stack(
         params, cfg, x, positions, mode="decode", cache=cache,

@@ -3,12 +3,14 @@
 The port of ``repro.models.transformer``.  A model is a stack of units
 whose parameters (and decode caches) are stacked on a leading layer axis,
 as in the reference; ``scan_units`` walks that axis in a Python loop (no
-remat: serving has no backward pass).  This port applies the ``attn``
-sub-block: GQA or MLA attention, then a dense MLP or the MoE FFN, whose
-load-balance aux loss is summed through the units.  The other kinds are
-refused by name until the slice that ports them:
-  ssm, rec    — the SSM / RG-LRU / encoder slice
-  xattn       — the same slice (the encoder-decoder block)
+remat: serving has no backward pass).  Sub-block kinds:
+  attn   — GQA/MLA attention + (MLP | MoE), the MoE aux loss summed
+  rec    — Griffin recurrent block + MLP
+  ssm    — Mamba-2 mixer (no separate MLP)
+  xattn  — encoder-decoder block (self + cross attention + MLP)
+In decode the ``ssm`` and ``rec`` sub-blocks write their new state and
+conv window into the cache in place (``copy_`` into the stacked leaves'
+views), where the reference returns them through its cache channel.
 """
 
 from __future__ import annotations
@@ -20,9 +22,9 @@ import torch
 from .attention import gqa_attention, mla_attention
 from .layers import layer_norm, mlp, rms_norm
 from .moe import moe_ffn
+from .rglru import recurrent_block
 from .schema import tree_items, tree_map
-
-SSM_SLICE = "the SSM / RG-LRU / encoder slice"
+from .ssm import ssm_block
 
 
 def norm(p, x, cfg):
@@ -65,16 +67,20 @@ def split_layers(cfg) -> tuple[int, int, list[str]]:
     return prefix, n_units, tail
 
 
-def refuse_unported(cfg, kind: str) -> None:
-    """Raise ``NotImplementedError`` for a sub-block this port cannot apply
-    yet, naming the slice that brings it."""
-    if kind in ("ssm", "rec", "xattn"):
-        raise NotImplementedError(f"{cfg.name}: '{kind}' blocks come with {SSM_SLICE}")
-
-
 # ---------------------------------------------------------------------------
 # Sub-block application
 # ---------------------------------------------------------------------------
+
+
+def _state_block(kind, block, p, x, cfg, cache, mode):
+    """An ``ssm`` or ``rec`` mixer on the normed input, residual added.  In
+    decode its new state and conv window go into ``cache[kind]`` in place."""
+    sub = cache.get(kind) if cache else None
+    h, c_new, state = block(p[kind], norm(p["norm"], x, cfg), cfg, cache=sub)
+    if c_new is not None:
+        for name, leaf in c_new.items():
+            sub[name].copy_(leaf)
+    return x + h, ({kind: state} if mode == "prefill" else None)
 
 
 def apply_subblock(
@@ -86,13 +92,52 @@ def apply_subblock(
     *,
     mode: str,  # train | prefill | decode
     cache: Optional[dict] = None,
+    enc_out=None,
     mrope_positions=None,
     is_moe_layer: bool = False,
 ):
-    """Returns (x, collected, aux): collected the K/V (or latents) for
-    prefill, the delta for decode; aux the MoE balance loss, 0.0 for a
-    dense MLP."""
-    refuse_unported(cfg, kind)
+    """Returns (x, collected, aux): collected the K/V (or latents, or an
+    ``ssm``/``rec`` state and conv window) for prefill, the K/V delta for
+    decode; aux the MoE balance loss, 0.0 for a dense MLP."""
+    if kind == "ssm":
+        x, col = _state_block("ssm", ssm_block, p, x, cfg, cache, mode)
+        return x, col, 0.0
+
+    if kind == "rec":
+        x, col = _state_block("rec", recurrent_block, p, x, cfg, cache, mode)
+        x = x + mlp(p["mlp"], norm(p["mlp_norm"], x, cfg), cfg.mlp_kind)
+        return x, col, 0.0
+
+    if kind == "xattn":
+        h, kv = gqa_attention(
+            p["self_attn"],
+            norm(p["norm1"], x, cfg),
+            cfg,
+            positions,
+            causal=True,
+            cache=None if cache is None else cache["self"],
+            use_rope=cfg.rope in ("rope", "mrope"),
+        )
+        x = x + h
+        h, _ = gqa_attention(
+            p["cross_attn"],
+            norm(p["norm2"], x, cfg),
+            cfg,
+            positions,
+            causal=False,
+            kv_from=enc_out,
+            is_cross=True,
+            cache=None if cache is None else cache["cross"],
+            use_rope=False,
+        )
+        x = x + h
+        x = x + mlp(p["mlp"], norm(p["norm3"], x, cfg), cfg.mlp_kind)
+        if mode == "prefill":
+            return x, {"self_kv": kv}, 0.0
+        if mode == "decode":
+            return x, {"delta": kv}, 0.0
+        return x, None, 0.0
+
     sub_cache = cache.get("attn") if cache else None
     if cfg.attn_kind == "mla":
         h, kv = mla_attention(p["attn"], norm(p["norm"], x, cfg), cfg, positions, cache=sub_cache)
@@ -132,6 +177,7 @@ def apply_unit(
     *,
     mode: str,
     cache=None,
+    enc_out=None,
     mrope_positions=None,
     moe_flags: tuple = (),
 ):
@@ -146,6 +192,7 @@ def apply_unit(
             positions,
             mode=mode,
             cache=None if cache is None else cache[key],
+            enc_out=enc_out,
             mrope_positions=mrope_positions,
             is_moe_layer=bool(moe_flags[i]) if moe_flags else cfg.is_moe,
         )
@@ -164,6 +211,7 @@ def scan_units(
     *,
     mode: str,
     cache=None,
+    enc_out=None,
     mrope_positions=None,
     moe_flags=(),
 ):
@@ -181,6 +229,7 @@ def scan_units(
             positions,
             mode=mode,
             cache=None if cache is None else tree_map(lambda t: t[i], cache),
+            enc_out=enc_out,
             mrope_positions=mrope_positions,
             moe_flags=moe_flags,
         )

@@ -1,7 +1,7 @@
 """The port's LLM skeleton (``repro_torch.configs``, ``repro_torch.models``)
 against the JAX package on the CPU.
 
-The seven decoder architectures the port serves (the five GQA ones, and
+The seven decoder architectures (the five GQA ones, and
 the MoE ones: DeepSeek-V2-Lite with MLA and a leading dense layer, Grok-1
 with GQA) run under ``make_smoke`` (float32) with the JAX package's
 ``model.init(cfg, 0)`` carried across by ``model.from_numpy``, so both
@@ -14,6 +14,8 @@ them) are held to
 
 (float32; the two frameworks sum in other orders, which moves the last
 few bits of a float32, about 1e-6 of the largest value at these sizes).
+The SSM, RG-LRU and encoder-decoder archs are held by
+``tests/test_torch_recurrent.py``.
 ``moe_ffn`` and ``mla_attention`` also run on bfloat16 leaves and
 activations, cast at the reference's points, held to ``BF16_RTOL`` = 2^-6,
 four bf16 steps of the largest value.  Each architecture's JAX side
@@ -46,7 +48,6 @@ BF16_RTOL = 2**-6
 GQA_ARCHS = ["qwen3-8b", "deepseek-7b", "gemma-7b", "starcoder2-15b", "qwen2-vl-7b"]
 MOE_ARCHS = ["deepseek-v2-lite-16b", "grok-1-314b"]
 SERVED_ARCHS = GQA_ARCHS + MOE_ARCHS
-UNPORTED = ["mamba2-130m", "recurrentgemma-9b", "whisper-large-v3"]
 B, S, STEPS = 2, 24, 4
 
 
@@ -395,17 +396,6 @@ def test_from_numpy_rejects_a_wrong_tree(fault):
         tree["final_norm"]["scale"] = tree["final_norm"]["scale"].astype(np.float64)
     with pytest.raises(ValueError):
         tmodel.from_numpy(cfg, tree, device="cpu")
-
-
-@pytest.mark.parametrize("name", UNPORTED)
-def test_unported_arch_is_refused(name):
-    cfg = tconfigs.make_smoke(tconfigs.get_config(name))
-    params = tmodel.init(cfg, 0, device="cpu")
-    tokens = torch.zeros((1, 8), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="slice"):
-        tmodel.forward(params, cfg, {"tokens": tokens})
-    with pytest.raises(NotImplementedError, match="slice"):
-        tmodel.init_cache(cfg, 1, 8, device="cpu")
 
 
 def test_init_without_a_device_needs_a_card(monkeypatch):

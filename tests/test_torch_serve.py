@@ -1,10 +1,13 @@
 """The port's serving path (``repro_torch.serve.serve_step``,
 ``repro_torch.launch.serve``) against the JAX package on the CPU.
 
-The serve function runs deepseek-7b, and the MoE + MLA model
-deepseek-v2-lite-16b, under ``make_smoke`` (the serve test of
-``tests/test_system.py``: 4 requests of 16 tokens, 3 generated) on the
-JAX package's weights carried across by ``model.from_numpy``, and must give
+The serve function runs deepseek-7b, the MoE + MLA model
+deepseek-v2-lite-16b, and the SSM, RG-LRU and encoder-decoder models
+mamba2-130m, recurrentgemma-9b and whisper-large-v3 (whisper with the
+frames drawn after the prompts, as the reference draws them), under
+``make_smoke`` (the serve test of ``tests/test_system.py``: 4 requests
+of 16 tokens, 3 generated) on the JAX package's weights carried across
+by ``model.from_numpy``, and must give
 the prefix-cache hits, the cache's state and the greedy tokens of the JAX
 package's ``prefill``, ``decode_step``, ``sample_greedy`` and
 ``PrefixCacheFilter`` composed as ``repro/launch/serve.py`` composes them.
@@ -34,7 +37,8 @@ ARCH, REQUESTS, PROMPT_LEN, GEN, SEED = "deepseek-7b", 4, 16, 3, 0
 
 @functools.cache
 def jax_served(arch):
-    """``repro/launch/serve.py``'s body on the JAX package."""
+    """``repro/launch/serve.py``'s body on the JAX package, its prefill and
+    decode step jitted as there."""
     cfg = jconfigs.make_smoke(jconfigs.get_config(arch))
     params = jmodel.init(cfg, SEED)
     rng = np.random.default_rng(SEED)
@@ -43,16 +47,22 @@ def jax_served(arch):
     prompts[REQUESTS // 2 :] = prompts[: REQUESTS - REQUESTS // 2]
     hits = pcache.check_and_insert(prompts)
     batch = {"tokens": jnp.asarray(prompts, jnp.int32)}
-    logits, cache = jmodel.prefill(params, cfg, batch, remat=False)
+    frames = None
+    if cfg.is_encoder_decoder:
+        frames = rng.normal(size=(REQUESTS, cfg.encoder_seq, cfg.d_model))
+        batch["frames"] = jnp.asarray(frames, jnp.dtype(cfg.act_dtype))
+    logits, cache = jax.jit(lambda p, b: jmodel.prefill(p, cfg, b, remat=False))(params, batch)
     tok = jserve_step.sample_greedy(logits)[:, None]
+    decode = jax.jit(lambda p, c, t: jmodel.decode_step(p, cfg, c, t))
     out = [tok]
     for _ in range(GEN - 1):
-        logits, cache = jmodel.decode_step(params, cfg, cache, tok)
+        logits, cache = decode(params, cache, tok)
         tok = jserve_step.sample_greedy(logits)[:, None]
         out.append(tok)
     return {
         "params": jax.tree_util.tree_map(np.asarray, params),
         "prompts": prompts,
+        "frames": frames,
         "hits": np.asarray(hits),
         "tokens": np.asarray(jnp.concatenate(out, axis=1)),
         "state": [np.array(x) for x in jax.tree_util.tree_leaves(pcache.state)],
@@ -64,10 +74,14 @@ def check_served(arch):
     prefix cache's state equal to the JAX serve script's."""
     ref = jax_served(arch)
     cfg = tconfigs.make_smoke(tconfigs.get_config(arch))
-    prompts = tserve.make_prompts(cfg, REQUESTS, PROMPT_LEN, SEED)
+    prompts, frames = tserve.make_requests(cfg, REQUESTS, PROMPT_LEN, SEED)
     np.testing.assert_array_equal(prompts, ref["prompts"])
+    if cfg.is_encoder_decoder:
+        np.testing.assert_array_equal(frames, ref["frames"])
+    else:
+        assert frames is None and ref["frames"] is None
     params = tmodel.from_numpy(cfg, ref["params"], device="cpu")
-    hits, tokens, pcache = tserve.serve(cfg, params, prompts, GEN, "cpu")
+    hits, tokens, pcache = tserve.serve(cfg, params, prompts, GEN, "cpu", frames)
     np.testing.assert_array_equal(hits, ref["hits"])
     assert hits[REQUESTS // 2 :].all()
     assert tokens.dtype == torch.int32
@@ -87,6 +101,12 @@ def test_serve_moe_matches_the_jax_serve_script():
     """The same on deepseek-v2-lite-16b: MLA, a leading dense layer and MoE
     layers at the config's capacity factor."""
     check_served("deepseek-v2-lite-16b")
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "recurrentgemma-9b", "whisper-large-v3"])
+def test_serve_recurrent_matches_the_jax_serve_script(arch):
+    """The same on the SSM, RG-LRU and encoder-decoder archs."""
+    check_served(arch)
 
 
 def test_serve_and_prefill_steps_match_the_model():
@@ -128,6 +148,12 @@ def test_main_serves_the_moe_archs_on_the_cpu(arch, capsys):
     assert rc == 0
     out = capsys.readouterr().out
     assert "prefix-cache hits: 2/4" in out and "generated 4x2 tokens" in out
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "recurrentgemma-9b", "whisper-large-v3"])
+def test_main_serves_the_recurrent_archs_on_the_cpu(arch, capsys):
+    """``--arch mamba2-130m`` is the reference driver's own example."""
+    test_main_serves_the_moe_archs_on_the_cpu(arch, capsys)
 
 
 def test_main_without_a_device_needs_a_card(monkeypatch):
