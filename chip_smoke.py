@@ -275,7 +275,32 @@ Phases, each timed, any failure fatal (a traceback and exit code 1):
             2,048-slot attention ring wraps); timings beside bounds that
             count the SSM and RG-LRU layers' fixed state, the window, the
             cross K/V and the encoder; each model's peak memory.
-20. report  one JSON line of per-kernel results (nine rows), then the
+20. train   the training path (``train_phase``): qwen3-8b,
+            deepseek-v2-lite-16b, mamba2-130m, recurrentgemma-9b (at its
+            true fan-in) and whisper-large-v3 under ``make_smoke``
+            (float32), two ``make_train_step`` steps on the card against
+            the CPU port, each from the CPU's state (loss within 1e-4,
+            grad_norm and moments within 1e-3, ``lr`` and ``step`` exact,
+            the params within 2 lr, and within 1e-6 + 1e-5 |p| where the
+            first moment is well set); then ``launch/train.py``'s ``main``
+            at examples/train_e2e.py's configuration, mamba2-130m at full
+            width and depth in bf16, 8 x 512: 12 steps with a checkpoint
+            every 4, then ``--steps 16 --resume``; the restored leaves
+            equal, bit for bit, the leaves saved at step 12, the resumed
+            pipeline's counters the snapshot's, every loss finite, one
+            step under ``set_sync_debug_mode("error")``, the dedup
+            cascade's ``fingerprint``, ``qf_positions``,
+            ``qf_build_planes`` and ``cascade_probe`` launched in each run
+            and held against their plain versions (its last q = 16 build,
+            and ``contains`` of every digest drawn and as many fresh
+            keys); then qwen3-8b at full width cut to 4 of its 36 layers
+            (2.0 B params), bf16, 2 microbatches and int8 error-feedback
+            compression, 3 steps at 4 x 1,024 (the second under the sync
+            debug mode), the first step's loss within 1e-2 of a float32
+            cross entropy of ``forward``'s logits.  Each run's ms a step,
+            tokens/s, bound, aten operations and busy share of a step,
+            and peak memory.
+21. report  one JSON line of per-kernel results (nine rows), then the
             card's name and power limit, then the result line.
 
 The whole run must stay within 1200 s of command time on one H100.
@@ -290,9 +315,11 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import pickle
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from pathlib import Path
@@ -317,11 +344,14 @@ try:
     from repro_torch.kernels import fingerprint, fuse_probe, ops, qf_probe
     from repro_torch.configs import get_config, make_smoke
     from repro_torch.launch import serve as serve_launch
+    from repro_torch.launch import train as train_launch
     from repro_torch.models import model as llm
     from repro_torch.models import moe as llm_moe
     from repro_torch.models import schema as llm_schema
     from repro_torch.models import transformer as llm_transformer
     from repro_torch.serve import serve_step
+    from repro_torch.train import optimizer as llm_optim
+    from repro_torch.train import train_step as llm_train
 except ModuleNotFoundError as e:  # run outside the repository
     if not (e.name or "").startswith("repro_torch"):
         raise
@@ -461,6 +491,22 @@ SERVE_RECURRENT_PARAMS = {  # phase 19, each at full width and depth: its schema
 }
 SERVE_WHISPER_ENCODER_PARAMS = 631_232_000
 SERVE_WHISPER_LONG = (2, 3584)  # chunked prefill whose forward over S + 1 fits max_seq 4,096
+
+# phase train: the training path (launch/train.py, train/, model.loss_fn)
+TRAIN_SMOKE_ARCHS = ("qwen3-8b", "deepseek-v2-lite-16b", "mamba2-130m", "recurrentgemma-9b",
+                     "whisper-large-v3")  # one of each family
+TRAIN_SMOKE_STEPS = 2  # make_train_step steps, card against CPU (float32)
+TRAIN_RTOL = 1e-4  # the step's loss, card against CPU (tests/test_torch_train.py)
+TRAIN_GRAD_RTOL = 1e-3  # grad_norm and the moments, each leaf
+TRAIN_ARCH = "mamba2-130m"  # examples/train_e2e.py's model, at full width and depth
+TRAIN_BATCH, TRAIN_SEQ = 8, 512  # examples/train_e2e.py's batch
+TRAIN_STEPS, TRAIN_RESUMED_STEPS, TRAIN_CKPT_EVERY = 12, 16, 4
+TRAIN_SYNC_CALL = 3  # the driver's step call run under the sync debug mode
+TRAIN_MB_ARCH, TRAIN_MB_LAYERS = "qwen3-8b", 4  # full width, 36 -> 4 layers (2.0 B params)
+TRAIN_MB_SHAPE = (4, 1024)  # (B, S)
+TRAIN_MB_STEPS, TRAIN_MICROBATCHES = 3, 2
+TRAIN_BF16_LOSS_RTOL = 1e-2  # bf16 step loss against a float32 cross entropy of forward
+DEDUP_Q = 16  # PipelineConfig.dedup_ram_q: the dedup cascade's Q0 builds
 H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak of the H100 SXM data sheet
 
 
@@ -4202,6 +4248,349 @@ def serve_recurrent_phase(device, kernels) -> dict:
     torch.cuda.empty_cache()
     return out
 
+# ---------------------------------------------------------------------------
+# phase train: the training path
+# ---------------------------------------------------------------------------
+
+
+def on_device(tree, device):
+    return llm_schema.tree_unflatten(tree, [t.to(device) for t in llm_schema.tree_leaves(tree)])
+
+
+def train_batch(cfg, B: int, S: int, seed: int, device, masked: bool = True) -> dict:
+    """Tokens and targets (B, S) from ``default_rng(seed)`` (three targets
+    masked with -1 when ``masked``), and frames for an encoder-decoder."""
+    rng = np.random.default_rng(seed)
+    batch = {k: rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+             for k in ("tokens", "targets")}
+    if masked:
+        batch["targets"][0, :3] = -1
+    if cfg.is_encoder_decoder:
+        batch["frames"] = rng.normal(size=(B, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def train_params_close(label, got, want, mu, lr: float) -> float:
+    """One AdamW step's params, run from one state on the card and on the
+    CPU: every element within 2 lr (1% slack) + PTOL, since an update is
+    about lr * sign(m) and an element whose moment is near 0 may take the
+    other sign; where the CPU's new first moment ``mu`` is well above its
+    error (|mu| > 2 TRAIN_GRAD_RTOL max |mu| and > (1 - b1) 1e-4) within
+    PTOL = 1e-6 + 1e-5 |p|.  Returns the largest |d| over those elements."""
+    worst = 0.0
+    for (path, g), w, m in zip(llm_schema.tree_items(got), llm_schema.tree_leaves(want),
+                               llm_schema.tree_leaves(mu)):
+        g, w, m = g.float().cpu(), w.float(), m.float().abs()
+        d, tol = (g - w).abs(), 1e-6 + 1e-5 * w.abs()
+        if not bool((d <= 2.02 * lr + tol).all()):
+            raise AssertionError(f"{label}: {'/'.join(path)} moved past 2 lr")
+        well = m > max(2 * TRAIN_GRAD_RTOL * float(m.max()), 0.1 * 1e-4)
+        if not bool((d[well] <= tol[well]).all()):
+            raise AssertionError(f"{label}: {'/'.join(path)} off by {float((d - tol)[well].max())}")
+        worst = max(worst, float(d[well].max()) if bool(well.any()) else 0.0)
+    return worst
+
+
+def train_smoke_card_vs_cpu(device, names) -> dict:
+    """Each arch of ``names`` under ``make_smoke`` (float32): ``make_train_step``
+    steps on the card against the same steps on the CPU port, each step
+    from the CPU's state before it (params made on the CPU; an RG-LRU
+    model's at their true fan-in).  The loss within ``TRAIN_RTOL``,
+    grad_norm and the moments within ``TRAIN_GRAD_RTOL``, the params by
+    ``train_params_close``, ``lr`` and ``step`` exact."""
+    out, ocfg = {}, llm_optim.OptConfig()
+    for name in names:
+        cfg = make_smoke(get_config(name))
+        params = llm.init(cfg, SEED, device="cpu")
+        if "rec" in llm_transformer.layer_kinds(cfg):
+            at_true_fan_in(params, cfg)
+        state = llm_train.TrainState(params, llm_optim.init(params, ocfg))
+        step = llm_train.make_train_step(cfg, ocfg)
+        report = {"loss_rel_err": 0.0, "grad_norm_rel_err": 0.0, "moment_rel_err": 0.0,
+                  "param_abs_err": 0.0}
+        for i in range(TRAIN_SMOKE_STEPS):
+            batch = train_batch(cfg, 2, 24, SEED + 70 + i, "cpu")
+            want, wm = step(state, batch)
+            got, gm = step(on_device(state, device), on_device(batch, device))
+            errs = {"loss_rel_err": rel_err(gm["loss"].cpu(), wm["loss"]),
+                    "grad_norm_rel_err": rel_err(gm["grad_norm"].cpu(), wm["grad_norm"])}
+            if not (errs["loss_rel_err"] < TRAIN_RTOL and errs["grad_norm_rel_err"] < TRAIN_GRAD_RTOL):
+                raise AssertionError(f"{name} step {i + 1}: {errs}")
+            if not (torch.equal(gm["lr"].cpu(), wm["lr"])
+                    and torch.equal(got.opt.step.cpu(), want.opt.step)):
+                raise AssertionError(f"{name} step {i + 1}: lr or step differs")
+            errs["moment_rel_err"] = max(
+                rel_err(g.cpu(), w) for g, w in zip(
+                    llm_schema.tree_leaves((got.opt.mu, got.opt.nu)),
+                    llm_schema.tree_leaves((want.opt.mu, want.opt.nu))))
+            if not errs["moment_rel_err"] < 2 * TRAIN_GRAD_RTOL:
+                raise AssertionError(f"{name} step {i + 1}: moments off by {errs['moment_rel_err']}")
+            errs["param_abs_err"] = train_params_close(
+                f"{name} step {i + 1}", got.params, want.params, want.opt.mu, float(wm["lr"]))
+            report = {k: max(v, errs[k]) for k, v in report.items()}
+            state = want
+        out[name] = report
+    return out
+
+
+def state_bytes(state) -> tuple:
+    """(the whole state's bytes, the params' bytes)."""
+    size = lambda tree: sum(t.numel() * t.element_size() for t in llm_schema.tree_leaves(tree))
+    return size(state), size(state.params)
+
+
+def train_bound_ms(cfg, B: int, S: int, sizes: tuple) -> tuple:
+    """The least time for a train step of B x S tokens: three times the
+    prefill's flops (``prefill_bound_ms``: 2 N a token for the N parameters
+    in products, attention, SSD, encoder; the backward pass takes twice the
+    forward's) over the dense bf16 peak, or the optimizer's bytes (the state
+    read and written once, the gradients, of the params' size, read once)
+    over the HBM rate if that is longer.  ``sizes``: ``state_bytes``.
+    Returns (ms, what bounds it)."""
+    _, flops, _ = prefill_bound_ms(cfg, B, S)
+    ops_ms = 3 * flops / H100_BF16_FLOPS * 1e3
+    bytes_ms = (2 * sizes[0] + sizes[1]) / H100_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+
+
+def train_readings(cfg, B: int, S: int, times: list, sizes: tuple, profile_step) -> dict:
+    """ms a step (the median of ``times``, CUDA-event ms of the steps after
+    the first), tokens/s, the bound, and ``profile_step``'s aten operations
+    and the card's busy share (``decode_profile``, one step)."""
+    ms = statistics.median(times)
+    bound, bound_by = train_bound_ms(cfg, B, S, sizes)
+    ops, busy = decode_profile(profile_step, 1)
+    return {"ms_a_step": ms, "tokens_per_s": B * S / ms * 1e3, "bound_ms": bound,
+            "bound_by": bound_by, "aten_ops_a_step": ops, "device_busy_share": busy,
+            "state_bytes": sizes[0]}
+
+
+@contextlib.contextmanager
+def recorded_training():
+    """Yield a record of what ``launch/train.py``'s ``main`` runs inside
+    the block: each step call's CUDA events and loss (call
+    ``TRAIN_SYNC_CALL`` under the sync debug mode "error"), the last call's
+    step, state and batch, a copy of the state each save takes and the
+    counters of the pipeline snapshot it writes, what each restore
+    returns, and each pipeline made, with its counters after a restore."""
+    rec = {"calls": [], "saved": {}, "snapshots": {}, "restored": [], "pipes": [],
+           "pipe_restored": []}
+    real_step, real_mgr, real_pipe = (llm_train.make_train_step, train_launch.CheckpointManager,
+                                      train_launch.DedupPipeline)
+
+    def make_step(*args, **kwargs):
+        step = real_step(*args, **kwargs)
+
+        def timed(state, batch):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            sync_check = len(rec["calls"]) + 1 == TRAIN_SYNC_CALL
+            if sync_check:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                start.record()
+                new, metrics = step(state, batch)
+                end.record()
+            finally:
+                if sync_check:
+                    torch.cuda.set_sync_debug_mode("default")
+            rec["calls"].append((start, end, metrics["loss"]))
+            rec["last"] = (step, state, batch)
+            return new, metrics
+
+        return timed
+
+    class Manager(real_mgr):
+        def save(self, step, state, extra=None, **kwargs):
+            rec["saved"] = {step: [t.detach().clone() for t in llm_schema.tree_leaves(state)]}
+            snap = pickle.loads(extra["pipeline"].tobytes())
+            rec["snapshots"][step] = (snap["docs_seen"], snap["docs_kept"], snap["docs_dropped"])
+            return super().save(step, state, extra, **kwargs)
+
+        def restore(self, *args, **kwargs):
+            rec["restored"].append(super().restore(*args, **kwargs))
+            return rec["restored"][-1]
+
+    class Pipeline(real_pipe):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            rec["pipes"].append(self)
+
+        def restore(self, snap):
+            super().restore(snap)
+            rec["pipe_restored"].append(
+                (self.state.docs_seen, self.state.docs_kept, self.state.docs_dropped))
+
+    llm_train.make_train_step = make_step
+    train_launch.CheckpointManager, train_launch.DedupPipeline = Manager, Pipeline
+    try:
+        yield rec
+    finally:
+        llm_train.make_train_step = real_step
+        train_launch.CheckpointManager, train_launch.DedupPipeline = real_mgr, real_pipe
+
+
+def counters(pipe) -> tuple:
+    return pipe.state.docs_seen, pipe.state.docs_kept, pipe.state.docs_dropped
+
+
+def check_dedup_kernels(pipe, recorded, device) -> dict:
+    """The dedup cascade's kernels at this phase's shapes: its last Q0
+    build's inputs through ``ops.build_sorted`` against the plain build
+    (``check_deep_build``), and ``contains`` of every digest the corpus
+    drew plus as many fresh keys against the plain path (every drawn digest
+    must hit: each was inserted or dropped as seen)."""
+    originals = np.asarray(pipe.corpus._originals, np.uint32)
+    fresh = np.random.default_rng(SEED + 90).integers(0, 2**32, originals.size, dtype=np.uint64)
+    probes = pipe._keys(np.concatenate([originals, fresh.astype(np.uint32)]))
+    hit = filters.contains(pipe.filter_cfg, pipe.filter_state, probes)
+    against_plain("train dedup", pipe.filter_cfg, pipe.filter_state, probes, hit)
+    if not bool(hit[: originals.size].all()):
+        raise AssertionError("a digest the pipeline drew misses its dedup filter")
+    return {"build": check_deep_build(f"train dedup q = {DEDUP_Q}", recorded),
+            "probes": int(probes.shape[0]), "drawn_hits": int(originals.size),
+            "fresh_hits": int(hit[originals.size :].sum())}
+
+
+def bitwise_equal(a, b) -> bool:
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.bfloat16:
+        a, b = a.view(torch.int16), b.view(torch.int16)
+    return torch.equal(a, b)
+
+
+def train_main_run(device, kernels) -> dict:
+    """``launch/train.py``'s ``main`` at examples/train_e2e.py's
+    configuration (``TRAIN_ARCH`` at full width and depth, bf16, B x S =
+    ``TRAIN_BATCH`` x ``TRAIN_SEQ``): ``TRAIN_STEPS`` steps with a
+    checkpoint every ``TRAIN_CKPT_EVERY``, then a run to
+    ``TRAIN_RESUMED_STEPS`` from ``--resume``.  Each run's launches of the
+    dedup kernels are counted (``counted``); the restored leaves must equal
+    the leaves saved at the last step of the first run bit for bit, the
+    resumed pipeline's counters the snapshot's, every loss be finite; one
+    step runs under the sync debug mode.  Then the dedup kernels against
+    their plain versions, and the step's readings."""
+    needed = ("fingerprint", "qf_positions", "qf_build_planes", "cascade_probe")
+    out = {}
+    with tempfile.TemporaryDirectory() as ckpt, recorded_training() as rec, \
+            last_build_at(DEDUP_Q) as deep:
+        base = ["--arch", TRAIN_ARCH, "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+                "--ckpt-dir", ckpt, "--ckpt-every", str(TRAIN_CKPT_EVERY)]
+        for label, argv in (("run", ["--steps", str(TRAIN_STEPS)]),
+                            ("resumed", ["--steps", str(TRAIN_RESUMED_STEPS), "--resume"])):
+            t0 = time.perf_counter()
+            rc, launched = counted(kernels, needed, f"train {label}",
+                                   lambda: train_launch.main(base + argv))
+            torch.cuda.synchronize()
+            if rc != 0:
+                raise AssertionError(f"train {label}: main returned {rc}")
+            out[label] = {"wall_s": time.perf_counter() - t0, "counters": counters(rec["pipes"][-1]),
+                          "launches": {n: launched[n] for n in needed}}
+            if label == "run":
+                saved, out["run"]["calls"] = rec["saved"].get(TRAIN_STEPS), len(rec["calls"])
+        out["dedup_kernels"] = check_dedup_kernels(rec["pipes"][-1], deep, device)
+    first = rec["pipes"][0]
+    if saved is None or len(rec["restored"]) != 1:
+        raise AssertionError("no checkpoint at the first run's last step, or no restore")
+    restored = llm_schema.tree_leaves(rec["restored"][0])
+    if len(restored) != len(saved) or not all(bitwise_equal(a, b) for a, b in zip(restored, saved)):
+        raise AssertionError("a restored leaf differs from the leaf saved at the first run's end")
+    if not (rec["pipe_restored"] == [rec["snapshots"][TRAIN_STEPS]] == [counters(first)]):
+        raise AssertionError(f"the resumed pipeline's counters {rec['pipe_restored']} are not "
+                             f"the snapshot's {rec['snapshots'].get(TRAIN_STEPS)}")
+    if not out["resumed"]["counters"][0] > counters(first)[0]:
+        raise AssertionError("the resumed pipeline read no further document")
+    losses = torch.stack([loss for _, _, loss in rec["calls"]]).float().cpu()
+    if len(losses) != TRAIN_RESUMED_STEPS or not bool(torch.isfinite(losses).all()):
+        raise AssertionError(f"{len(losses)} steps, losses {losses.tolist()}")
+    log(f"  no host sync in a full-width {TRAIN_ARCH} train step (sync debug mode \"error\")")
+    times = [s.elapsed_time(e) for s, e, _ in rec["calls"][1:TRAIN_STEPS]]
+    step, state, batch = rec.pop("last")
+    cfg = get_config(TRAIN_ARCH)
+    out.update(
+        params=sum(t.numel() for t in llm_schema.tree_leaves(state.params)),
+        losses=[round(float(x), 4) for x in losses],
+        restored_leaves=len(restored),
+        readings=train_readings(cfg, TRAIN_BATCH, TRAIN_SEQ, times, state_bytes(state),
+                                lambda: step(state, batch)),
+    )
+    return out
+
+
+def train_microbatch_run(device) -> dict:
+    """``TRAIN_MB_ARCH`` at full width and ``TRAIN_MB_LAYERS`` layers, bf16,
+    through ``init_state`` / ``make_train_step`` with ``TRAIN_MICROBATCHES``
+    microbatches and int8 error-feedback compression: ``TRAIN_MB_STEPS``
+    steps at ``TRAIN_MB_SHAPE``, the second under the sync debug mode.  The
+    first step's loss against a float32 cross entropy of ``forward``'s
+    full logits at the same params and batch (within
+    ``TRAIN_BF16_LOSS_RTOL``), every loss finite, then the readings."""
+    cfg = get_config(TRAIN_MB_ARCH).replace(n_layers=TRAIN_MB_LAYERS)
+    ocfg = llm_optim.OptConfig(compress_grads=True)
+    B, S = TRAIN_MB_SHAPE
+    state = llm_train.init_state(cfg, ocfg, SEED, device)
+    step = llm_train.make_train_step(cfg, ocfg, microbatches=TRAIN_MICROBATCHES)
+    batches = [train_batch(cfg, B, S, SEED + 80 + i, device, masked=False)
+               for i in range(TRAIN_MB_STEPS)]
+    with torch.no_grad():
+        logits, _, _ = llm.forward(state.params, cfg, batches[0], remat=False)
+        want = torch.nn.functional.cross_entropy(
+            logits.float().reshape(-1, cfg.vocab_size), batches[0]["targets"].reshape(-1).long())
+    del logits
+    torch.cuda.empty_cache()
+    times, losses = [], []
+    for i, batch in enumerate(batches):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if i == 1:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            start.record()
+            state, metrics = step(state, batch)
+            end.record()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        times.append((start, end))
+        losses.append(metrics["loss"])
+    log(f"  no host sync in a {TRAIN_MB_ARCH} microbatched, compressed train step "
+        "(sync debug mode \"error\")")
+    losses = torch.stack(losses).float().cpu()
+    if not bool(torch.isfinite(losses).all()):
+        raise AssertionError(f"{TRAIN_MB_ARCH}: losses {losses.tolist()}")
+    loss_err = rel_err(losses[0], want.cpu())
+    if not loss_err < TRAIN_BF16_LOSS_RTOL:
+        raise AssertionError(f"{TRAIN_MB_ARCH}: the first step's loss is off by {loss_err}")
+
+    def profiled():  # each call's state replaces the last: two states live at most
+        nonlocal state
+        state, _ = step(state, batches[-1])
+
+    report = {"params": sum(t.numel() for t in llm_schema.tree_leaves(state.params)),
+              "losses": [round(float(x), 4) for x in losses], "float32_xent": float(want),
+              "loss_rel_err": loss_err}
+    report["readings"] = train_readings(cfg, B, S, [s.elapsed_time(e) for s, e in times[1:]],
+                                        state_bytes(state), profiled)
+    return report
+
+
+def train_phase(device, kernels) -> dict:
+    """Phase train: ``TRAIN_SMOKE_ARCHS`` card against CPU, then the
+    driver at full width (``train_main_run``), then the microbatched,
+    compressed step (``train_microbatch_run``); each full-width run's peak
+    memory."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"smoke_card_vs_cpu": train_smoke_card_vs_cpu(device, TRAIN_SMOKE_ARCHS)}
+    for name, run in ((TRAIN_ARCH, lambda: train_main_run(device, kernels)),
+                      (f"{TRAIN_MB_ARCH}_{TRAIN_MB_LAYERS}_layers",
+                       lambda: train_microbatch_run(device))):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out[name] = run()
+        out[name]["peak_bytes"] = torch.cuda.max_memory_allocated()
+        log(f"  {name}: {json.dumps(out[name])}")
+    torch.cuda.empty_cache()
+    return out
+
 
 def main(device: str = "cuda") -> int:
     if filters is None:
@@ -4727,7 +5116,16 @@ def main(device: str = "cuda") -> int:
     log(f"phase serve_recurrent ({card_line()}): " + json.dumps(recurrent_report))
     phase_s["serve_recurrent"] = time.perf_counter() - t0
 
-    # 20. report
+    # 20. train: the training path, full width, behind the dedup pipeline
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    train_report = train_phase(device, kernels)
+    peaks["train"] = max(r["peak_bytes"] for k, r in train_report.items() if "peak_bytes" in r)
+    log(f"phase train ({card_line()}): " + json.dumps(train_report))
+    phase_s["train"] = time.perf_counter() - t0
+
+    # 21. report
     for n, row in rows.items():
         row["launches"] = launches[n]
         if row["max_abs_err"] != 0:

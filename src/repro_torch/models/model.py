@@ -1,11 +1,14 @@
 """Model assembly: parameter schema, forward, prefill, decode.
 
-The port of ``repro.models.model``'s serving half:
+The port of ``repro.models.model``:
 
   schema(cfg)                  -> Param tree (every architecture; data only)
   init(cfg, seed, device)      -> random params, on the card unless asked
   abstract(cfg)                -> params on the ``meta`` device (no memory)
+  partition_specs(cfg, rules)  -> (mesh, spec) mirroring params
+  partition_pspecs(cfg, rules) -> partition specs (tuples) mirroring params
   forward(params, cfg, batch)  -> (logits, collected, aux)
+  loss_fn(params, cfg, batch)  -> (loss, metrics)
   prefill(params, cfg, batch)  -> (logits_last, cache)
   decode_step(params, cfg, cache, tokens) -> (logits, cache)
   init_cache(cfg, batch, ctx)  -> empty decode cache (pos = 0)
@@ -20,7 +23,10 @@ SSM, the Griffin hybrid (RG-LRU and windowed attention) and the Whisper
 encoder-decoder (``batch["frames"]`` through ``_encode``).
 ``decode_step`` writes the cache in place, where the reference donates
 it, and reads nothing back to the host: the position stays a device
-scalar.  ``loss_fn`` comes with the training slice.
+scalar.  ``loss_fn`` is the train step's objective: the streamed
+cross-entropy (``_streamed_xent``) plus the MoE balance loss; with
+``remat`` each unit, encoder layer and cross-entropy chunk recomputes its
+activations in the backward pass (``transformer.remat_call``).
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ import numpy as np
 import torch
 
 from ..core.quotient_filter import resolve_device
+from ..sharding import constrain
 from . import schema as S
 from .attention import gqa_attention
 from .layers import embed_tokens, mlp, unembed
@@ -38,9 +45,11 @@ from .transformer import (
     apply_unit,
     layer_kinds,
     norm,
+    remat_call,
     scan_units,
     split_layers,
     unit_pattern,
+    unstack,
 )
 
 Param = S.Param
@@ -253,6 +262,14 @@ def abstract(cfg):
     return S.abstract_params(schema(cfg), cfg.param_dtype)
 
 
+def partition_specs(cfg, rules):
+    return S.param_specs(schema(cfg), rules)
+
+
+def partition_pspecs(cfg, rules):
+    return S.param_pspecs(schema(cfg), rules)
+
+
 # ---------------------------------------------------------------------------
 # Weights carried across from the JAX package
 # ---------------------------------------------------------------------------
@@ -306,22 +323,25 @@ def to_numpy(params):
 # ---------------------------------------------------------------------------
 
 
-def _encode(params, cfg, frames):
+def _encoder_layer(p, x, cfg, pos):
+    h, _ = gqa_attention(
+        p["self_attn"], norm(p["norm1"], x, cfg), cfg, pos, causal=False, use_rope=False
+    )
+    x = x + h
+    return x + mlp(p["mlp"], norm(p["norm3"], x, cfg), cfg.mlp_kind)
+
+
+def _encode(params, cfg, frames, remat=True):
     """frames: (B, enc_seq, d), precomputed frame embeddings (the stub
-    front end).  The encoder's non-causal layers, no RoPE; its own
-    learned positions."""
+    front end).  The encoder's non-causal layers, no RoPE, each under
+    ``remat_call``; its own learned positions."""
     enc = params["encoder"]
     x = frames + enc["pos_embed"][None, : frames.shape[1], :].to(frames.dtype)
     B, Se = frames.shape[:2]
     pos = torch.arange(Se, dtype=torch.int32, device=frames.device).expand(B, Se)
     layers = enc["layers"]["b0"]
-    for i in range(next(S.tree_items(layers))[1].shape[0]):
-        p = S.tree_map(lambda t: t[i], layers)
-        h, _ = gqa_attention(
-            p["self_attn"], norm(p["norm1"], x, cfg), cfg, pos, causal=False, use_rope=False
-        )
-        x = x + h
-        x = x + mlp(p["mlp"], norm(p["norm3"], x, cfg), cfg.mlp_kind)
+    for p in unstack(layers, next(S.tree_items(layers))[1].shape[0]):
+        x = remat_call(_encoder_layer, remat, p, x, cfg, pos)
     return norm(enc["final_norm"], x, cfg)
 
 
@@ -341,9 +361,9 @@ def _embed_in(params, cfg, tokens, pos=None):
 
 
 def _apply_stack(params, cfg, x, positions, *, mode, cache=None, enc_out=None,
-                 mrope_positions=None):
-    """The leading dense layers unlooped, the looped units, then the
-    remainder layers unlooped.  Returns (x, collected, aux):
+                 mrope_positions=None, remat=True):
+    """The leading dense layers unlooped, the looped units (each under
+    ``remat_call``), then the remainder layers unlooped.  Returns (x, collected, aux):
     collected["prefix_{i}"] / ["tail_{i}"] a single layer's K/V or state
     (prefill) or delta (decode), collected["layers"] the units', stacked;
     aux the MoE balance losses summed."""
@@ -368,7 +388,7 @@ def _apply_stack(params, cfg, x, positions, *, mode, cache=None, enc_out=None,
     x, col, a = scan_units(
         pat, params["layers"], x, cfg, positions, mode=mode,
         cache=None if cache is None else cache["layers"], enc_out=enc_out,
-        mrope_positions=mrope_positions, moe_flags=moe_flags_for(cfg, pat),
+        mrope_positions=mrope_positions, moe_flags=moe_flags_for(cfg, pat), remat=remat,
     )
     if col is not None:
         collected["layers"] = col
@@ -386,28 +406,80 @@ def _text_positions(cfg, positions, mrope_positions):
     return mrope_positions
 
 
-def forward(params, cfg, batch, *, mode="train"):
+def _trunk(params, cfg, batch, mode, remat):
+    """Embedding, encoder, layers and the final norm: (x, collected, aux)."""
+    tokens = batch["tokens"]
+    B, Sq = tokens.shape
+    x = constrain(_embed_in(params, cfg, tokens), "batch", "seq", "embed")
+    positions = torch.arange(Sq, dtype=torch.int32, device=tokens.device).expand(B, Sq)
+    mrope_positions = _text_positions(cfg, positions, batch.get("mrope_positions"))
+    enc_out = (
+        _encode(params, cfg, batch["frames"], remat=remat) if cfg.is_encoder_decoder else None
+    )
+    x, collected, aux = _apply_stack(
+        params, cfg, x, positions, mode=mode, enc_out=enc_out,
+        mrope_positions=mrope_positions, remat=remat,
+    )
+    if mode == "prefill" and enc_out is not None:
+        collected["enc_out"] = enc_out
+    x = norm(params["final_norm"], x, cfg)
+    if not torch.is_tensor(aux):  # no MoE layer: a device zero, with no copy from the host
+        aux = x.new_zeros((), dtype=torch.float32)
+    return x, collected, aux
+
+
+def forward(params, cfg, batch, *, mode="train", remat=True):
     """batch: dict(tokens (B,S) [, frames, mrope_positions]).
 
     Returns (logits, collected, aux): logits at every position; aux, the
     MoE balance losses summed over the layers (float32; 0 without MoE).
     In prefill an encoder-decoder's collected also holds the encoder's
     output, ``collected["enc_out"]``, for the cross-attention cache."""
-    tokens = batch["tokens"]
-    B, Sq = tokens.shape
-    x = _embed_in(params, cfg, tokens)
-    positions = torch.arange(Sq, dtype=torch.int32, device=tokens.device).expand(B, Sq)
-    mrope_positions = _text_positions(cfg, positions, batch.get("mrope_positions"))
-    enc_out = _encode(params, cfg, batch["frames"]) if cfg.is_encoder_decoder else None
-    x, collected, aux = _apply_stack(
-        params, cfg, x, positions, mode=mode, enc_out=enc_out,
-        mrope_positions=mrope_positions,
-    )
-    if mode == "prefill" and enc_out is not None:
-        collected["enc_out"] = enc_out
-    x = norm(params["final_norm"], x, cfg)
-    aux = torch.as_tensor(aux, dtype=torch.float32, device=x.device)
-    return unembed(params, x, cfg.tie_embeddings), collected, aux
+    x, collected, aux = _trunk(params, cfg, batch, mode, remat)
+    logits = constrain(unembed(params, x, cfg.tie_embeddings), "batch", "seq", "vocab")
+    return logits, collected, aux
+
+
+def _xent_chunk(params, cfg, xi, ti):
+    """One chunk's (sum of nll, tokens): a float32 unembedding and
+    logsumexp, the target's logit gathered at ``max(t, 0)`` (torch's
+    gather raises on a negative index, where the reference's clamps),
+    positions with ``t < 0`` masked out."""
+    logits = unembed(params, xi, cfg.tie_embeddings).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, torch.clamp(ti, min=0).to(torch.int64)[..., None])[..., 0]
+    mask = (ti >= 0).float()
+    return torch.sum((logz - tgt) * mask), torch.sum(mask)
+
+
+def _streamed_xent(params, cfg, x, targets, chunk: int = 256, remat=True):
+    """Chunked softmax cross-entropy over the sequence dim.
+
+    The full (B, S, V) float32 logits are the largest train buffer;
+    computing the unembedding and logsumexp a chunk at a time, each chunk
+    under ``remat_call``, keeps one chunk's logits live in either pass.
+    ``chunk`` halves until it divides S.  Returns (sum_nll, n_tokens)."""
+    S = x.shape[1]
+    chunk = min(chunk, S)
+    while S % chunk:
+        chunk //= 2
+    parts = [
+        remat_call(_xent_chunk, remat, params, cfg, x[:, c : c + chunk], targets[:, c : c + chunk])
+        for c in range(0, S, chunk)
+    ]
+    return torch.stack([p[0] for p in parts]).sum(), torch.stack([p[1] for p in parts]).sum()
+
+
+def loss_fn(params, cfg, batch, *, remat=True, aux_weight=0.01):
+    """batch: dict(tokens, targets (B, S) [, frames, mrope_positions]);
+    a target below 0 is masked.  Returns (total, {"loss", "aux",
+    "tokens"}): loss the mean nll over the unmasked targets, total =
+    loss + aux_weight * aux."""
+    x, _, aux = _trunk(params, cfg, batch, "train", remat)
+    nll, ntok = _streamed_xent(params, cfg, x, batch["targets"], remat=remat)
+    loss = nll / torch.clamp(ntok, min=1.0)
+    total = loss + aux_weight * aux
+    return total, {"loss": loss, "aux": aux, "tokens": ntok}
 
 
 # ---------------------------------------------------------------------------
@@ -485,7 +557,7 @@ def prefill(params, cfg, batch, *, headroom: int = 128):
     without wrapping onto cached context."""
     tokens = batch["tokens"]
     B, Sq = tokens.shape
-    logits, collected, _ = forward(params, cfg, batch, mode="prefill")
+    logits, collected, _ = forward(params, cfg, batch, mode="prefill", remat=False)
     cache = init_cache(cfg, B, Sq + headroom, cfg.act_dtype, tokens.device)
     enc_out = collected.pop("enc_out", None)
     cache = _fill_cache_from_collected(cache, collected, Sq)
@@ -593,7 +665,7 @@ def decode_step(params, cfg, cache, tokens, *, mrope_positions=None):
     mrope_positions = _text_positions(cfg, positions, mrope_positions)
     x, collected, _ = _apply_stack(
         params, cfg, x, positions, mode="decode", cache=cache,
-        mrope_positions=mrope_positions,
+        mrope_positions=mrope_positions, remat=False,
     )
     x = norm(params["final_norm"], x, cfg)
     logits = unembed(params, x, cfg.tie_embeddings)[:, 0]

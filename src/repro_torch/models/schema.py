@@ -6,8 +6,8 @@ returns nested dicts of :class:`Param` leaves; from it come random init
 and abstract parameters on the ``meta`` device (:func:`abstract_params`,
 no memory).  Leaf shapes, dtypes and the ``zeros``/``ones``/``const``
 values equal the JAX package's; random draws do not (a ``torch.Generator``
-is not a ``jax.random`` key).  ``param_specs``/``param_pspecs`` come with
-the sharding rules.
+is not a ``jax.random`` key).  ``param_specs``/``param_pspecs`` map each
+leaf's logical axes and shape through the sharding rules.
 """
 
 from __future__ import annotations
@@ -47,6 +47,44 @@ def tree_items(tree, prefix: tuple = ()):
         yield prefix, tree
 
 
+def tree_leaves(tree, is_leaf=None) -> list:
+    """The leaves of nested dicts, tuples and NamedTuples in
+    ``jax.tree_util``'s order: dict keys sorted, tuple fields in order,
+    ``None`` no leaf.  ``is_leaf`` stops the walk at a node (a partition
+    spec, itself a tuple)."""
+    if is_leaf is not None and is_leaf(tree):
+        return [tree]
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k], is_leaf)]
+    if isinstance(tree, tuple):
+        return [x for t in tree for x in tree_leaves(t, is_leaf)]
+    return [tree]
+
+
+def tree_unflatten(like, leaves):
+    """``like``'s structure (dict key order kept) holding ``leaves``, given
+    in ``tree_leaves`` order."""
+    it = iter(leaves)
+
+    def build(t):
+        if t is None:
+            return None
+        if isinstance(t, dict):
+            built = {k: build(t[k]) for k in sorted(t)}
+            return {k: built[k] for k in t}
+        if isinstance(t, tuple):
+            parts = [build(x) for x in t]
+            return type(t)(*parts) if hasattr(t, "_fields") else tuple(parts)
+        return next(it)
+
+    out = build(like)
+    if next(it, it) is not it:
+        raise ValueError("more leaves than the structure holds")
+    return out
+
+
 def _leaf_dtype(p: Param, default: str) -> torch.dtype:
     return getattr(torch, p.dtype or default)
 
@@ -80,3 +118,13 @@ def abstract_params(schema, default_dtype: str):
         lambda p: torch.empty(p.shape, dtype=_leaf_dtype(p, default_dtype), device="meta"),
         schema,
     )
+
+
+def param_specs(schema, rules):
+    """(mesh, spec) for every parameter (shape-aware fallback)."""
+    return tree_map(lambda p: rules.sharding(p.axes, p.shape), schema)
+
+
+def param_pspecs(schema, rules):
+    """The partition spec (a tuple) of every parameter."""
+    return tree_map(lambda p: rules.spec(p.axes, p.shape), schema)

@@ -2,8 +2,12 @@
 
 The port of ``repro.models.transformer``.  A model is a stack of units
 whose parameters (and decode caches) are stacked on a leading layer axis,
-as in the reference; ``scan_units`` walks that axis in a Python loop (no
-remat: serving has no backward pass).  Sub-block kinds:
+as in the reference; ``scan_units`` walks that axis in a Python loop,
+each leaf unbound once (``unstack``).  With ``remat`` and grad enabled
+each unit runs under ``torch.utils.checkpoint`` (``remat_call``): its
+activations are recomputed in the backward pass, where the reference
+wraps its scan body in ``jax.checkpoint(..., nothing_saveable)``; the
+values do not change.  Sub-block kinds:
   attn   — GQA/MLA attention + (MLP | MoE), the MoE aux loss summed
   rec    — Griffin recurrent block + MLP
   ssm    — Mamba-2 mixer (no separate MLP)
@@ -18,6 +22,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .attention import gqa_attention, mla_attention
 from .layers import layer_norm, mlp, rms_norm
@@ -202,6 +207,29 @@ def apply_unit(
     return x, (collected or None), aux
 
 
+def remat_call(fn, remat: bool, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` when ``remat`` and
+    grad is enabled: nothing inside is kept for the backward pass, which
+    runs ``fn`` again (no randomness inside, so no RNG state is kept)."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(*args)
+
+
+def unstack(tree, n: int) -> list:
+    """The ``n`` slices of a tree of stacked leaves along their leading
+    axis.  Each leaf is unbound once, so its backward stacks the slices'
+    gradients in one pass; a slice ``t[i]`` a unit would write a zero
+    tensor of the whole leaf in each unit's backward."""
+    unbound = tree_map(lambda t: t.unbind(0), tree)
+    return [tree_map(lambda u: u[i], unbound) for i in range(n)]
+
+
+def _unit_body(pat, p, x, cfg, positions, mode, cache, enc_out, mrope_positions, moe_flags):
+    return apply_unit(pat, p, x, cfg, positions, mode=mode, cache=cache, enc_out=enc_out,
+                      mrope_positions=mrope_positions, moe_flags=moe_flags)
+
+
 def scan_units(
     pat,
     stacked_params,
@@ -214,25 +242,18 @@ def scan_units(
     enc_out=None,
     mrope_positions=None,
     moe_flags=(),
+    remat: bool = True,
 ):
     """The units over the leading axis of ``stacked_params`` (and ``cache``),
-    a loop in place of the reference's ``lax.scan``.  Returns (x, collected,
-    aux), ``collected`` stacked on a leading unit axis, ``aux`` summed."""
+    a loop in place of the reference's ``lax.scan``, each unit under
+    ``remat_call``.  Returns (x, collected, aux), ``collected`` stacked on
+    a leading unit axis, ``aux`` summed."""
     n = next(tree_items(stacked_params))[1].shape[0]
     per_unit, aux = [], 0.0
-    for i in range(n):
-        x, col, a = apply_unit(
-            pat,
-            tree_map(lambda t: t[i], stacked_params),
-            x,
-            cfg,
-            positions,
-            mode=mode,
-            cache=None if cache is None else tree_map(lambda t: t[i], cache),
-            enc_out=enc_out,
-            mrope_positions=mrope_positions,
-            moe_flags=moe_flags,
-        )
+    for i, unit_params in enumerate(unstack(stacked_params, n)):
+        unit_cache = None if cache is None else tree_map(lambda t: t[i], cache)
+        x, col, a = remat_call(_unit_body, remat, pat, unit_params, x, cfg, positions,
+                               mode, unit_cache, enc_out, mrope_positions, moe_flags)
         per_unit.append(col)
         aux = aux + a
     col = _stack(per_unit) if per_unit and per_unit[0] is not None else None

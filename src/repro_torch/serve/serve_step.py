@@ -1,7 +1,8 @@
 """Serving steps: prefill + single-token decode, and the samplers.
 
-The port of ``repro.serve.serve_step``.  ``cache_pspecs`` needs the
-sharding rules and comes with ``sharding.py``.
+The port of ``repro.serve.serve_step``.  ``cache_pspecs`` gives a decode
+cache's partition specs (tuples) by each leaf's name, as the reference
+does.
 """
 
 from __future__ import annotations
@@ -9,6 +10,34 @@ from __future__ import annotations
 import torch
 
 from ..models import model
+
+
+def cache_pspecs(cfg, rules, cache_tree):
+    """Partition specs for a decode cache: batch over DP, kv heads or
+    head_dim over TP; recurrent states batch-sharded."""
+
+    def spec(name, leaf):
+        nd = leaf.ndim
+
+        def tail(axes):
+            return rules.spec((None,) * (nd - len(axes)) + axes, tuple(leaf.shape))
+
+        if name in ("k", "v"):
+            return tail(("batch", None, "kv_heads", "head_dim"))
+        if name in ("c_kv", "k_rope", "conv"):
+            return tail(("batch", None, None))
+        if name == "kpos":
+            return tail(("batch", None))
+        if name == "state":
+            return tail(("batch",) + (None,) * (min(nd, 4) - 1))
+        return ()  # pos
+
+    def walk(tree, name):
+        if isinstance(tree, dict):
+            return {k: walk(v, k) for k, v in tree.items()}
+        return spec(name, tree)
+
+    return walk(cache_tree, None)
 
 
 def make_serve_step(cfg):
