@@ -300,7 +300,30 @@ Phases, each timed, any failure fatal (a traceback and exit code 1):
             cross entropy of ``forward``'s logits.  Each run's ms a step,
             tokens/s, bound, aten operations and busy share of a step,
             and peak memory.
-21. report  one JSON line of per-kernel results (nine rows), then the
+21. tools   the launch tools and the static analysis (``tools_phase``):
+            ``launch/dryrun.py`` over every (arch x shape) cell on the
+            ``meta`` device on the 1 x 1 and 16 x 16 meshes, in
+            ``TOOLS_JOBS`` worker processes, one line a cell and the grid's
+            wall time; then for real on the card, at full width and the
+            shape's own batch and length, every decode cell that the 1 x 1
+            dry run puts under ``TOOLS_HEADROOM`` of 80 GiB, Mamba2-130M's
+            ``decode_32k`` and ``long_500k`` and RecurrentGemma-9B's
+            ``long_500k`` among them (``real_cells``): the dry run's
+            argument bytes against the growth of the bytes requested of the
+            caching allocator as the params, cache and inputs are built
+            (within 512 bytes a tensor; ``memory_allocated``'s growth, at
+            least that, reported), the cache then holding the shape's
+            whole context (``full_context``), the step's ms (median after
+            the first) at or above the roofline's ``step_time`` (the bytes
+            the step must move, ``roofline.step_bytes``), its peak against
+            the dry run's estimate; the op audit's families on the card
+            (``tools_audit``): each ``device`` op under sync-debug
+            ``"error"``, the counts against the manifest's ``cuda``
+            section, ``fingerprint``, ``qf_positions``, ``qf_build_planes``,
+            ``qf_probe`` and ``cascade_probe`` launched and each held
+            against its plain version on the largest inputs the audit gave
+            it; ``spec_check`` and the lint, both exit 0.
+22. report  one JSON line of per-kernel results (nine rows), then the
             card's name and power limit, then the result line.
 
 The whole run must stay within 1200 s of command time on one H100.
@@ -326,7 +349,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._python_dispatch import _disable_current_modes
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 try:
@@ -342,7 +365,7 @@ try:
     from repro_torch.serve.prefix_cache import PrefixCacheFilter
     from repro_torch.kernels import bloom_block, cascade_probe, cuda_lib, qf_build
     from repro_torch.kernels import fingerprint, fuse_probe, ops, qf_probe
-    from repro_torch.configs import get_config, make_smoke
+    from repro_torch.configs import ARCHS, get_config, make_smoke
     from repro_torch.launch import serve as serve_launch
     from repro_torch.launch import train as train_launch
     from repro_torch.models import model as llm
@@ -352,12 +375,22 @@ try:
     from repro_torch.serve import serve_step
     from repro_torch.train import optimizer as llm_optim
     from repro_torch.train import train_step as llm_train
+    from repro_torch.analysis import spec_check, trace_audit
+    from repro_torch.analysis.__main__ import main as analysis_main
+    from repro_torch.analysis.trace_audit import OpCount
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.shapes import SHAPES
+    from repro_torch.launch.roofline import (
+        decode_bound_ms, expert_params, llm_params, moe_layers, prefill_bound_ms,
+        train_bound_ms,
+    )
+
+    H100_BYTES_PER_S = roofline.HBM_BW  # HBM3 rate of the H100 SXM data sheet
+    H100_BF16_FLOPS = roofline.PEAK_FLOPS  # dense bf16 tensor-core peak, the same sheet
 except ModuleNotFoundError as e:  # run outside the repository
     if not (e.name or "").startswith("repro_torch"):
         raise
     filters = None
-
-H100_BYTES_PER_S = 3.35e12  # HBM3 rate of the H100 SXM data sheet
 
 # main path: bench_ssd.py's 1:4 experiment at the paper's scale
 RAM_Q = 24
@@ -507,7 +540,15 @@ TRAIN_MB_SHAPE = (4, 1024)  # (B, S)
 TRAIN_MB_STEPS, TRAIN_MICROBATCHES = 3, 2
 TRAIN_BF16_LOSS_RTOL = 1e-2  # bf16 step loss against a float32 cross entropy of forward
 DEDUP_Q = 16  # PipelineConfig.dedup_ram_q: the dedup cascade's Q0 builds
-H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak of the H100 SXM data sheet
+
+# 21. tools: the dry-run grid, cells run for real, the op audit on the card
+TOOLS_MESHES = ("1x1", "16x16")
+TOOLS_JOBS = 6  # dry-run worker processes; the card's host has 8 cores
+TOOLS_HEADROOM = 0.8  # a decode cell runs if args + step estimate <= 80% of 80 GiB
+TOOLS_STEPS = 8  # timed decode steps a real cell
+TOOLS_AUDIT_KERNELS = ("fingerprint", "qf_positions", "qf_build_planes", "qf_probe",
+                       "cascade_probe")
+ALLOC_ROUND = 512  # the caching allocator rounds a request up to 512 bytes
 
 
 def log(*args) -> None:
@@ -579,7 +620,7 @@ def kernel_row(name, source, replaces, err, ms, plain_ms, bound_bytes, library_m
         "bit_exact": err == 0,
         "ms": ms,
         "plain_ms": plain_ms,
-        "bound_ms": bound_bytes / H100_BYTES_PER_S * 1e3,
+        "bound_ms": roofline.kernel_roofline(bound_bytes).t_memory * 1e3,
         "bound_by": "bytes",
         "library_ms": library_ms,
     }
@@ -1554,7 +1595,7 @@ def check_bloom_probe(structs, probes):
     counts the reads these queries need.
     """
     err, times = 0, {}
-    group = cuda_lib.library("bloom_probe").bloom_probe_group()
+    group = bloom_block.probe_group()
     for label in ("blocked_bloom", "counting blocked_bloom"):
         cfg, state = structs[label][:2]
         idx = bloom_filter._indices(cfg, probes)
@@ -2318,11 +2359,14 @@ def steady_stream(device):
 
 def clone_state(state):
     """A copy of a state's every tensor (an insert may write its argument's
-    planes in place, as the steady family's drain does)."""
+    planes in place, as the steady family's drain does); other leaves as
+    they are."""
     if torch.is_tensor(state):
         return state.clone()
+    if not isinstance(state, (list, tuple)):
+        return state
     parts = [clone_state(v) for v in state]
-    return type(state)(*parts) if hasattr(state, "_fields") else tuple(parts)
+    return type(state)(*parts) if hasattr(state, "_fields") else type(state)(parts)
 
 
 def steady_prefilled(name, spec, prefill):
@@ -3665,153 +3709,6 @@ def smoke_card_vs_cpu(device, names) -> dict:
     return out
 
 
-def schema_params(cfg, keep) -> int:
-    """The parameters of the schema's leaves whose path ``keep`` accepts."""
-    return sum(math.prod(p.shape) for path, p in llm_schema.tree_items(llm.schema(cfg))
-               if keep(path))
-
-
-def gathered(path) -> bool:
-    """A table that a token or frame gathers a row of: the position tables,
-    and the token embedding where the unembedding does not reuse it."""
-    return path[-1] == "pos_embed" or path == ("tok_embed",)
-
-
-def mm_params(cfg) -> int:
-    """The decoder's parameters that take part in a matrix product: all but
-    the gathered tables (a tied embedding is the unembedding's product)
-    and the encoder."""
-    return schema_params(cfg, lambda path: path[0] != "encoder" and not (
-        gathered(path) and not (cfg.tie_embeddings and path == ("tok_embed",))))
-
-
-def encoder_mm_params(cfg) -> int:
-    """The encoder's parameters in its products: all but its position table."""
-    return schema_params(cfg, lambda path: path[0] == "encoder" and path[-1] != "pos_embed")
-
-
-def llm_params(cfg) -> int:
-    return schema_params(cfg, lambda path: True)
-
-
-def routed_params(cfg) -> int:
-    """The routed experts' parameters, all MoE layers (0 for a dense model)."""
-    return schema_params(cfg, lambda path: "moe" in path and path[-1] in ("wi", "wg", "wo"))
-
-
-def moe_layers(cfg) -> int:
-    return cfg.n_layers - cfg.first_dense_layers if cfg.is_moe else 0
-
-
-def expert_params(cfg) -> float:
-    """One routed expert's parameters in one MoE layer."""
-    return routed_params(cfg) / (moe_layers(cfg) * cfg.n_experts) if cfg.is_moe else 0.0
-
-
-def kind_layers(cfg) -> dict:
-    """The decoder's layers of each sub-block kind."""
-    kinds = llm_transformer.layer_kinds(cfg)
-    return {k: kinds.count(k) for k in set(kinds)}
-
-
-def attn_flops_a_pair(cfg) -> int:
-    """Flops of QK^T and PV for one query-key pair in one layer: GQA's
-    4 H Dh; MLA's fewer of its two forms, the absorbed 2 H (2 kv_lora_rank +
-    rope dim) and the up-projected 2 H (nope + rope + v_head_dim), whose
-    up-projection of each cached position is among the 2 N flops a token."""
-    if cfg.attn_kind == "mla":
-        absorbed = 2 * cfg.kv_lora_rank + cfg.qk_rope_dim
-        projected = cfg.qk_nope_dim + cfg.qk_rope_dim + cfg.v_head_dim
-        return 2 * cfg.n_heads * min(absorbed, projected)
-    return 4 * cfg.n_heads * cfg.head_dim
-
-
-def cache_bytes_a_position(cfg) -> int:
-    """bf16 cache bytes of one position in one layer: GQA's K and V, MLA's
-    latent and rope key."""
-    if cfg.attn_kind == "mla":
-        return 2 * (cfg.kv_lora_rank + cfg.qk_rope_dim)
-    return 2 * 2 * cfg.n_kv_heads * cfg.head_dim
-
-
-def causal_pairs(S: int, window: int = 0) -> int:
-    """Query-key pairs of a causal attention over S positions, each query
-    seeing at most ``window`` keys (0: all before it)."""
-    if not window or window >= S:
-        return S * (S + 1) // 2
-    return window * (window + 1) // 2 + (S - window) * window
-
-
-def ssd_flops_a_row(cfg, S: int) -> int:
-    """Flops of one Mamba-2 layer's SSD over S positions (one row), beyond
-    its projections: the intra-chunk causal pairs, each C_i . B_j (2 G N)
-    and its weighted sum of values (2 H P), over the padded chunks; the
-    chunk states and the inter-chunk term, 2 H P N each a position."""
-    d_in = cfg.ssm_expand * cfg.d_model
-    H, P = d_in // cfg.ssm_head_dim, cfg.ssm_head_dim
-    Q = min(cfg.ssm_chunk, S)
-    nc = -(-S // Q)
-    pair = 2 * cfg.ssm_n_groups * cfg.ssm_d_state + 2 * H * P
-    return nc * (Q * (Q + 1) // 2) * pair + nc * Q * 4 * H * P * cfg.ssm_d_state
-
-
-def state_bytes_a_layer(cfg, kind: str, B: int) -> int:
-    """bf16 bytes of one ``ssm`` or ``rec`` layer's decode state and conv
-    window at B rows (a step reads and writes each once)."""
-    if kind == "ssm":
-        d_in = cfg.ssm_expand * cfg.d_model
-        G, N, K = cfg.ssm_n_groups, cfg.ssm_d_state, cfg.ssm_d_conv
-        return 2 * B * (d_in * N + (K - 1) * (d_in + 2 * G * N))
-    w = cfg.lru_width or cfg.d_model
-    return 2 * B * (w + 3 * w)
-
-
-def prefill_bound_ms(cfg, B: int, S: int) -> tuple:
-    """The least time for a prefill of B x S tokens: 2 N flops a token (N the
-    active ``mm_params``: dense and shared weights, the router, top_k / E of
-    the routed experts, a tied unembedding) plus the attention's QK^T and
-    PV over its pairs (causal, at most ``attn_window`` keys a query;
-    whisper's cross-attention S x encoder_seq), SSD's chunk work
-    (``ssd_flops_a_row``) and an encoder's 2 N flops a frame and its
-    non-causal attention, over the card's dense bf16 peak, or the weights
-    read once over the HBM rate if that is longer.  Returns (ms, flops,
-    what bounds it)."""
-    routed = routed_params(cfg)
-    active = mm_params(cfg) - routed + (routed * cfg.top_k / cfg.n_experts if routed else 0)
-    layers = kind_layers(cfg)
-    pair = attn_flops_a_pair(cfg)
-    attn = pair * B * causal_pairs(S, cfg.attn_window) * layers.get("attn", 0)
-    attn += pair * B * (causal_pairs(S) + S * cfg.encoder_seq) * layers.get("xattn", 0)
-    attn += B * ssd_flops_a_row(cfg, S) * layers.get("ssm", 0)
-    frames = B * cfg.encoder_seq
-    encoder = 2 * encoder_mm_params(cfg) * frames + pair * B * cfg.encoder_seq**2 * cfg.encoder_layers
-    flops = 2 * active * B * S + attn + encoder
-    ops_ms = flops / H100_BF16_FLOPS * 1e3
-    bytes_ms = 2 * llm_params(cfg) / H100_BYTES_PER_S * 1e3
-    return max(ops_ms, bytes_ms), flops, "operations" if ops_ms >= bytes_ms else "bytes"
-
-
-def decode_bound_ms(cfg, B: int, cached: float, picked: int = 0) -> float:
-    """The least time for one decode step of B rows over ``cached`` valid
-    cache positions a row: the decoder's weights in products but the
-    routed experts, the ``picked`` routed experts (over all MoE layers)
-    that the step's tokens pick, B rows of the token table (and one of a
-    position table), and the caches, each read once, over the HBM rate.
-    An attention layer reads ``min(cached, attn_window)`` positions, an
-    ``xattn`` layer ``cached`` and the encoder_seq cross positions; an
-    ``ssm`` or ``rec`` layer reads and writes its fixed state and conv
-    window, and nothing a cached position."""
-    layers = kind_layers(cfg)
-    seen = min(cached, cfg.attn_window) if cfg.attn_window else cached
-    kv = B * seen * layers.get("attn", 0) * cache_bytes_a_position(cfg)
-    kv += B * (cached + cfg.encoder_seq) * layers.get("xattn", 0) * cache_bytes_a_position(cfg)
-    kv += sum(2 * state_bytes_a_layer(cfg, k, B) * layers.get(k, 0) for k in ("ssm", "rec"))
-    weights = mm_params(cfg) - routed_params(cfg) + picked * expert_params(cfg)
-    rows = B * cfg.d_model + (cfg.d_model if cfg.rope == "learned" else 0)
-    nbytes = 2 * weights + 2 * rows + kv
-    return nbytes / H100_BYTES_PER_S * 1e3
-
-
 @contextlib.contextmanager
 def recorded_picks(cfg, passes: int):
     """The experts each ``moe.route`` call picks (B, S, top_k), in call
@@ -3973,18 +3870,6 @@ def timed_serving(params, cfg, batch, steps: int) -> dict:
     if picks:
         out["decode_experts_picked_a_layer"] = picked / len(picks)
     return out
-
-
-class OpCount(TorchDispatchMode):
-    """Counts the aten operations dispatched inside it."""
-
-    def __init__(self):
-        super().__init__()
-        self.n = 0
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        self.n += 1
-        return func(*args, **(kwargs or {}))
 
 
 def decode_profile(step, steps: int) -> tuple:
@@ -4339,20 +4224,6 @@ def state_bytes(state) -> tuple:
     return size(state), size(state.params)
 
 
-def train_bound_ms(cfg, B: int, S: int, sizes: tuple) -> tuple:
-    """The least time for a train step of B x S tokens: three times the
-    prefill's flops (``prefill_bound_ms``: 2 N a token for the N parameters
-    in products, attention, SSD, encoder; the backward pass takes twice the
-    forward's) over the dense bf16 peak, or the optimizer's bytes (the state
-    read and written once, the gradients, of the params' size, read once)
-    over the HBM rate if that is longer.  ``sizes``: ``state_bytes``.
-    Returns (ms, what bounds it)."""
-    _, flops, _ = prefill_bound_ms(cfg, B, S)
-    ops_ms = 3 * flops / H100_BF16_FLOPS * 1e3
-    bytes_ms = (2 * sizes[0] + sizes[1]) / H100_BYTES_PER_S * 1e3
-    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
-
-
 def train_readings(cfg, B: int, S: int, times: list, sizes: tuple, profile_step) -> dict:
     """ms a step (the median of ``times``, CUDA-event ms of the steps after
     the first), tokens/s, the bound, and ``profile_step``'s aten operations
@@ -4590,6 +4461,245 @@ def train_phase(device, kernels) -> dict:
         log(f"  {name}: {json.dumps(out[name])}")
     torch.cuda.empty_cache()
     return out
+
+
+def dry_grid() -> tuple:
+    """``dryrun`` over every (arch x shape) cell on ``TOOLS_MESHES``, the
+    train cells first (the longest), in ``TOOLS_JOBS`` processes; one line
+    a cell.  Returns ({(arch, shape, mesh): result}, wall seconds)."""
+    order = {"train": 0, "prefill": 1, "decode": 2}
+    cells = sorted((dryrun.Cell(a, s, TOOLS_MESHES) for a in ARCHS for s in SHAPES),
+                   key=lambda c: order[SHAPES[c.shape].kind])
+    t0 = time.perf_counter()
+    results = {}
+    for _, res in dryrun.run_grid(cells, TOOLS_JOBS):
+        for r in res:
+            log("  " + dryrun.summary(r))
+            if r["status"] == "error":
+                raise AssertionError(f"dry run of {r['arch']} {r['shape']}: {r['error']}")
+            results[(r["arch"], r["shape"], r["mesh"])] = r
+    return results, time.perf_counter() - t0
+
+
+def grown_bytes(build) -> tuple:
+    """``build()``, and the growth it caused of the bytes the caching
+    allocator was asked for (``requested_bytes``) and of those it handed
+    out (``memory_allocated``: each block rounded to 512 bytes, and a
+    large block left whole when what a split would leave is under 1 MiB)."""
+    torch.cuda.synchronize()
+    asked = torch.cuda.memory_stats()["requested_bytes.all.current"]
+    before = torch.cuda.memory_allocated()
+    out = build()
+    torch.cuda.synchronize()
+    return (out, torch.cuda.memory_stats()["requested_bytes.all.current"] - asked,
+            torch.cuda.memory_allocated() - before)
+
+
+def held_bytes(label, grown: tuple, want: int, tensors: int) -> int:
+    """The bytes asked of the allocator must be the dry run's, each of
+    ``tensors`` requests rounded up by less than ``ALLOC_ROUND``; the bytes
+    it handed out at least those.  Returns the allocator's slack."""
+    asked, allocated = grown
+    if not 0 <= asked - want < ALLOC_ROUND * tensors or allocated < asked:
+        raise AssertionError(f"{label}: {asked} bytes requested ({allocated} allocated), "
+                             f"the dry run says {want} ({tensors} tensors)")
+    return allocated - want
+
+
+def fitting_cells(dry) -> list:
+    """Each decode cell whose 1 x 1 dry run (argument bytes plus the step's
+    estimate) fits ``TOOLS_HEADROOM`` of the card; Mamba2-130M's
+    ``decode_32k`` and ``long_500k`` and RecurrentGemma-9B's ``long_500k``
+    must be among them."""
+    cells = [(arch, shape) for (arch, shape, mesh), r in sorted(dry.items())
+             if mesh == "1x1" and r["status"] == "ok" and SHAPES[shape].kind == "decode"
+             and r["memory"]["argument_bytes"] + r["memory"]["step_bytes_estimate"]
+             <= TOOLS_HEADROOM * dryrun.DEVICE_BYTES]
+    missing = {("mamba2-130m", "decode_32k"), ("mamba2-130m", "long_500k"),
+               ("recurrentgemma-9b", "long_500k")} - set(cells)
+    if missing:
+        raise AssertionError(f"{sorted(missing)} do not fit the card by the dry run")
+    return cells
+
+
+def full_context(cache, ctx: int) -> None:
+    """Make ``cache`` hold ``ctx`` positions a row, as a prefill of ``ctx``
+    tokens leaves it (its K/V stay zeros): ``pos`` at ``ctx``, and slot j
+    of each self-attention ring at the latest position p < ctx with
+    p % ring == j.  A decode step then reads the positions that
+    ``roofline.decode_bytes`` counts at ``ctx`` cached."""
+    cache["pos"].fill_(ctx)
+    stack = [cache]
+    while stack:
+        node = stack.pop()
+        for key, sub in node.items():
+            if key in ("attn", "self"):
+                kpos = sub["kpos"]
+                ring = kpos.shape[-1]
+                slots = torch.arange(ring, device=kpos.device)
+                kpos.copy_((ctx - ring + (slots - ctx) % ring).expand(kpos.shape))
+            elif isinstance(sub, dict) and key != "cross":
+                stack.append(sub)
+
+
+def real_cells(device, dry) -> dict:
+    """Each of ``fitting_cells`` on the card at full width and its shape's
+    batch and length: params from a seed (built once an arch), the cache
+    and one token a row, each held against the dry run's bytes; one
+    decode step for the peak, then ``TOOLS_STEPS`` timed."""
+    out = {}
+    cells = fitting_cells(dry)
+    for arch in dict.fromkeys(a for a, _ in cells):
+        cfg = get_config(arch)
+        torch.cuda.empty_cache()
+        params, *grown = grown_bytes(lambda: llm.init(cfg, SEED, device=device))
+        n_params = len(llm_schema.tree_leaves(params))
+        for shape in (s for a, s in cells if a == arch):
+            spec, dr = SHAPES[shape], dry[(arch, shape, "1x1")]
+            want = dr["memory"]["argument_bytes_by_kind"]
+            label = f"{arch} {shape}"
+            slack = held_bytes(label + " params", grown, want["params"], n_params)
+            gen = torch.Generator(device=device)
+            gen.manual_seed(SEED)
+            (cache, tokens), *grown_c = grown_bytes(lambda: (
+                llm.init_cache(cfg, spec.batch, spec.seq, cfg.act_dtype, device=device),
+                torch.randint(0, cfg.vocab_size, (spec.batch, 1), generator=gen,
+                              device=device, dtype=torch.int32)))
+            n_cache = len(llm_schema.tree_leaves(cache)) + 1
+            slack += held_bytes(label + " cache and tokens", grown_c,
+                                want["cache"] + want["batch"], n_cache)
+            full_context(cache, spec.seq)
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            with torch.no_grad():
+                logits, cache = llm.decode_step(params, cfg, cache, tokens)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            if logits.shape != (spec.batch, cfg.vocab_size) or not bool(
+                    torch.isfinite(logits).all()):
+                raise AssertionError(f"{label}: logits {tuple(logits.shape)} not finite")
+            times = []
+            with torch.no_grad():
+                for _ in range(TOOLS_STEPS):
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    logits, cache = llm.decode_step(params, cfg, cache, tokens)
+                    end.record()
+                    torch.cuda.synchronize()
+                    times.append(start.elapsed_time(end))
+            ms = statistics.median(times)
+            bound = dr["roofline"]["step_time_lb_s"] * 1e3
+            if ms < bound:
+                raise AssertionError(f"{label}: {ms} ms a step, under its roofline {bound} ms")
+            out[label] = {
+                "argument_bytes": dr["memory"]["argument_bytes"],
+                "requested_bytes": grown[0] + grown_c[0],
+                "allocated_bytes": grown[1] + grown_c[1], "allocator_slack": slack,
+                "tensors": n_params + n_cache,
+                "ms_a_step": ms, "roofline_step_ms": bound, "over_roofline": ms / bound,
+                "bound": dr["roofline"]["bound"],
+                "peak_bytes": peak, "peak_estimate": dr["memory"]["step_bytes_estimate"],
+                "peak_over_estimate": peak / dr["memory"]["step_bytes_estimate"]
+                if dr["memory"]["step_bytes_estimate"] else None,
+            }
+            log(f"  real {label}: {json.dumps(out[label])}")
+            del cache, tokens, logits
+        del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def _size(args) -> int:
+    return sum(t.numel() for t in args if torch.is_tensor(t))
+
+
+@contextlib.contextmanager
+def largest_kernel_calls(names):
+    """Yield a dict that, after the block, holds a copy of the inputs of
+    the largest call of each kernel of ``names`` that ``ops`` made inside
+    it, taken before the call."""
+    calls, patched = {}, []
+
+    def recorder(name, real):
+        def record(*args):
+            if name not in calls or _size(args) > _size(calls[name]):
+                with _disable_current_modes():  # the copy is not the audit's
+                    calls[name] = clone_state(args)
+            return real(*args)
+        return record
+
+    for name in names:
+        real = getattr(ops, name)
+        setattr(ops, name, recorder(name, real))
+        patched.append((name, real))
+    try:
+        yield calls
+    finally:
+        for name, real in patched:
+            setattr(ops, name, real)
+
+
+def tools_audit(kernels) -> dict:
+    """The op audit's families on the card (``trace_audit.collect(device=
+    "cuda")``: a ``device`` op runs again under sync-debug ``"error"``)
+    against the manifest's ``cuda`` section, with the launch counts at 0
+    before; the five kernels it must reach, each then held against its
+    plain version on the largest inputs the audit gave it."""
+    plain = {"fingerprint": fingerprint.fingerprint_plain,
+             "qf_positions": qf_build.positions_plain,
+             "qf_build_planes": qf_build.build_planes_plain,
+             "qf_probe": qf_probe.probe_plain,
+             "cascade_probe": cascade_probe.cascade_probe_plain}
+    for k in kernels.values():
+        k.launches = 0
+    with largest_kernel_calls(TOOLS_AUDIT_KERNELS) as calls:
+        current = trace_audit.collect(device="cuda")
+    launches = {n: kernels[n].launches for n in TOOLS_AUDIT_KERNELS}
+    if set(calls) != set(TOOLS_AUDIT_KERNELS):
+        raise AssertionError(f"the audit's calls of {sorted(set(TOOLS_AUDIT_KERNELS) - set(calls))}"
+                             " were not recorded")
+    problems = trace_audit.errors(current)
+    if problems:
+        raise AssertionError(f"op audit on the card failed: {problems}")
+    missing = [n for n, c in launches.items() if c <= 0]
+    if missing:
+        raise AssertionError(f"{missing} not launched by the op audit's families")
+    manifest = trace_audit.load_manifest(device="cuda")
+    if manifest is None:
+        raise AssertionError("trace_manifest.json has no cuda section")
+    lines, ok = trace_audit.diff(current, manifest)
+    for line in lines:
+        log(f"  audit: {line}")
+    if not ok:
+        raise AssertionError(f"op audit on the card failed: {lines}")
+    errs = {}
+    for name, args in calls.items():
+        got, want = kernels[name](*clone_state(args)), plain[name](*clone_state(args))
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        errs[name] = max_abs_err(got, want)
+        if errs[name]:
+            raise AssertionError(f"{name} at the audit's shapes is off by {errs[name]}")
+    statuses = [e["status"] for ops_ in current["families"].values() for e in ops_.values()]
+    return {"launches": launches, "max_abs_err": errs,
+            "device_ops": statuses.count("device"), "host_ops": statuses.count("host"),
+            "ops": len(statuses)}
+
+
+def tools_phase(device, kernels) -> dict:
+    """Phase 21: the dry-run grid, the cells run for real, the op audit on
+    the card, ``spec_check`` and the lint."""
+    dry, grid_s = dry_grid()
+    log(f"  dry-run grid: {len(dry)} (cell, mesh) results in {grid_s:.1f} s")
+    report = {"grid_s": grid_s, "grid_results": len(dry)}
+    report["real"] = real_cells(device, dry)
+    report["audit"] = tools_audit(kernels)
+    for name in ("spec", "lint"):
+        rc = analysis_main([name])
+        if rc != 0:
+            raise AssertionError(f"python -m repro_torch.analysis {name} exited {rc}")
+    return report
 
 
 def main(device: str = "cuda") -> int:
@@ -5125,7 +5235,16 @@ def main(device: str = "cuda") -> int:
     log(f"phase train ({card_line()}): " + json.dumps(train_report))
     phase_s["train"] = time.perf_counter() - t0
 
-    # 21. report
+    # 21. tools: the dry-run grid, cells run for real, the op audit on the card
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tools_report = tools_phase(device, kernels)
+    peaks["tools"] = torch.cuda.max_memory_allocated()
+    log(f"phase tools ({card_line()}): " + json.dumps(tools_report))
+    phase_s["tools"] = time.perf_counter() - t0
+
+    # 22. report
     for n, row in rows.items():
         row["launches"] = launches[n]
         if row["max_abs_err"] != 0:

@@ -36,6 +36,7 @@ launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -46,6 +47,34 @@ _P = ctypes.c_void_p
 
 # the probe kernel's entry point for each cell type
 _PROBE_FN = {torch.uint8: "bloom_probe_u8", torch.int16: "bloom_probe_i16"}
+
+
+@functools.cache
+def _count_library():
+    """``csrc/bloom_count.cu``'s library, its entry typed once."""
+    lib = cuda_lib.library("bloom_count")
+    lib.bloom_count.argtypes = [_P, _I64, _I64, _P, _P]
+    lib.bloom_count.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _probe_library():
+    """``csrc/bloom_probe.cu``'s library, its entries typed once."""
+    lib = cuda_lib.library("bloom_probe")
+    for name in _PROBE_FN.values():
+        fn = getattr(lib, name)
+        fn.argtypes = [_P, _I64, _P, _I64, ctypes.c_int, _P, _P]
+        fn.restype = ctypes.c_int
+    lib.bloom_probe_group.argtypes = []
+    lib.bloom_probe_group.restype = ctypes.c_int
+    return lib
+
+
+def probe_group() -> int:
+    """The cells a ``bloom_probe`` thread reads per round trip (the
+    kernel's ``GROUP``), for counting the sectors a probe reads."""
+    return _probe_library().bloom_probe_group()
 
 
 def bloom_count_plain(idx_flat, ncells: int):
@@ -72,10 +101,7 @@ def bloom_count(idx_flat, ncells: int):
     if not dispatch.use_kernel(idx_flat):
         return bloom_count_plain(idx_flat, ncells)
     counts = torch.empty(ncells, dtype=torch.int32, device=idx_flat.device)
-    fn = cuda_lib.library("bloom_count").bloom_count
-    fn.argtypes = [_P, _I64, _I64, _P, _P]
-    fn.restype = ctypes.c_int
-    err = fn(
+    err = _count_library().bloom_count(
         cuda_lib.ptr(idx_flat), idx_flat.shape[0], ncells, cuda_lib.ptr(counts),
         cuda_lib.stream_handle(idx_flat.device),
     )
@@ -108,10 +134,7 @@ def bloom_probe(cells, idx):
     if not dispatch.use_kernel(cells, idx):
         return bloom_probe_plain(cells, idx)
     hit = torch.empty(idx.shape[0], dtype=torch.bool, device=idx.device)
-    fn = getattr(cuda_lib.library("bloom_probe"), _PROBE_FN[cells.dtype])
-    fn.argtypes = [_P, _I64, _P, _I64, ctypes.c_int, _P, _P]
-    fn.restype = ctypes.c_int
-    err = fn(
+    err = getattr(_probe_library(), _PROBE_FN[cells.dtype])(
         cuda_lib.ptr(cells), cells.shape[0], cuda_lib.ptr(idx), idx.shape[0],
         idx.shape[1], cuda_lib.ptr(hit), cuda_lib.stream_handle(idx.device),
     )

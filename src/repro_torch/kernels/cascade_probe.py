@@ -26,6 +26,7 @@ dependent reads is one ``occ`` round plus the walks it needs.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -37,6 +38,16 @@ MAX_LEVELS = 32
 
 _I64 = ctypes.c_longlong
 _P = ctypes.c_void_p
+
+
+@functools.cache
+def _library():
+    """``csrc/cascade_probe.cu``'s library, its entry typed once."""
+    lib = cuda_lib.library("cascade_probe")
+    lib.cascade_probe.argtypes = [_P, _P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+                                  _P, _P, _I64, _P, _P]
+    lib.cascade_probe.restype = ctypes.c_int
+    return lib
 
 
 def cascade_probe_plain(level_planes, level_n, level_r, fq, fr, r: int):
@@ -98,12 +109,8 @@ def cascade_probe(level_planes, level_n, level_r, fq, fr, r: int):
     counts = table(_I64, (n.data_ptr() for n in level_n))
     totals = table(_I64, (lv[0].shape[0] for lv in level_planes))
     widths = table(ctypes.c_int, level_r)
-    fn = cuda_lib.library("cascade_probe").cascade_probe
-    fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
-                   _P, _P, _I64, _P, _P]
-    fn.restype = ctypes.c_int
     P = cuda_lib.ptr
-    err = fn(
+    err = _library().cascade_probe(
         rem_p, occ_p, shf_p, con_p, counts, totals, widths, L, r, P(fq), P(fr), B,
         P(hit), cuda_lib.stream_handle(fq.device),
     )

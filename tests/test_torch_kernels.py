@@ -676,3 +676,53 @@ def test_scan_tile_matches_the_cuda_source():
         for name, value in re.findall(r"constexpr int (SCAN_\w+) = (\d+);", text)
     }
     assert consts["SCAN_THREADS"] * consts["SCAN_ROUNDS"] == qf_build.SCAN_TILE
+
+
+def test_bloom_count_wrapper_matches_jax_oracle():
+    from repro_torch.kernels import bloom_block
+
+    rng = np.random.default_rng(7)
+    idx = rng.integers(0, 257, size=600).astype(np.int32)
+    idx[::7] = 2**31 - 1  # masked keys count nothing
+    got = bloom_block.bloom_count(torch.from_numpy(idx), 257)
+    assert bloom_block.bloom_count.launches == 0  # CPU tensors: no launch
+    want = jref.bloom_count_ref(jnp.asarray(idx), 257)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("dtype", ["uint8", "int16"])
+def test_bloom_probe_wrapper_matches_jax_oracle(dtype):
+    from repro_torch.kernels import bloom_block
+
+    rng = np.random.default_rng(8)
+    cells = (rng.random(512) < 0.6).astype(np.int64) * rng.integers(1, 3, size=512)
+    idx = rng.integers(0, 512, size=(300, 5)).astype(np.int32)
+    tcells = torch.from_numpy(cells.astype(np.uint8 if dtype == "uint8" else np.int16))
+    got = bloom_block.bloom_probe(tcells, torch.from_numpy(idx))
+    assert bloom_block.bloom_probe.launches == 0
+    want = jref.bloom_probe_ref(jnp.asarray(cells.astype(np.int32)), jnp.asarray(idx))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_qf_build_span_wrapper_appends_to_the_jax_build():
+    """A sorted stream appended in two spans from an empty table gives the
+    JAX package's build of the whole stream, with its count and carries."""
+    jcfg, tcfg, js, ts, keys = _filled(*WIDE)
+    fq, fr = _sorted_stream(tcfg, keys)
+    t = tcfg.total_slots
+    rem = torch.zeros(t, dtype=torch.int32)
+    occ, shf, con = (torch.zeros(t, dtype=torch.bool) for _ in range(3))
+    n = torch.zeros((), dtype=torch.int32)
+    overflow = torch.zeros((), dtype=torch.bool)
+    last_pos = last_fq = torch.full((), -1, dtype=torch.int32)
+    cut = keys.shape[0] // 3
+    for lo, hi in ((0, cut), (cut, keys.shape[0])):
+        k = torch.tensor(hi - lo, dtype=torch.int32)
+        n, overflow, last_pos, last_fq = qf_build.qf_build_span(
+            fq[lo:hi].contiguous(), fr[lo:hi].contiguous(), k, n, overflow, last_pos,
+            last_fq, rem, occ, shf, con,
+        )
+    assert qf_build.qf_build_span.launches == 0
+    assert int(n) == keys.shape[0] and not bool(overflow)
+    for f, a, b in zip(("rem", "occ", "shf", "con"), _jplanes(js), (rem, occ, shf, con)):
+        np.testing.assert_array_equal(np.asarray(a), b.to(torch.int32).numpy(), err_msg=f)
