@@ -319,11 +319,25 @@ Phases, each timed, any failure fatal (a traceback and exit code 1):
             the dry run's estimate; the op audit's families on the card
             (``tools_audit``): each ``device`` op under sync-debug
             ``"error"``, the counts against the manifest's ``cuda``
-            section, ``fingerprint``, ``qf_positions``, ``qf_build_planes``,
+            section, every synchronizing call's site (``path::function``)
+            a deliberate read of ``trace_audit.KNOWN_SYNC_SITES`` and each
+            op's sites and counts equal to the section's,
+            ``fingerprint``, ``qf_positions``, ``qf_build_planes``,
             ``qf_probe`` and ``cascade_probe`` launched and each held
             against its plain version on the largest inputs the audit gave
             it; ``spec_check`` and the lint, both exit 0.
-22. report  one JSON line of per-kernel results (nine rows), then the
+22. examples the four examples of ``repro_torch.examples``
+            (``examples_phase``): ``quickstart``, ``dedup_pipeline`` and
+            ``serve_prefix_cache`` through their ``main`` on the card, the
+            launch counts at 0 before quickstart, whose pallas section must
+            launch ``fingerprint``, ``qf_positions``, ``qf_build_planes`` and
+            ``qf_probe`` and answer as the plain path on the same keys; each
+            one's integers (QF ``n`` after the delete, flushes, levels,
+            merges, ``auto_grow``'s q and n, documents seen, kept and
+            dropped, remote probes and hits) equal to a run on the CPU;
+            then ``train_e2e`` (Mamba2-130M at full width, 8 x 512) for 2
+            steps; each example's numbers and wall seconds.
+23. report  one JSON line of per-kernel results (nine rows), then the
             card's name and power limit, then the result line.
 
 The whole run must stay within 1200 s of command time on one H100.
@@ -378,6 +392,10 @@ try:
     from repro_torch.analysis import spec_check, trace_audit
     from repro_torch.analysis.__main__ import main as analysis_main
     from repro_torch.analysis.trace_audit import OpCount
+    from repro_torch.examples import dedup_pipeline as ex_dedup
+    from repro_torch.examples import quickstart as ex_quickstart
+    from repro_torch.examples import serve_prefix_cache as ex_cache
+    from repro_torch.examples import train_e2e as ex_train
     from repro_torch.launch import dryrun, roofline
     from repro_torch.launch.shapes import SHAPES
     from repro_torch.launch.roofline import (
@@ -549,6 +567,17 @@ TOOLS_STEPS = 8  # timed decode steps a real cell
 TOOLS_AUDIT_KERNELS = ("fingerprint", "qf_positions", "qf_build_planes", "qf_probe",
                        "cascade_probe")
 ALLOC_ROUND = 512  # the caching allocator rounds a request up to 512 bytes
+
+# phase examples: the four examples of repro_torch.examples
+EXAMPLE_KERNELS = ("fingerprint", "qf_positions", "qf_build_planes", "qf_probe")
+EXAMPLE_INTS = {  # each example's integers, held equal on the card and the CPU
+    "quickstart": ("qf_n_after_delete", "bqf_flushes", "cf_levels", "cf_merges",
+                   "auto_grow_q", "auto_grow_n"),
+    "dedup_pipeline": ("docs_seen", "docs_kept", "docs_dropped", "digests", "levels",
+                       "merges"),
+    "serve_prefix_cache": ("remote_probes_naive", "remote_probes_with_filter"),
+}
+TRAIN_E2E_STEPS = 2  # phase 20 trains train_e2e's configuration at length
 
 
 def log(*args) -> None:
@@ -4681,10 +4710,23 @@ def tools_audit(kernels) -> dict:
         errs[name] = max_abs_err(got, want)
         if errs[name]:
             raise AssertionError(f"{name} at the audit's shapes is off by {errs[name]}")
-    statuses = [e["status"] for ops_ in current["families"].values() for e in ops_.values()]
+    entries = [(f"{fam}.{op}", e, manifest["families"][fam][op])
+               for fam, ops_ in current["families"].items() for op, e in ops_.items()]
+    for label, e, committed in entries:
+        if e["status"] not in ("device", "host"):
+            continue
+        sites = e.get("sync_sites", {})
+        unknown = sorted(set(sites) - set(trace_audit.KNOWN_SYNC_SITES))
+        if unknown:
+            raise AssertionError(f"{label}: syncs at {unknown}, no deliberate read "
+                                 "(trace_audit.KNOWN_SYNC_SITES)")
+        if sites != committed.get("sync_sites", {}):
+            raise AssertionError(f"{label}: syncs {sites} where the cuda "
+                                 f"section pins {committed.get('sync_sites', {})}")
+    statuses = [e["status"] for _, e, _ in entries]
     return {"launches": launches, "max_abs_err": errs,
             "device_ops": statuses.count("device"), "host_ops": statuses.count("host"),
-            "ops": len(statuses)}
+            "ops": len(statuses), "syncs": sum(e.get("syncs", 0) for _, e, _ in entries)}
 
 
 def tools_phase(device, kernels) -> dict:
@@ -4699,6 +4741,54 @@ def tools_phase(device, kernels) -> dict:
         rc = analysis_main([name])
         if rc != 0:
             raise AssertionError(f"python -m repro_torch.analysis {name} exited {rc}")
+    return report
+
+
+def examples_phase(device, kernels) -> dict:
+    """Phase 22: the four examples' ``main``s on ``device``, each one's
+    numbers and wall seconds.  Quickstart runs with the launch counts at 0
+    before it, and its pallas section must launch ``EXAMPLE_KERNELS``; that
+    section's hits are then held against the plain path's on the same
+    keys.  The three filter examples' integers (``EXAMPLE_INTS``) must
+    equal a run on the CPU, which the tier-1 tests hold to the JAX
+    package; ``train_e2e`` runs ``TRAIN_E2E_STEPS`` steps, each loss
+    finite."""
+    argv = ["--device", device.type]
+    report = {}
+    mains = {"quickstart": ex_quickstart.main, "dedup_pipeline": ex_dedup.main,
+             "serve_prefix_cache": ex_cache.main}
+    for name, run in mains.items():
+        t0 = time.perf_counter()
+        if name == "quickstart":
+            out, counts = counted(kernels, EXAMPLE_KERNELS, "quickstart",
+                                  lambda: run(argv))
+        else:
+            out, counts = run(argv), None
+        seconds = time.perf_counter() - t0
+        cpu = run(["--device", "cpu"])
+        differ = [k for k in EXAMPLE_INTS[name] if out[k] != cpu[k]]
+        if differ:
+            raise AssertionError(f"example {name}: {differ} differ from the CPU's: "
+                                 f"{ {k: (out[k], cpu[k]) for k in differ} }")
+        report[name] = {"numbers": out, "seconds": seconds, "launches": counts}
+        log(f"  example {name} ({card_line()}): {json.dumps(report[name])}")
+    q = report["quickstart"]["numbers"]
+    flags = ("qf_all_present", "cf_all_present", "pallas_all_present",
+             "auto_grow_all_present")
+    if not all(q[f] for f in flags) or q["auto_grow_overflow"]:
+        raise AssertionError(f"example quickstart: {q}")
+    keys = ex_quickstart.uint32_keys(np.random.default_rng(0), 50_000, device)
+    if not torch.equal(ex_quickstart.pallas_hits(keys),
+                       ex_quickstart.pallas_hits(keys, "reference")):
+        raise AssertionError("example quickstart: the pallas section's hits differ "
+                             "from the plain path's")
+    t0 = time.perf_counter()
+    out = ex_train.main(argv + ["--steps", str(TRAIN_E2E_STEPS)])
+    seconds = time.perf_counter() - t0
+    if out["steps"] != TRAIN_E2E_STEPS or not math.isfinite(out["loss"]):
+        raise AssertionError(f"example train_e2e: {out}")
+    report["train_e2e"] = {"numbers": out, "seconds": seconds}
+    log(f"  example train_e2e ({card_line()}): {json.dumps(report['train_e2e'])}")
     return report
 
 
@@ -5244,7 +5334,17 @@ def main(device: str = "cuda") -> int:
     log(f"phase tools ({card_line()}): " + json.dumps(tools_report))
     phase_s["tools"] = time.perf_counter() - t0
 
-    # 22. report
+    # 22. examples: the four examples of repro_torch.examples
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    examples_report = examples_phase(device, kernels)
+    peaks["examples"] = torch.cuda.max_memory_allocated()
+    log(f"phase examples ({card_line()}): " + json.dumps(
+        {n: {"seconds": r["seconds"]} for n, r in examples_report.items()}))
+    phase_s["examples"] = time.perf_counter() - t0
+
+    # 23. report
     for n, row in rows.items():
         row["launches"] = launches[n]
         if row["max_abs_err"] != 0:

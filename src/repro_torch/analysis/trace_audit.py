@@ -26,7 +26,13 @@ the former; the lint covers the rest statically.  On the card
 (``device="cuda"``) every op runs under ``torch.cuda.
 set_sync_debug_mode("error")`` too, so any synchronizing call, seen or
 not (a boolean-mask index or ``nonzero`` waits for its row count),
-makes the op ``host``.  The kernels are ctypes calls that no
+makes the op ``host``, and each synchronizing call is pinned to its site:
+the port's ``path::function`` that issued it (``sync_site``).  The
+``cuda`` section records per op ``syncs`` (their count) and
+``sync_sites`` (the count at each site); every site there is a
+deliberate read listed in ``KNOWN_SYNC_SITES`` with its reason, so a
+new copy from the host cannot hide in an op that is already ``host``.
+The kernels are ctypes calls that no
 dispatch mode sees, so the ``cuda`` section's counts are smaller than the
 ``cpu`` section's for the ``[pallas]`` families: a wrapper that quietly
 ran its plain version on the card would blow its count up past
@@ -36,8 +42,9 @@ The result diffs against the committed ``trace_manifest.json``, whose
 ``cpu`` section tier-1 checks and whose ``cuda`` section ``chip_smoke.py``
 checks on the card: status changes (a ``device`` op that reads the host
 fails, as a forbidden primitive fails the reference's audit), new or
-removed ops, and op-count blow-ups (> ``BLOWUP`` x) fail with a readable
-diff; operation-set drift is informational unless ``--strict``.
+removed ops, op-count blow-ups (> ``BLOWUP`` x), and on the card more
+syncs than committed, a new sync site or a site's count grown, fail with
+a readable diff; operation-set drift is informational unless ``--strict``.
 Refresh a section with ``python -m repro_torch.analysis trace --update
 [--device cuda]`` after a reviewed change.
 
@@ -49,8 +56,10 @@ deviation of the port by design (ROADMAP Queue 3), listed in
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
+import sys
 import warnings
 from typing import Optional
 
@@ -59,6 +68,8 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 
 MANIFEST_PATH = os.path.join(os.path.dirname(__file__), "trace_manifest.json")
+_ANALYSIS_DIR = os.path.dirname(os.path.abspath(__file__))
+_PACKAGE_DIR = os.path.dirname(_ANALYSIS_DIR)
 
 OPS = (
     "insert",
@@ -105,6 +116,39 @@ JAX_STATUS_DIFFERENCES = {
                                   "(core/fuse_filter.py freeze_stream)",
     ("cascade[frozen]", "probe"): _EMPTY_LEVEL,
     ("sharded_qf", "contains"): _PLAIN_LOOKUP,
+}
+
+# ``path::function`` -> why the port reads the card there on purpose (ROADMAP
+# Queue 3, "deviations of the port by design").  Every site in the manifest's
+# ``cuda`` section must be one of these; a copy from the host is repaired.
+KNOWN_SYNC_SITES = {
+    "filters/buffered.py::insert":
+        "the flush decision reads the RAM QF's load (bool), where the JAX package "
+        "branches with lax.cond",
+    "filters/cascade.py::_collapse_target":
+        "the merge-down target level is read (int), once an insert batch",
+    "filters/cascade.py::merge":
+        "a merge reads its target level (int) before it rebuilds",
+    "filters/steady.py::insert":
+        "one transfer an insert (buffer count, idle flag, clean, k) decides the "
+        "JAX package's three lax.conds",
+    "core/quotient_filter.py::lookup":
+        "backend=\"reference\": a window overflow retries wider, then exact; "
+        "read once a chunk",
+    "filters/cascade.py::_qf_contains":
+        "backend=\"reference\": membership skips an empty level",
+    "filters/xor_fuse.py::merge":
+        "the union's count (int), read once: checked against the frozen "
+        "capacity (a ValueError, as the reference raises) and the re-peel's size",
+    "core/fuse_filter.py::freeze_stream":
+        "a freeze reads its stream's count (int) to size its run planes, and "
+        "its distinct fingerprints (nonzero) to size the peel",
+    "core/fuse_filter.py::_peel":
+        "the peel compacts its live keys (alive[live]) after 1, 2, 4, ... 32 "
+        "rounds, and the boolean-mask index waits for their count",
+    "core/fuse_filter.py::_peel_assign":
+        "the peel's keys per round (bincount, tolist), read once to replay the "
+        "assignment round by round",
 }
 
 
@@ -175,22 +219,62 @@ def _keys(n: int = 64, device="cpu"):
     return (mixed - ((mixed >> 31) << 32)).to(torch.int32).to(device)
 
 
+def sync_site(frame) -> str:
+    """``path::function`` of the innermost frame of the port outside
+    ``analysis/``, walking out from ``frame``: the port's code that issued
+    a call.  The function is its qualified name without ``<locals>``, as
+    the lint's baseline names it.  A warning raised through a dispatch
+    mode names the mode's frame, so the walk passes it.  A call with no
+    frame of the port names the innermost frame that warned."""
+    first = frame
+    while frame is not None:
+        path = os.path.abspath(frame.f_code.co_filename)
+        if path.startswith(_PACKAGE_DIR + os.sep) and not path.startswith(
+            _ANALYSIS_DIR + os.sep
+        ):
+            rel = os.path.relpath(path, _PACKAGE_DIR).replace(os.sep, "/")
+            return f"{rel}::{frame.f_code.co_qualname.replace('.<locals>', '')}"
+        frame = frame.f_back
+    while first is not None and first.f_code.co_filename == warnings.__file__:
+        first = first.f_back
+    code = first.f_code if first is not None else None
+    where = f"{os.path.basename(code.co_filename)}::{code.co_qualname}" if code else "?"
+    return f"<outside the port: {where}>"
+
+
+@contextlib.contextmanager
+def recorded_syncs():
+    """Yield a dict that counts, by :func:`sync_site`, the synchronizing
+    calls the card warns of inside the block (sync-debug ``"warn"``)."""
+    sites: dict[str, int] = {}
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" in str(message):
+            site = sync_site(sys._getframe(1))
+            sites[site] = sites.get(site, 0) + 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        yield sites
+
+
 def _run_watched(device: str, thunk, audit, mode: str):
     """``thunk()`` inside ``audit``; on the card under sync-debug ``mode``.
-    Returns (its result, the synchronizing calls the card warned of)."""
+    Returns (its result, the synchronizing calls the card warned of, by
+    site)."""
     if device != "cuda":
         with audit:
-            return thunk(), 0
+            return thunk(), {}
     prev = torch.cuda.get_sync_debug_mode()
-    with warnings.catch_warnings(record=True) as seen:
-        warnings.simplefilter("always")
+    with recorded_syncs() as sites:
         torch.cuda.set_sync_debug_mode(mode)
         try:
             with audit:
                 out = thunk()
         finally:
             torch.cuda.set_sync_debug_mode(prev)
-    return out, sum("synchroniz" in str(w.message) for w in seen)
+    return out, sites
 
 
 def _audit_op(device: str, thunk) -> tuple[dict, object]:
@@ -201,15 +285,18 @@ def _audit_op(device: str, thunk) -> tuple[dict, object]:
 
     audit = OpAudit()
     try:
-        out, syncs = _run_watched(device, thunk, audit, "warn")
-        if device == "cuda" and not (syncs or audit.host_reads):
+        out, sites = _run_watched(device, thunk, audit, "warn")
+        if device == "cuda" and not (sites or audit.host_reads):
             out, _ = _run_watched(device, thunk, OpAudit(), "error")
     except UnsupportedOpError:
         return {"status": "unsupported"}, None
     except Exception as e:  # noqa: BLE001 - audited + surfaced below
         return {"status": "error", "error": f"{type(e).__name__}: {e}"}, None
-    status = "host" if audit.host_reads or syncs else "device"
-    return {"status": status, "ops": audit.n, "aten": audit.aten}, out
+    status = "host" if audit.host_reads or sites else "device"
+    entry = {"status": status, "ops": audit.n, "aten": audit.aten}
+    if device == "cuda":
+        entry.update(syncs=sum(sites.values()), sync_sites=dict(sorted(sites.items())))
+    return entry, out
 
 
 def trace_family(fam: str, spec: dict, device: str = "cpu") -> dict[str, dict]:
@@ -314,7 +401,31 @@ def diff(current: dict, manifest: dict, strict: bool = False) -> tuple[list[str]
                 )
                 lines.append(note)
                 failed = failed or strict
+            if "syncs" in c:
+                bad = _sync_growth(c, m)
+                lines += [f"FAIL {fam}.{op}: {b} — a synchronizing call the "
+                          "committed cuda section lacks (repair it, or list a "
+                          "deliberate read in KNOWN_SYNC_SITES and run --update)"
+                          for b in bad]
+                failed = failed or bool(bad)
+                if not bad and c["sync_sites"] != m.get("sync_sites", {}):
+                    lines.append(f"note {fam}.{op}: fewer syncs ({m.get('syncs', 0)} -> "
+                                 f"{c['syncs']}; run --update to pin them)")
     return lines, not failed
+
+
+def _sync_growth(c: dict, m: dict) -> list[str]:
+    """How the syncs of a card entry ``c`` exceed its committed entry ``m``."""
+    out = []
+    if c["syncs"] > m.get("syncs", 0):
+        out.append(f"syncs {m.get('syncs', 0)} -> {c['syncs']}")
+    committed = m.get("sync_sites", {})
+    for site, n in sorted(c["sync_sites"].items()):
+        if site not in committed:
+            out.append(f"new sync site {site} ({n})")
+        elif n > committed[site]:
+            out.append(f"sync site {site} {committed[site]} -> {n}")
+    return out
 
 
 def load_manifest(path: str = MANIFEST_PATH, device: str = "cpu") -> Optional[dict]:
@@ -348,6 +459,8 @@ def render_summary(current: dict) -> str:
     for fam, ops in sorted(current["families"].items()):
         for op, entry in sorted(ops.items()):
             extra = f" ops={entry['ops']}" if "ops" in entry else ""
+            if entry.get("syncs"):
+                extra += f" syncs={entry['syncs']} {json.dumps(entry['sync_sites'])}"
             lines.append(f"  {fam + '.' + op:40s} {entry['status']}{extra}")
     return "\n".join(lines)
 
@@ -359,6 +472,8 @@ def run_audit(
     verbose: bool = False,
     device: str = "cpu",
 ) -> int:
+    if device == "cuda":  # one-time work on the card (lazy init, loads) is no op's
+        collect(device=device)
     current = collect(device=device)
     problems = errors(current)
     if verbose:

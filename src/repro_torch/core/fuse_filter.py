@@ -146,8 +146,10 @@ class FuseState(NamedTuple):
 
 
 def _scalars(device, n, n_unique, fuse_seed, overflow):
-    i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=device)
-    return i32(n), i32(n_unique), i32(fuse_seed), torch.tensor(overflow, device=device)
+    """The host numbers of a frozen level as its scalar leaves, filled in on
+    ``device`` (no copy from the host)."""
+    i32 = lambda v: torch.full((), v, dtype=torch.int32, device=device)
+    return i32(n), i32(n_unique), i32(fuse_seed), torch.full((), overflow, device=device)
 
 
 def empty(cfg: FuseConfig, device=None) -> FuseState:

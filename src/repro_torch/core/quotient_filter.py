@@ -95,7 +95,12 @@ def resolve_device(device=None) -> torch.device:
 
 
 def _i32(x, device) -> torch.Tensor:
-    return torch.as_tensor(x, dtype=torch.int32, device=device)
+    """``x`` as an int32 scalar on ``device``.  A host number is filled in
+    there, which copies nothing from the host (``torch.as_tensor`` of a
+    Python int would: a synchronizing copy on the card)."""
+    if torch.is_tensor(x):
+        return torch.as_tensor(x, dtype=torch.int32, device=device)
+    return torch.full((), x, dtype=torch.int32, device=device)
 
 
 def empty(cfg: QFConfig, device=None) -> QFState:
@@ -178,7 +183,7 @@ def build_sorted(cfg: QFConfig, fq: torch.Tensor, fr: torch.Tensor, n) -> QFStat
         return out[:t]
 
     occ = torch.zeros(t + 1, dtype=torch.bool, device=fq.device)
-    occ[torch.where(valid, fq, t)] = True
+    occ.index_fill_(0, torch.where(valid, fq, t), True)  # a scalar fill copies nothing
     return QFState(
         rem=plane(torch.int32, fr),
         occ=occ[:t],

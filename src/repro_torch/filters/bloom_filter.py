@@ -113,8 +113,8 @@ def _cells(cfg) -> int:
 
 
 def _count(keys, k) -> torch.Tensor:
-    n = keys.shape[0] if k is None else k
-    return torch.as_tensor(n, dtype=torch.int32, device=keys.device)
+    """The batch's key count, an int32 scalar on the keys' device."""
+    return qf._i32(keys.shape[0] if k is None else k, keys.device)
 
 
 def _masked(idx: torch.Tensor, keys, k) -> torch.Tensor:

@@ -236,6 +236,15 @@ def _collapse_into(cfg: CascadeConfig, state: CascadeState, i: int) -> CascadeSt
     return CascadeState(q0=qf.empty(cfg.q0_cfg, dev), levels=levels, io=io)
 
 
+def _level_caps(cfg: CascadeConfig, dev) -> torch.Tensor:
+    """Each level's capacity, int32 (levels,), filled in on ``dev``: a
+    tensor of host numbers would be a synchronizing copy on the card."""
+    return torch.stack([
+        torch.full((), cfg.level_cfg(i).capacity, dtype=torch.int32, device=dev)
+        for i in range(cfg.levels)
+    ])
+
+
 def _collapse_target(cfg: CascadeConfig, state: CascadeState, full) -> int:
     """The level Q0 collapses into, or ``cfg.levels`` for none.
 
@@ -245,12 +254,7 @@ def _collapse_target(cfg: CascadeConfig, state: CascadeState, full) -> int:
     L = cfg.levels
     ns = torch.stack([s.n for s in state.levels])
     cum = state.q0.n + torch.cumsum(ns, 0, dtype=torch.int32)
-    caps = torch.tensor(
-        [cfg.level_cfg(i).capacity for i in range(L)],
-        dtype=torch.int32,
-        device=cum.device,
-    )
-    fits = cum <= caps
+    fits = cum <= _level_caps(cfg, cum.device)
     target = fits.to(torch.int32).argmax()  # first fitting level
     return int(torch.where(full & fits.any(), target, L))
 
@@ -387,10 +391,7 @@ def merge(cfg: CascadeConfig, sa, sb) -> CascadeState:
     io = iostats.add(sa.io, sb.io)
     io = io._replace(seq_read_bytes=io.seq_read_bytes + read, merges=io.merges + 1)
 
-    caps = torch.tensor(
-        [cfg.level_cfg(i).capacity for i in range(L)], dtype=torch.int32, device=dev
-    )
-    fits = total <= caps
+    fits = total <= _level_caps(cfg, dev)
     i = int(torch.where(fits.any(), fits.to(torch.int32).argmax(), L - 1))
     merged = _build_level(cfg, i, allq, allr, total)
     merged = merged._replace(overflow=merged.overflow | overflow)

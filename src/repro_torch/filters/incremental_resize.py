@@ -160,7 +160,7 @@ def begin_stream(
     ms = MigrationState(
         src_fq=fq,
         src_fr=fr,
-        src_n=torch.as_tensor(n, dtype=torch.int32, device=dev),
+        src_n=qf._i32(n, dev),
         cursor=torch.zeros((), dtype=torch.int32, device=dev),
         dst=qf.empty(dst.core, dev),
         last_pos=_minus_one(dev),

@@ -52,8 +52,9 @@ def zeros(device) -> IOCounters:
 
 
 def f32(x, device) -> torch.Tensor:
-    """A byte count as a float32 scalar on ``device`` (the counters' type)."""
-    return torch.tensor(float(x), dtype=torch.float32, device=device)
+    """A byte count as a float32 scalar on ``device`` (the counters' type),
+    filled in there: no copy from the host."""
+    return torch.full((), x, dtype=torch.float32, device=device)
 
 
 def add(a: IOCounters, b: IOCounters) -> IOCounters:

@@ -162,7 +162,7 @@ def merge(cfg: XorFuseConfig, sa: XorFuseState, sb: XorFuseState) -> XorFuseStat
     runs in O(n) and re-peel."""
     a, b = sa.core, sb.core
     mq, mr = qf.merge_streams(a.run_q, a.run_r, a.n, b.run_q, b.run_r, b.n)
-    n = int(a.n) + int(b.n)
+    n = int(a.n + b.n)  # one read: the capacity check and the re-peel's size
     return _refreeze(cfg, mq, mr, n, iostats.add(sa.io, sb.io))
 
 

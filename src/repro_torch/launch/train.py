@@ -34,7 +34,9 @@ from ..train.checkpoint import CheckpointManager
 from ..train.fault_tolerance import ClusterMonitor, FTConfig, TrainSupervisor
 
 
-def main(argv=None):
+def run(argv=None) -> dict:
+    """Train as the command line ``argv`` says; returns the last printed
+    step's numbers and the pipeline's counters."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ARCHS, required=True)
     ap.add_argument("--smoke", action="store_true", help="reduced config")
@@ -99,6 +101,7 @@ def main(argv=None):
         ).to(getattr(torch, cfg.act_dtype))
 
     it = pipe.batches(args.steps - start_step)
+    report = {"resumed_from": start_step}
     t_start = time.time()
     for step in range(start_step, args.steps):
         batch = next(it)
@@ -119,10 +122,12 @@ def main(argv=None):
             tput = (step - start_step + 1) * args.batch * args.seq / (
                 time.time() - t_start
             )
+            report.update(step=step, loss=loss, lr=float(metrics["lr"]),
+                          grad_norm=float(metrics["grad_norm"]), tokens_per_s=tput)
             print(
                 f"[train] step={step} loss={loss:.4f} "
-                f"lr={float(metrics['lr']):.2e} "
-                f"gnorm={float(metrics['grad_norm']):.2f} "
+                f"lr={report['lr']:.2e} "
+                f"gnorm={report['grad_norm']:.2f} "
                 f"tok/s={tput:.0f} dedup_dropped={pipe.state.docs_dropped}",
                 flush=True,
             )
@@ -135,6 +140,13 @@ def main(argv=None):
         f"[train] done: {args.steps} steps; corpus seen={pipe.state.docs_seen} "
         f"kept={pipe.state.docs_kept} dropped(dup)={pipe.state.docs_dropped}"
     )
+    report.update(steps=args.steps, docs_seen=pipe.state.docs_seen,
+                  docs_kept=pipe.state.docs_kept, docs_dropped=pipe.state.docs_dropped)
+    return report
+
+
+def main(argv=None) -> int:
+    run(argv)
     return 0
 
 

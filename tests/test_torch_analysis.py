@@ -7,7 +7,13 @@
   ``toml_lite`` against the JAX package's on the same texts, the op
   audit's manifest round trip and diff (``TestTraceAudit``), one live
   audit of ``qf`` against the committed ``cpu`` section, and the
-  section's status differences from the JAX package's manifest.
+  section's status differences from the JAX package's manifest; the
+  ``cuda`` section's syncs per op and per site (``TestSyncSites``: a
+  new site or a grown count fails, every committed site is a deliberate
+  read of ``KNOWN_SYNC_SITES``, the cascade's counts equal its calls).
+* **Repaired host-to-card copies** (``TestFilledScalars``): each value
+  that was a copy from the host, now filled in on the device, has the
+  old construction's dtype and value.
 * **Kernel contracts**: ``spec_check`` passes over the real ``csrc/``
   and rejects a wrong arity, a wrong integer width, a missing
   ``launches`` counter and a missing test.
@@ -23,6 +29,7 @@ import os
 import subprocess
 import sys
 import types
+import warnings
 
 import pytest
 import torch
@@ -356,6 +363,209 @@ class TestTraceAudit:
     def test_the_cuda_section_is_committed(self):
         cuda = trace_audit.load_manifest(device="cuda")
         assert cuda is not None and set(cuda["families"]) == set(trace_audit.family_specs())
+
+
+def _synced(syncs: dict, status="host"):
+    e = _fam(status=status)
+    e.update(syncs=sum(syncs.values()), sync_sites=dict(syncs))
+    return e
+
+
+_COLLAPSE_SITE = "filters/cascade.py::_collapse_target"
+_MERGE_SITE = "filters/cascade.py::merge"
+
+
+class TestSyncSites:
+    def _diff(self, cur: dict, man: dict):
+        return trace_audit.diff({"families": {"cascade": {"insert": cur}}},
+                                {"families": {"cascade": {"insert": man}}})
+
+    def test_a_new_site_fails(self):
+        lines, ok = self._diff(_synced({_COLLAPSE_SITE: 1, "filters/iostats.py::f32": 1}),
+                               _synced({_COLLAPSE_SITE: 1, "core/quotient_filter.py::x": 1}))
+        assert not ok and any("new sync site filters/iostats.py::f32" in x for x in lines)
+
+    def test_a_grown_site_count_fails(self):
+        lines, ok = self._diff(_synced({_COLLAPSE_SITE: 2}), _synced({_COLLAPSE_SITE: 1}))
+        assert not ok and any("syncs 1 -> 2" in x for x in lines)
+        assert any(f"sync site {_COLLAPSE_SITE} 1 -> 2" in x for x in lines)
+
+    def test_more_syncs_fail(self):
+        cur = _synced({_COLLAPSE_SITE: 1})
+        cur["syncs"] = 2
+        lines, ok = self._diff(cur, _synced({_COLLAPSE_SITE: 1}))
+        assert not ok and any("syncs 1 -> 2" in x for x in lines)
+
+    def test_fewer_syncs_note(self):
+        lines, ok = self._diff(_synced({_COLLAPSE_SITE: 1}),
+                               _synced({_COLLAPSE_SITE: 1, "filters/iostats.py::f32": 4}))
+        assert ok and any(x.startswith("note") and "fewer syncs" in x for x in lines)
+
+    def test_a_sync_in_a_device_op_fails(self):
+        lines, ok = self._diff(_synced({_COLLAPSE_SITE: 1}), _synced({}, status="device"))
+        assert not ok and any("status device -> host" in x for x in lines)
+
+    def test_the_committed_cuda_section_passes(self):
+        cuda = trace_audit.load_manifest(device="cuda")
+        lines, ok = trace_audit.diff(cuda, cuda, strict=True)
+        assert ok and not lines
+
+    def test_every_committed_site_is_a_known_read(self):
+        cuda = trace_audit.load_manifest(device="cuda")["families"]
+        for fam, ops in cuda.items():
+            for op, e in ops.items():
+                if e["status"] not in ("device", "host"):
+                    continue
+                assert e["syncs"] == sum(e["sync_sites"].values()), (fam, op)
+                assert (e["status"] == "host") == (e["syncs"] > 0 or "_local_scalar_dense"
+                                                   in e["aten"]), (fam, op)
+                unknown = set(e["sync_sites"]) - set(trace_audit.KNOWN_SYNC_SITES)
+                assert not unknown, (fam, op, unknown)
+        assert all(trace_audit.KNOWN_SYNC_SITES.values())
+
+    def test_the_repaired_copies_are_gone_from_the_cuda_section(self):
+        cuda = trace_audit.load_manifest(device="cuda")["families"]
+        for fam in ("bloom", "blocked_bloom"):
+            for op in ("insert", "delete"):
+                assert cuda[fam][op]["status"] == "device", (fam, op)
+        gone = ("core/quotient_filter.py::build_sorted", "filters/bloom_filter.py::_count",
+                "filters/iostats.py::f32")
+        for fam, ops in cuda.items():
+            for op, e in ops.items():
+                assert not set(e.get("sync_sites", {})) & set(gone), (fam, op)
+
+    def test_cascade_sites_count_one_sync_a_call(self, monkeypatch):
+        """The committed counts at the cascade's two deliberate reads equal
+        how many times each op calls that function, counted on the CPU:
+        the ``int(...)`` alone, no copy beside it."""
+        from repro_torch.filters import cascade
+
+        codes = {cascade._collapse_target.__code__: _COLLAPSE_SITE,
+                 cascade.merge.__code__: _MERGE_SITE}
+        real = trace_audit._audit_op
+
+        def counted(device, thunk):
+            calls = dict.fromkeys(codes.values(), 0)
+
+            def hook(frame, event, arg):
+                if event == "call" and frame.f_code in codes:
+                    calls[codes[frame.f_code]] += 1
+
+            sys.setprofile(hook)
+            try:
+                entry, out = real(device, thunk)
+            finally:
+                sys.setprofile(None)
+            return dict(entry, calls=calls), out
+
+        monkeypatch.setattr(trace_audit, "_audit_op", counted)
+        cuda = trace_audit.load_manifest(device="cuda")["families"]
+        specs = trace_audit.family_specs()
+        for fam in ("cascade", "cascade[pallas]", "cascade[frozen]"):
+            for op, e in trace_audit.trace_family(fam, specs[fam]).items():
+                if "calls" not in e:
+                    continue
+                for site, n in e["calls"].items():
+                    assert cuda[fam][op].get("sync_sites", {}).get(site, 0) == n, (fam, op, site)
+                if op in ("insert", "merge"):
+                    assert sum(e["calls"].values()) == 1, (fam, op)
+
+    def test_a_site_is_the_ports_calling_function(self, monkeypatch):
+        """A warning raised below the port (here in ``torch.full``) names the
+        port's function that made the call, as ``path::function``."""
+        from repro_torch.filters import iostats
+
+        full = torch.full
+
+        def warning_full(*args, **kwargs):
+            warnings.warn("called a synchronizing CUDA operation")
+            return full(*args, **kwargs)
+
+        monkeypatch.setattr(torch, "full", warning_full)
+        with trace_audit.recorded_syncs() as sites:
+            iostats.f32(3, "cpu")
+            iostats.f32(4, "cpu")
+            warnings.warn("an unrelated warning")
+        assert sites == {"filters/iostats.py::f32": 2}
+
+    def test_the_cpu_section_lifts_no_host_data_outside_the_plain_kernels(self):
+        """``lift_fresh`` on the CPU is a tensor made from host data, which
+        on the card is a synchronizing copy; only the kernels' plain
+        versions (CPU only) make one."""
+        cpu = trace_audit.load_manifest(device="cpu")["families"]
+        for fam, ops in cpu.items():
+            if "[pallas]" in fam:
+                continue
+            for op, e in ops.items():
+                assert "lift_fresh" not in e.get("aten", {}), (fam, op)
+
+
+class TestFilledScalars:
+    """The repaired constructions against the copies they replaced."""
+
+    @pytest.mark.parametrize("x", [0, 1, 4096, 2**20 + 1, (1 << 30) - 1])
+    def test_i32(self, x):
+        from repro_torch.core import quotient_filter as qf
+
+        got, want = qf._i32(x, "cpu"), torch.as_tensor(x, dtype=torch.int32)
+        assert got.dtype == want.dtype and got.shape == () and torch.equal(got, want)
+        t = torch.tensor(x, dtype=torch.int32)
+        assert qf._i32(t, "cpu") is t  # a tensor on the device passes untouched
+
+    @pytest.mark.parametrize("x", [0, 1536, 98_304.0, 2**24 + 1, 3 * 2**33 + 7, 123456789])
+    def test_f32(self, x):
+        from repro_torch.filters import iostats
+
+        got = iostats.f32(x, "cpu")
+        want = torch.tensor(float(x), dtype=torch.float32)
+        assert got.dtype == torch.float32 and got.shape == () and torch.equal(got, want)
+
+    @pytest.mark.parametrize("k", [None, 5, torch.tensor(7, dtype=torch.int32)])
+    def test_bloom_count(self, k):
+        from repro_torch.filters import bloom_filter
+
+        keys = torch.arange(9, dtype=torch.int32)
+        got = bloom_filter._count(keys, k)
+        want = torch.as_tensor(9 if k is None else k, dtype=torch.int32)
+        assert got.dtype == torch.int32 and torch.equal(got, want)
+        if torch.is_tensor(k):
+            assert got is k
+
+    @pytest.mark.parametrize("spec", [dict(ram_q=6, p=20, levels=2),
+                                      dict(ram_q=12, p=28, fanout=4, levels=4),
+                                      dict(ram_q=10, p=30, levels=3, max_load=0.9)])
+    def test_level_caps(self, spec):
+        from repro_torch.filters import cascade
+
+        cfg = cascade.CascadeConfig(**spec)
+        want = torch.tensor([cfg.level_cfg(i).capacity for i in range(cfg.levels)],
+                            dtype=torch.int32)
+        got = cascade._level_caps(cfg, "cpu")
+        assert got.dtype == torch.int32 and torch.equal(got, want)
+
+    def test_fuse_scalars(self):
+        from repro_torch.core import fuse_filter
+
+        for args in ((0, 0, 0, False), (96, 90, 0x7FFFFFFF, True)):
+            got = fuse_filter._scalars("cpu", *args)
+            want = (*(torch.tensor(v, dtype=torch.int32) for v in args[:3]),
+                    torch.tensor(args[3]))
+            for g, w in zip(got, want):
+                assert g.dtype == w.dtype and g.shape == () and torch.equal(g, w)
+
+    def test_build_sorted_occupancy(self):
+        """``index_fill_`` of the occupied quotients equals the indexed
+        assignment it replaced, duplicates and the dump slot included."""
+        from repro_torch.core import quotient_filter as qf
+
+        cfg = qf.QFConfig(q=6, r=8, slack=16)
+        fq = torch.tensor([1, 1, 3, 40, 40, 63, qf.INT32_MAX, qf.INT32_MAX], dtype=torch.int64)
+        fr = torch.arange(8, dtype=torch.int64)
+        st = qf.build_sorted(cfg, fq, fr, 6)
+        want = torch.zeros(cfg.total_slots + 1, dtype=torch.bool)
+        valid = torch.arange(8) < 6
+        want[torch.where(valid, fq, cfg.total_slots)] = True
+        assert st.occ.dtype == torch.bool and torch.equal(st.occ, want[: cfg.total_slots])
 
 
 def _proto(*params, name="k"):
