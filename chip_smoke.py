@@ -337,7 +337,22 @@ Phases, each timed, any failure fatal (a traceback and exit code 1):
             dropped, remote probes and hits) equal to a run on the CPU;
             then ``train_e2e`` (Mamba2-130M at full width, 8 x 512) for 2
             steps; each example's numbers and wall seconds.
-23. report  one JSON line of per-kernel results (nine rows), then the
+23. mesh    placement across a device mesh (``mesh_phase``): a
+            world-size-1 NCCL group opened with a ``file://`` store and a
+            1 x 1 ("data", "model") ``DeviceMesh`` over it; a (1, 2) mesh
+            refused (``check_devices``); qwen3-8b at full width and depth
+            in bf16 (phase 17's weights) prefilled at 16 x 64 and decoded
+            greedily, unplaced and on params and a cache placed by their
+            specs (``model.place``, ``serve_step.place_cache``) under the
+            mesh's rules: logits within 2**-8 of the largest (exact
+            equality reported), greedy tokens and cache positions equal;
+            phase 20's qwen3-8b step at 4 layers (2 microbatches, int8
+            error feedback, 4 x 1,024) unplaced and by ``jit_train_step``
+            on the mesh, the loss within 1e-3, ``lr`` and ``step`` equal;
+            the placed params saved and restored onto the mesh bit for
+            bit; ms a decode step at B = 16 and a train step, placed and
+            unplaced.  The group is torn down at the end.
+24. report  one JSON line of per-kernel results (nine rows), then the
             card's name and power limit, then the result line.
 
 The whole run must stay within 1200 s of command time on one H100.
@@ -363,11 +378,13 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.utils._python_dispatch import _disable_current_modes
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 try:
     from repro_torch import filters
+    from repro_torch import sharding as llm_sharding
     from repro_torch.core import bf_variants, bloom, cost_model
     from repro_torch.core import BufferedQuotientFilter, CascadeFilter
     from repro_torch.core import fuse_filter as fuse
@@ -389,6 +406,7 @@ try:
     from repro_torch.serve import serve_step
     from repro_torch.train import optimizer as llm_optim
     from repro_torch.train import train_step as llm_train
+    from repro_torch.train.checkpoint import CheckpointManager
     from repro_torch.analysis import spec_check, trace_audit
     from repro_torch.analysis.__main__ import main as analysis_main
     from repro_torch.analysis.trace_audit import OpCount
@@ -578,6 +596,14 @@ EXAMPLE_INTS = {  # each example's integers, held equal on the card and the CPU
     "serve_prefix_cache": ("remote_probes_naive", "remote_probes_with_filter"),
 }
 TRAIN_E2E_STEPS = 2  # phase 20 trains train_e2e's configuration at length
+
+# phase mesh: placement on a 1 x 1 ("data", "model") mesh over an NCCL group
+MESH_ARCH = "qwen3-8b"  # full width and depth for the decode, as phase 17
+MESH_DECODE_SHAPE = (16, 64)  # the prefill; decode at B = 16
+MESH_DECODE_STEPS = 8  # timed greedy steps, placed and unplaced
+MESH_LOGIT_BOUND = 2.0 ** -8  # bf16 placed logits against unplaced, max|d| / max|ref|
+MESH_LOSS_RTOL = 1e-3  # the placed train step's loss against the unplaced step's
+MESH_REFUSED = (1, 2)  # a mesh of two devices on one card
 
 
 def log(*args) -> None:
@@ -3667,20 +3693,28 @@ def rel_err(got, want) -> float:
     return float((got - want).abs().max() / want.abs().max())
 
 
-def greedy(params, cfg, batch, steps: int):
+def greedy(params, cfg, batch, steps: int, rules=None):
     """Prefill ``batch`` (tokens, and frames for an encoder-decoder), then
     ``steps`` greedy decode steps: every step's logits (the prefill's last
-    first), the greedy tokens and the cache."""
-    logits, cache = llm.prefill(params, cfg, batch)
+    first), the greedy tokens and the cache.  With ``rules`` (of a mesh
+    with a ``DeviceMesh``: placed params and batch) all of it runs under
+    them, the cache placed by ``serve_step.place_cache`` after the
+    prefill, the logits and tokens gathered whole."""
+    with llm_sharding.use_rules(rules):
+        logits, cache = llm.prefill(params, cfg, batch)
+    if rules is not None:
+        cache = serve_step.place_cache(cache, cfg, rules)
     out = [logits]
     tok = serve_step.sample_greedy(logits)[:, None]
     toks = [tok]
-    for _ in range(steps):
-        logits, cache = llm.decode_step(params, cfg, cache, tok)
-        tok = serve_step.sample_greedy(logits)[:, None]
-        out.append(logits)
-        toks.append(tok)
-    return out, torch.cat(toks, dim=1), cache
+    with llm_sharding.use_rules(rules):
+        for _ in range(steps):
+            logits, cache = llm.decode_step(params, cfg, cache, tok)
+            tok = serve_step.sample_greedy(logits)[:, None]
+            out.append(logits)
+            toks.append(tok)
+    return ([llm_sharding.whole(t) for t in out],
+            torch.cat([llm_sharding.whole(t) for t in toks], dim=1), cache)
 
 
 def check_cache_equal(label, got, want, path=()) -> float:
@@ -4792,6 +4826,152 @@ def examples_phase(device, kernels) -> dict:
     return report
 
 
+def decode_ms(params, cfg, cache, tok, rules=None) -> float:
+    """ms a greedy decode step (``MESH_DECODE_STEPS`` after two untimed),
+    under ``rules`` when given; the cache advances in place."""
+    state = {"cache": cache, "tok": tok}
+
+    def step():
+        with llm_sharding.use_rules(rules):
+            logits, state["cache"] = llm.decode_step(params, cfg, state["cache"], state["tok"])
+            state["tok"] = serve_step.sample_greedy(logits)[:, None]
+
+    return cuda_ms(step, MESH_DECODE_STEPS, warmup=2)
+
+
+def mesh_decode(mesh, device) -> dict:
+    """``MESH_ARCH`` at full width and depth in bf16 (phase 17's seeded
+    weights): a 16 x 64 prefill and a greedy step, unplaced and then on
+    params placed by ``model.place`` and a cache by ``place_cache``; the
+    placed logits within ``MESH_LOGIT_BOUND`` of the unplaced (whether
+    equal reported), the greedy tokens and the cache's ``kpos`` and
+    ``pos`` equal; then ms a decode step at B = 16, each side."""
+    cfg = get_config(MESH_ARCH)
+    params, made = full_width_params(cfg, device)
+    rules = llm_sharding.ShardingRules.for_config(mesh, cfg, decode=True)
+    bspec = rules.spec(("batch", None))
+    B, S = MESH_DECODE_SHAPE
+    tokens = np.random.default_rng(SEED + 90).integers(0, cfg.vocab_size, (B, S))
+    batch = {"tokens": torch.from_numpy(tokens.astype(np.int32)).to(device)}
+    with torch.no_grad():
+        want, want_toks, want_cache = greedy(params, cfg, batch, 1)
+        placed = llm.place(params, cfg, rules)
+        got, got_toks, got_cache = greedy(
+            placed, cfg, llm_sharding.place(batch, {"tokens": bspec}, mesh), 1, rules)
+        errs = [rel_err(g, w) for g, w in zip(got, want)]
+        if not max(errs) <= MESH_LOGIT_BOUND:
+            raise AssertionError(f"placed decode logits off by {errs}")
+        if not torch.equal(got_toks, want_toks):
+            raise AssertionError("placed greedy tokens differ from the unplaced")
+        for (path, w), g in zip(llm_schema.tree_items(want_cache),
+                                llm_schema.tree_leaves(got_cache)):
+            if path[-1] in ("kpos", "pos") and not torch.equal(llm_sharding.whole(g), w):
+                raise AssertionError(f"placed cache {'/'.join(path)} differs")
+        plain_ms = decode_ms(params, cfg, want_cache, want_toks[:, -1:])
+        placed_ms = decode_ms(placed, cfg, got_cache,
+                              llm_sharding.place(got_toks[:, -1:], bspec, mesh), rules)
+    out = {"params": made["params"], "prefill_rel_err": errs[0], "decode_rel_err": errs[1],
+           "logits_equal": all(torch.equal(g, w) for g, w in zip(got, want)),
+           "decode_ms_unplaced": plain_ms, "decode_ms_placed": placed_ms,
+           "placed_over_unplaced": placed_ms / plain_ms}
+    log(f"  {MESH_ARCH} decode at B = {B} ({card_line()}): {json.dumps(out)}")
+    return out
+
+
+def mesh_train(mesh, device, directory) -> dict:
+    """Phase 20's microbatched, compressed step (``TRAIN_MB_ARCH`` at
+    ``TRAIN_MB_LAYERS`` layers, ``TRAIN_MB_SHAPE``), unplaced by
+    ``make_train_step`` and placed by ``jit_train_step`` on ``mesh``, from
+    one seeded state: the placed loss within ``MESH_LOSS_RTOL``, ``step``
+    and ``lr`` equal, ms a step (the second step of each, by CUDA
+    events); then the placed params saved and restored onto the mesh, bit
+    for bit and placed by their specs."""
+    cfg = get_config(TRAIN_MB_ARCH).replace(n_layers=TRAIN_MB_LAYERS)
+    ocfg = llm_optim.OptConfig(compress_grads=True)
+    B, S = TRAIN_MB_SHAPE
+    batch = train_batch(cfg, B, S, SEED + 80, device, masked=False)
+
+    def two_steps(step, state):
+        state, first = step(state, batch)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, _ = step(state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        return state, first, start.elapsed_time(end)
+
+    # each state goes straight into two_steps: two states live at most, as in phase 20
+    _, want, plain_ms = two_steps(
+        llm_train.make_train_step(cfg, ocfg, microbatches=TRAIN_MICROBATCHES),
+        llm_train.init_state(cfg, ocfg, SEED, device))
+    del _
+    torch.cuda.empty_cache()
+    step, rules = llm_train.jit_train_step(cfg, ocfg, mesh, microbatches=TRAIN_MICROBATCHES,
+                                           donate=False)
+    sspec = llm_train.state_pspecs(cfg, ocfg, rules)
+    state, got, placed_ms = two_steps(
+        step, llm_sharding.place(llm_train.init_state(cfg, ocfg, SEED, device), sspec, mesh))
+    loss_err = rel_err(got["loss"], want["loss"])
+    if not loss_err <= MESH_LOSS_RTOL:
+        raise AssertionError(f"placed train step's loss off by {loss_err}")
+    if not (torch.equal(got["lr"], want["lr"])
+            and torch.equal(llm_sharding.whole(state.opt.step), torch.full_like(
+                state.opt.step.to_local(), 2))):
+        raise AssertionError("placed train step's lr or step differs")
+    t0 = time.perf_counter()
+    mgr = CheckpointManager(str(directory))
+    mgr.save(1, state.params)
+    saved_s = time.perf_counter() - t0
+    got_params = mgr.restore(1, llm.abstract(cfg), shardings=(mesh, sspec.params))
+    restore_s = time.perf_counter() - t0 - saved_s
+    for a, b, spec in zip(llm_schema.tree_leaves(got_params), llm_schema.tree_leaves(state.params),
+                          llm_schema.tree_leaves(sspec.params, is_leaf=lambda x: type(x) is tuple)):
+        if not (bitwise_equal(a.to_local(), b.to_local())
+                and tuple(a.placements) == llm_sharding.placements(mesh, spec)):
+            raise AssertionError("the restored params differ from the saved")
+    out = {"loss_unplaced": float(want["loss"]), "loss_placed": float(got["loss"]),
+           "loss_rel_err": loss_err, "train_ms_unplaced": plain_ms, "train_ms_placed": placed_ms,
+           "placed_over_unplaced": placed_ms / plain_ms,
+           "saved_bytes": sum(t.numel() * t.element_size()
+                              for t in llm_schema.tree_leaves(state.params)),
+           "save_s": saved_s, "restore_s": restore_s}
+    log(f"  {TRAIN_MB_ARCH} at {TRAIN_MB_LAYERS} layers, a train step at {B} x {S} "
+        f"({card_line()}): {json.dumps(out)}")
+    return out
+
+
+def mesh_phase(device) -> dict:
+    """Phase 23: a world-size-1 NCCL group (a ``file://`` store in a
+    temporary directory) and a 1 x 1 ("data", "model") mesh over it; a
+    (1, 2) mesh refused; ``mesh_decode`` and ``mesh_train`` on it.  The
+    group is torn down before this returns, so no later phase sees it."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(torch.cuda.current_device() if device.index is None else device.index)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store", rank=0,
+                                world_size=1)
+        try:
+            mesh = llm_sharding.make_mesh((1, 1), ("data", "model"), device)
+            if mesh.device_mesh is None or mesh.device_mesh.device_type != device.type:
+                raise AssertionError(f"no {device.type} DeviceMesh: {mesh}")
+            try:
+                llm_sharding.make_mesh(MESH_REFUSED, ("data", "model"), device)
+            except ValueError as e:
+                refused = str(e)
+            else:
+                raise AssertionError(f"a {MESH_REFUSED} mesh on one card was not refused")
+            out = {"refused": refused, "decode": mesh_decode(mesh, device)}
+            torch.cuda.empty_cache()
+            out["train"] = mesh_train(mesh, device, Path(tmp) / "ckpt")
+        finally:
+            dist.destroy_process_group()
+    if dist.is_initialized():
+        raise AssertionError("the mesh phase left its process group up")
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(device: str = "cuda") -> int:
     if filters is None:
         print("chip_smoke.py: src/repro_torch is missing", file=sys.stderr)
@@ -5344,7 +5524,16 @@ def main(device: str = "cuda") -> int:
         {n: {"seconds": r["seconds"]} for n, r in examples_report.items()}))
     phase_s["examples"] = time.perf_counter() - t0
 
-    # 23. report
+    # 23. mesh: placement on a 1 x 1 mesh over an NCCL group
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mesh_report = mesh_phase(device)
+    peaks["mesh"] = torch.cuda.max_memory_allocated()
+    log(f"phase mesh ({card_line()}): " + json.dumps(mesh_report))
+    phase_s["mesh"] = time.perf_counter() - t0
+
+    # 24. report
     for n, row in rows.items():
         row["launches"] = launches[n]
         if row["max_abs_err"] != 0:

@@ -91,7 +91,7 @@ from ..serve.serve_step import cache_pspecs
 from ..train import optimizer as optim
 from ..train import train_step as ts
 from . import roofline as rf
-from .mesh import make_debug_mesh, make_production_mesh
+from .mesh import make_production_mesh
 from .shapes import SHAPES, ShapeSpec, cell_applicable, spec_inputs
 
 # per-arch overrides that make the big cells fit 16 GiB a chip (the reference's)
@@ -107,7 +107,14 @@ DRYRUN_OVERRIDES = {
 DEVICE_BYTES = 80 * 2**30  # an H100's HBM
 SEQ_POINTS = (3072, 4096, 5120)  # lengths on the chunked path the length fit runs at
 SEQ_CHECK = 6144  # the fit must give this length's count exactly
-MESHES = {"1x1": lambda: make_debug_mesh(1, 1),
+
+
+def one_card() -> shd.Mesh:
+    """The 1 x 1 mesh as a description, in a process with a process group too."""
+    return shd.make_mesh((1, 1), ("data", "model"), device="meta")
+
+
+MESHES = {"1x1": one_card,
           "16x16": lambda: make_production_mesh(multi_pod=False),
           "2x16x16": lambda: make_production_mesh(multi_pod=True)}
 NO_COLLECTIVES = ("one device runs no collective, and a meta run has no HLO to "
@@ -200,7 +207,7 @@ def measure(cfg, spec: ShapeSpec, *, microbatches: int = 1, ocfg=None) -> dict:
     """One meta run of ``cfg``'s step at ``spec``: its counted flops, its
     peak bytes beyond its arguments, and its aten operations."""
     ocfg = ocfg or optim.OptConfig()
-    rules = shd.ShardingRules.for_config(make_debug_mesh(1, 1), cfg,
+    rules = shd.ShardingRules.for_config(one_card(), cfg,
                                          decode=spec.kind == "decode")
     thunk = _step(cfg, spec, microbatches, ocfg)
     grad = torch.enable_grad() if spec.kind == "train" else torch.no_grad()
@@ -361,7 +368,7 @@ def run_cell(cell: Cell) -> list:
     counts = count_cell(cfg, spec, microbatches=mb, ocfg=ocfg)
     seconds = time.perf_counter() - t0
     mf = rf.model_flops_estimate(cfg, spec.kind, spec.batch, spec.seq)
-    whole = argument_bytes(cfg, spec, make_debug_mesh(1, 1), ocfg)
+    whole = argument_bytes(cfg, spec, one_card(), ocfg)
     must_move = rf.step_bytes(cfg, spec.kind, spec.batch, spec.seq,
                               state_bytes=whole["params"] + whole.get("optimizer", 0),
                               param_bytes=whole["params"])

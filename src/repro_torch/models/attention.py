@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from ..sharding import constrain
 from .layers import apply_mrope, apply_rope, rms_norm
 
 NEG_INF = -1e30
@@ -149,13 +150,15 @@ def gqa_attention(
     H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     G = H // KV
 
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    q = constrain(torch.einsum("bsd,dhk->bshk", x, p["wq"]), "batch", None, "heads", "head_dim")
     if is_cross and cache is not None:  # cross-attn decode: cached enc K/V
         k, v = cache["k"], cache["v"]
     else:
         src = kv_from if is_cross else x
         k = torch.einsum("bsd,dhk->bshk", src, p["wk"])
         v = torch.einsum("bsd,dhk->bshk", src, p["wv"])
+    k = constrain(k, "batch", None, "kv_heads", "head_dim")
+    v = constrain(v, "batch", None, "kv_heads", "head_dim")
 
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
@@ -177,8 +180,8 @@ def gqa_attention(
             qg, cache["k"], cache["v"], cache["kpos"], k, v, positions,
             window=window, softcap=cfg.logit_softcap, scale=Dh**-0.5,
         )
-        out = torch.einsum("bshk,hkd->bsd", o.reshape(B, S, H, Dh), p["wo"])
-        return out, {"k": k, "v": v}
+        o = constrain(o.reshape(B, S, H, Dh), "batch", None, "heads", "head_dim")
+        return torch.einsum("bshk,hkd->bsd", o, p["wo"]), {"k": k, "v": v}
 
     if cache is not None:  # cross-attn decode
         k_pos = cache["kpos"]
@@ -192,8 +195,8 @@ def gqa_attention(
         window=window,
         softcap=cfg.logit_softcap,
     )
-    out = torch.einsum("bshk,hkd->bsd", o.reshape(B, S, H, Dh), p["wo"])
-    return out, (k, v)
+    o = constrain(o.reshape(B, S, H, Dh), "batch", None, "heads", "head_dim")
+    return torch.einsum("bshk,hkd->bsd", o, p["wo"]), (k, v)
 
 
 # ---------------------------------------------------------------------------

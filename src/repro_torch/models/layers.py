@@ -11,6 +11,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..sharding import constrain
+
 
 def rms_norm(x, scale, eps: float = 1e-6, offset: float = 0.0):
     dt = x.dtype
@@ -91,7 +93,7 @@ def mlp(p, x, kind: str):
         h = _act(kind, x @ p["wg"]) * (x @ p["wi"])
     else:
         h = _act(kind, x @ p["wi"])
-    return h @ p["wo"]
+    return constrain(h, "batch", "seq", "ffn") @ p["wo"]
 
 
 def embed_tokens(embedding, tokens, scale: bool, d_model: int):

@@ -7,6 +7,7 @@ The port of ``repro.models.model``:
   abstract(cfg)                -> params on the ``meta`` device (no memory)
   partition_specs(cfg, rules)  -> (mesh, spec) mirroring params
   partition_pspecs(cfg, rules) -> partition specs (tuples) mirroring params
+  place(params, cfg, rules)    -> params as DTensors on the rules' device mesh
   forward(params, cfg, batch)  -> (logits, collected, aux)
   loss_fn(params, cfg, batch)  -> (loss, metrics)
   prefill(params, cfg, batch)  -> (logits_last, cache)
@@ -23,7 +24,10 @@ SSM, the Griffin hybrid (RG-LRU and windowed attention) and the Whisper
 encoder-decoder (``batch["frames"]`` through ``_encode``).
 ``decode_step`` writes the cache in place, where the reference donates
 it, and reads nothing back to the host: the position stays a device
-scalar.  ``loss_fn`` is the train step's objective: the streamed
+scalar.  On placed params and caches (DTensors, :func:`place` and
+``serve_step.place_cache``) under the rules of their mesh, the same code
+runs on the mesh; each rank writes the decode deltas into its own shard
+of the cache.  ``loss_fn`` is the train step's objective: the streamed
 cross-entropy (``_streamed_xent``) plus the MoE balance loss; with
 ``remat`` each unit, encoder layer and cross-entropy chunk recomputes its
 activations in the backward pass (``transformer.remat_call``).
@@ -36,6 +40,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from .. import sharding as shd
 from ..core.quotient_filter import resolve_device
 from ..sharding import constrain
 from . import schema as S
@@ -270,6 +275,13 @@ def partition_pspecs(cfg, rules):
     return S.param_pspecs(schema(cfg), rules)
 
 
+def place(params, cfg, rules):
+    """The params as DTensors on the device mesh of ``rules.mesh``, each
+    leaf by its ``partition_pspecs`` spec.  Every rank must pass the same
+    whole params (``init`` on one device from one seed does)."""
+    return shd.place(params, partition_pspecs(cfg, rules), rules.mesh)
+
+
 # ---------------------------------------------------------------------------
 # Weights carried across from the JAX package
 # ---------------------------------------------------------------------------
@@ -444,8 +456,10 @@ def _xent_chunk(params, cfg, xi, ti):
     """One chunk's (sum of nll, tokens): a float32 unembedding and
     logsumexp, the target's logit gathered at ``max(t, 0)`` (torch's
     gather raises on a negative index, where the reference's clamps),
-    positions with ``t < 0`` masked out."""
-    logits = unembed(params, xi, cfg.tie_embeddings).float()
+    positions with ``t < 0`` masked out.  On a mesh the vocab dim is made
+    whole first (``sharding.unshard``): DTensor's vocab-parallel gather
+    fails on these (B, chunk, V) logits."""
+    logits = shd.unshard(unembed(params, xi, cfg.tie_embeddings).float(), -1)
     logz = torch.logsumexp(logits, dim=-1)
     tgt = torch.gather(logits, -1, torch.clamp(ti, min=0).to(torch.int64)[..., None])[..., 0]
     mask = (ti >= 0).float()
@@ -639,14 +653,20 @@ def _write_delta(sub: dict, delta: dict, pos):
     into its cache slot ``pos % ring``, in place, with the slot as a device
     tensor (no host read): ``attn``'s ring, or ``xattn``'s ``self`` ring.
     The ring axis is the cache's: 2 for the units' stacked leaves, 1 for a
-    single layer's."""
+    single layer's.  A placed cache is written shard by shard: each delta
+    is first redistributed to its leaf's placements (an explicit
+    redistribution: DTensor's in-place ``index_copy_`` may change the
+    leaf's placements), then each rank copies into its own shard, whose
+    ring axis ``cache_pspecs`` never cuts, so the slot is the same there."""
     tgt = sub["self"] if "self" in sub else sub["attn"]
     kp = tgt["kpos"]
     axis = kp.ndim - 1
-    slot = (pos % kp.shape[axis]).to(torch.int64).reshape(1)
+    slot = shd.local((pos % kp.shape[axis]).to(torch.int64).reshape(1))
     for name, leaf in delta.items():
-        tgt[name].index_copy_(axis, slot, leaf.to(tgt[name].dtype))
-    kp.index_copy_(axis, slot, pos.expand(kp.shape[:axis] + (1,)).contiguous())
+        dst = tgt[name]
+        shd.local(dst).index_copy_(axis, slot, shd.local(shd.like(leaf.to(dst.dtype), dst)))
+    kl = shd.local(kp)
+    kl.index_copy_(axis, slot, shd.local(pos).expand(kl.shape[:axis] + (1,)).contiguous())
     return sub
 
 

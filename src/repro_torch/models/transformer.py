@@ -24,6 +24,7 @@ from typing import Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..sharding import constrain
 from .attention import gqa_attention, mla_attention
 from .layers import layer_norm, mlp, rms_norm
 from .moe import moe_ffn
@@ -157,14 +158,14 @@ def apply_subblock(
             cache=sub_cache,
             mrope_positions=mrope_positions,
         )
-    x = x + h
+    x = constrain(x + h, "batch", "seq", "embed")
 
     aux = 0.0
     if is_moe_layer:
         h2, aux = moe_ffn(p["moe"], norm(p["mlp_norm"], x, cfg), cfg)
     else:
         h2 = mlp(p["mlp"], norm(p["mlp_norm"], x, cfg), cfg.mlp_kind)
-    x = x + h2
+    x = constrain(x + h2, "batch", "seq", "embed")
 
     if mode == "prefill":
         return x, {"kv": kv}, aux

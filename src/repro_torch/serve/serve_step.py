@@ -2,13 +2,16 @@
 
 The port of ``repro.serve.serve_step``.  ``cache_pspecs`` gives a decode
 cache's partition specs (tuples) by each leaf's name, as the reference
-does.
+does, and ``place_cache`` places a cache by them on a device mesh: there
+``prefill`` and ``decode_step`` run under ``sharding.use_rules`` on
+placed params (``model.place``) and a placed cache.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .. import sharding as shd
 from ..models import model
 
 
@@ -38,6 +41,13 @@ def cache_pspecs(cfg, rules, cache_tree):
         return spec(name, tree)
 
     return walk(cache_tree, None)
+
+
+def place_cache(cache, cfg, rules):
+    """A decode cache on the device mesh of ``rules.mesh``, each leaf by
+    its ``cache_pspecs`` spec: a plain leaf distributed, a DTensor (what a
+    placed prefill fills the cache with) redistributed."""
+    return shd.place(cache, cache_pspecs(cfg, rules, cache), rules.mesh)
 
 
 def make_serve_step(cfg):

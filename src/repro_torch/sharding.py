@@ -7,26 +7,32 @@ per-architecture fallbacks (e.g. an 8-expert MoE cannot shard experts
 over a 16-way model axis, so experts fall back to replicated and the
 per-expert ffn dim takes the model axis).
 
-The mesh is a description, :class:`Mesh`: its axis names and sizes (all
-that the rules read, as with ``jax.sharding.AbstractMesh``) and the
-device its arrays live on.  A partition spec is a plain tuple, one entry
-a dim: ``None`` (replicated), a mesh axis name, or a tuple of names.
-``constrain`` keeps the reference's rank check and returns its input
-unchanged: a sharding constraint changes no value, and on a mesh of one
-device there is nothing to place.  Placement across cards waits for a
-machine with two or more; :func:`check_devices` refuses a mesh larger
-than the devices there are, as JAX refuses one.
+A :class:`Mesh` is its axis names and sizes (all that the rules read, as
+with ``jax.sharding.AbstractMesh``), the device its arrays live on and,
+when it was made over an initialised process group, a
+``torch.distributed`` ``DeviceMesh``.  A partition spec is a plain
+tuple, one entry a dim: ``None`` (replicated), a mesh axis name, or a
+tuple of names.  On a mesh with a ``DeviceMesh`` the spec becomes DTensor
+placements (:meth:`ShardingRules.placements`), :func:`place` distributes
+a tree by its specs and :func:`constrain` redistributes a DTensor, where
+the reference calls ``with_sharding_constraint``.  A plain tensor passes
+``constrain`` unchanged (after the rank check), so a description-only
+mesh (the dry run's ``meta`` meshes) and every unplaced path run as
+before.  :func:`check_devices` refuses a mesh that is not one rank a
+device of the group.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import math
 import threading
 from dataclasses import dataclass, field
 from typing import Any, Optional
 
 import torch
+import torch.distributed as dist
 
 from .core.quotient_filter import resolve_device
 
@@ -35,10 +41,12 @@ _STATE = threading.local()
 
 @dataclass(frozen=True)
 class Mesh:
-    """A named device mesh: ``shape`` an ordered {axis name: size}."""
+    """A named device mesh: ``shape`` an ordered {axis name: size}, and
+    ``device_mesh`` the ranks' ``DeviceMesh`` (``None``: a description)."""
 
     shape: dict
     device: torch.device
+    device_mesh: Any = None
 
     @property
     def axis_names(self) -> tuple:
@@ -51,21 +59,36 @@ class Mesh:
 
 def make_mesh(sizes, names, device=None) -> Mesh:
     """A mesh of ``sizes`` over ``names`` whose arrays live on ``device``
-    (the card unless asked; without one this raises)."""
+    (the card unless asked; without one this raises).  Over an
+    initialised process group it holds a ``DeviceMesh`` of the group's
+    ranks (:func:`check_devices` first); on ``meta``, or with no group,
+    it is a description."""
     if len(sizes) != len(names):
         raise ValueError(f"mesh sizes {tuple(sizes)} and names {tuple(names)} differ in rank")
-    return Mesh(shape=dict(zip(names, (int(s) for s in sizes))), device=resolve_device(device))
+    mesh = Mesh(shape=dict(zip(names, (int(s) for s in sizes))), device=resolve_device(device))
+    if mesh.device.type == "meta" or not dist.is_initialized():
+        return mesh
+    from torch.distributed.device_mesh import init_device_mesh
+
+    check_devices(mesh)
+    dm = init_device_mesh(mesh.device.type, tuple(mesh.shape.values()),
+                          mesh_dim_names=mesh.axis_names)
+    return dataclasses.replace(mesh, device_mesh=dm)
 
 
 def check_devices(mesh: Mesh) -> None:
-    """Raise unless the mesh's device type has ``mesh.size`` devices: the
-    card count for CUDA, one for the CPU (one process is one device)."""
-    have = torch.cuda.device_count() if mesh.device.type == "cuda" else 1
-    if mesh.size > have:
+    """Raise unless the mesh is one rank a device: ``mesh.size`` equal to
+    the process group's world size (1 without a group: one process is one
+    device), and on CUDA no more ranks than cards."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if mesh.size != world:
         raise ValueError(
-            f"a mesh of {mesh.size} devices {dict(mesh.shape)} needs {mesh.size} "
-            f"{mesh.device.type} devices, and {have} are there"
+            f"a mesh of {mesh.size} devices {dict(mesh.shape)} needs a group of {mesh.size} "
+            f"ranks, one a device, and the group has {world}"
         )
+    cards = torch.cuda.device_count() if mesh.device.type == "cuda" else world
+    if world > cards:
+        raise ValueError(f"{world} ranks on {cards} cuda devices: at most one rank a device")
 
 
 def _axis_size(mesh, axes) -> int:
@@ -187,10 +210,132 @@ class ShardingRules:
         """(mesh, spec): where ``NamedSharding`` stands in the reference."""
         return self.mesh, self.spec(axes, shape)
 
+    def placements(self, axes: tuple, shape: tuple = None) -> tuple:
+        """``spec(axes, shape)`` as DTensor placements (:func:`placements`)."""
+        return placements(self.mesh, self.spec(axes, shape))
+
 
 def shards(mesh, spec) -> tuple:
     """How many pieces each dim of a leaf with ``spec`` is cut into."""
     return tuple(_axis_size(mesh, part) for part in spec)
+
+
+def placements(mesh, spec) -> tuple:
+    """A partition spec as DTensor placements, one a mesh axis in the
+    mesh's order: ``Shard(d)`` where the axis cuts tensor dim ``d``,
+    ``Replicate()`` elsewhere, and on an axis of one device, which cuts
+    nothing (a ``Shard`` there would stop DTensor from merging the dim in
+    a view, as a decode step's ``seq`` of 1).  JAX cuts a dim named by a
+    tuple of axes major to minor in the tuple's order, DTensor in
+    mesh-axis order, so a tuple against the mesh's order (a layout
+    DTensor's ``Shard`` cannot hold) raises."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = mesh.axis_names
+    out = [Replicate()] * len(names)
+    for d, part in enumerate(spec):
+        if part is None:
+            continue
+        axes = (part,) if isinstance(part, str) else tuple(part)
+        order = [names.index(a) for a in axes]
+        if order != sorted(order):
+            raise ValueError(
+                f"spec {spec} cuts dim {d} by {axes} major to minor; "
+                f"the mesh {names} would cut it in its own order"
+            )
+        for i in order:
+            if mesh.shape[names[i]] > 1:
+                out[i] = Shard(d)
+    return tuple(out)
+
+
+def is_placed(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def local(x):
+    """The rank's own shard of a DTensor; a plain tensor as it is."""
+    return x.to_local() if is_placed(x) else x
+
+
+def like(x, ref):
+    """``x`` redistributed to the placements of the DTensor ``ref``; ``x``
+    itself when ``ref`` is a plain tensor."""
+    if not is_placed(ref):
+        return x
+    return x.redistribute(ref.device_mesh, ref.placements)
+
+
+def from_local(x, ref):
+    """A rank's shard ``x`` as a DTensor placed as ``ref``, of ``ref``'s
+    global shape; ``x`` itself when ``ref`` is a plain tensor."""
+    if not is_placed(ref):
+        return x
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(x, ref.device_mesh, ref.placements,
+                              shape=ref.shape, stride=ref.stride())
+
+
+def unshard(x, dim: int):
+    """A DTensor redistributed so that no mesh axis cuts ``dim``, its other
+    placements kept: the explicit redistribution before an op whose
+    DTensor strategy fails on a cut dim.  A plain tensor as it is."""
+    if not is_placed(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+
+    dim %= x.ndim
+    pl = [Replicate() if isinstance(p, Shard) and p.dim == dim else p for p in x.placements]
+    return x.redistribute(x.device_mesh, pl)
+
+
+def whole(x):
+    """The full value of a DTensor on every rank (a collective: every rank
+    calls it); a plain tensor as it is."""
+    return x.full_tensor() if is_placed(x) else x
+
+
+def all_max(x, ref):
+    """The largest of every rank's ``x`` (a shard's own maximum) over the
+    mesh of the DTensor ``ref``: the maximum of the whole leaf, as XLA
+    reduces a sharded ``amax``.  ``x`` itself when ``ref`` is plain."""
+    if not is_placed(ref):
+        return x
+    from torch.distributed.tensor import DTensor, Partial
+
+    mesh = ref.device_mesh
+    return DTensor.from_local(x, mesh, [Partial("max")] * mesh.ndim).full_tensor()
+
+
+def place(tree, spec_tree, mesh: Mesh):
+    """Each leaf of a tree (nested dicts, ``NamedTuple`` fields, ``None``)
+    on ``mesh``'s ``DeviceMesh`` by its spec: a plain tensor distributed
+    (every rank holds the same whole tensor, made from one seed; DTensor
+    takes rank 0's), a DTensor redistributed.  A mesh without a
+    ``DeviceMesh`` raises: nothing is placed on a description."""
+    if mesh.device_mesh is None:
+        raise ValueError(f"the mesh {dict(mesh.shape)} has no DeviceMesh to place on")
+    from torch.distributed.tensor import distribute_tensor
+
+    def one(x, spec):
+        pl = placements(mesh, spec)
+        if is_placed(x):
+            return x.redistribute(mesh.device_mesh, pl)
+        return distribute_tensor(x.to(mesh.device), mesh.device_mesh, pl)
+
+    def walk(x, spec):
+        if x is None:
+            return None
+        if isinstance(x, dict):
+            return {k: walk(x[k], spec[k]) for k in x}
+        if isinstance(x, tuple) and hasattr(x, "_fields"):
+            return type(x)(*(walk(a, b) for a, b in zip(x, spec)))
+        return one(x, spec)
+
+    return walk(tree, spec_tree)
 
 
 def active_rules() -> Optional[ShardingRules]:
@@ -199,21 +344,34 @@ def active_rules() -> Optional[ShardingRules]:
 
 @contextlib.contextmanager
 def use_rules(rules: Optional[ShardingRules]):
+    """Run under ``rules``.  On a mesh with a ``DeviceMesh``, a plain
+    tensor that meets a DTensor in an op counts as replicated
+    (``implicit_replication``): the model makes such tensors (positions,
+    masks, running sums) from global shapes, the same on every rank."""
+    placed = contextlib.nullcontext()
+    if rules is not None and rules.mesh.device_mesh is not None:
+        from torch.distributed.tensor.experimental import implicit_replication
+
+        placed = implicit_replication()
     prev = getattr(_STATE, "rules", None)
     _STATE.rules = rules
     try:
-        yield rules
+        with placed:
+            yield rules
     finally:
         _STATE.rules = prev
 
 
 def constrain(x, *axes):
     """The reference's ``with_sharding_constraint`` by logical axes: a rank
-    check under active rules (a ``ValueError`` on a mismatch), then ``x``
-    unchanged."""
+    check under active rules (a ``ValueError`` on a mismatch), then a
+    DTensor redistributed to ``placements(axes, x.shape)``; a plain tensor
+    is returned unchanged."""
     rules = active_rules()
     if rules is None:
         return x
     if len(axes) != x.ndim:
         raise ValueError(f"rank mismatch: {axes} vs {tuple(x.shape)}")
-    return x
+    if not is_placed(x):
+        return x
+    return x.redistribute(x.device_mesh, rules.placements(tuple(axes), tuple(x.shape)))

@@ -22,8 +22,13 @@ into bfloat16 (the reference's own restore cannot read that leaf).
   rename publishes it; LATEST updates only after the rename.
 * async: ``save(..., background=True)`` copies the state to host memory,
   then writes on a worker thread (one save outstanding).
+* placed state (DTensors): every rank gathers each leaf whole
+  (``full_tensor``), rank 0 writes the same bytes as for a plain state,
+  and the ranks meet at a barrier once the write is done.
 * elastic restore: leaves are saved whole; ``restore`` checks each
-  partition spec against its leaf and places it on the mesh's device.
+  partition spec against its leaf and places it on the mesh: as
+  DTensors by the specs on a mesh with a ``DeviceMesh`` (of any shape,
+  whatever mesh saved them), on the mesh's device otherwise.
 * retention (keep_last_k) and integrity (digests verified on restore).
 """
 
@@ -39,10 +44,11 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from .. import sharding as shd
 from ..core.quotient_filter import resolve_device
 from ..models.schema import tree_leaves, tree_unflatten
-from ..sharding import shards
 
 _BF16_FILE = np.dtype("V2")  # what np.savez of an ml_dtypes bfloat16 array holds
 
@@ -52,8 +58,9 @@ def _digest(arr: np.ndarray) -> str:
 
 
 def _to_host(t: torch.Tensor) -> tuple:
-    """(numpy array as the JAX package's file holds it, manifest dtype)."""
-    t = t.detach().cpu()
+    """(numpy array as the JAX package's file holds it, manifest dtype); a
+    DTensor gathered whole first (a collective)."""
+    t = shd.whole(t.detach()).cpu()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(_BF16_FILE), "bfloat16"
     a = t.numpy()
@@ -71,31 +78,43 @@ class CheckpointManager:
         self.keep = keep_last_k
         os.makedirs(directory, exist_ok=True)
         self._worker: Optional[threading.Thread] = None
+        self._barrier = False  # a placed save's ranks still to meet
 
     # -- save ----------------------------------------------------------------
 
     def save(self, step: int, state, extra: Optional[dict] = None, *,
              background: bool = False) -> None:
+        """Write ``state``; of a placed state every rank calls this, and
+        only rank 0 writes.  With ``background`` the ranks meet at
+        :meth:`wait` (which every rank calls), else before this returns."""
+        self.wait()  # one outstanding save at a time
+        leaves = tree_leaves(state)
+        placed = any(shd.is_placed(x) for x in leaves)
         # snapshot to host memory synchronously (cheap vs device compute)
-        host = [_to_host(x) for x in tree_leaves(state)]
+        host = [_to_host(x) for x in leaves]
         extra_host = None
         if extra is not None:
             extra_host = {k: np.asarray(v) for k, v in extra.items()}
         structure = _structure(state)
-
-        if background:
-            self.wait()  # one outstanding save at a time
-            self._worker = threading.Thread(
-                target=self._write, args=(step, host, structure, extra_host)
-            )
-            self._worker.start()
-        else:
-            self._write(step, host, structure, extra_host)
+        self._barrier = placed
+        if not placed or dist.get_rank() == 0:
+            if background:
+                self._worker = threading.Thread(
+                    target=self._write, args=(step, host, structure, extra_host)
+                )
+                self._worker.start()
+            else:
+                self._write(step, host, structure, extra_host)
+        if not background:
+            self.wait()
 
     def wait(self) -> None:
         if self._worker is not None:
             self._worker.join()
             self._worker = None
+        if self._barrier:
+            self._barrier = False
+            dist.barrier()
 
     def _write(self, step, host, structure, extra_host) -> None:
         final = os.path.join(self.dir, f"step_{step:08d}")
@@ -158,8 +177,10 @@ class CheckpointManager:
         ``shardings``: (mesh, spec tree), the spec tree (tuples) matching
         ``like``, as ``train_step.state_pspecs`` gives it.  Each spec must
         divide its leaf, as placement on a mesh demands, and the leaves go
-        to the mesh's device, whatever the topology of the mesh that
-        saved them."""
+        to the mesh, whatever the topology of the mesh that saved them:
+        DTensors placed by their specs where the mesh has a ``DeviceMesh``
+        (every rank calls this and reads the whole file), else on the
+        mesh's device."""
         d = os.path.join(self.dir, f"step_{step:08d}")
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
@@ -190,7 +211,7 @@ class CheckpointManager:
                         f"leaf {i}: checkpoint shape {arr.shape} != target {tuple(tgt.shape)}"
                     )
                 if spec is not None:
-                    cuts = shards(mesh, spec)
+                    cuts = shd.shards(mesh, spec)
                     if len(spec) > arr.ndim or any(
                         dim % n for dim, n in zip(arr.shape, cuts)
                     ):
@@ -202,6 +223,8 @@ class CheckpointManager:
                 else:
                     t = torch.from_numpy(np.array(arr))
                 out.append(t.to(target))
+        if shardings is not None and mesh.device_mesh is not None:
+            out = [shd.place(t, spec, mesh) for t, spec in zip(out, specs)]
         return tree_unflatten(like, out)
 
     def restore_extra(self, step: int) -> Optional[dict]:

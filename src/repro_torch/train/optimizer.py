@@ -6,7 +6,11 @@ error-feedback residual are nested dicts of tensors with the params'
 paths; ``step`` is an int32 scalar on the params' device, so a step
 reads nothing on the host.  Moments can be stored in bfloat16
 (``opt_dtype="bfloat16"``); updates are always computed in float32, at
-the reference's cast points.
+the reference's cast points.  On placed leaves (DTensors) each gradient
+is first brought to its param's placements; the update is elementwise,
+so each rank updates its own shards with the step's replicated scalars,
+and the compression scale is the whole leaf's amax, reduced over the
+ranks as XLA reduces it.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from .. import sharding as shd
 from ..models.schema import tree_leaves
 
 
@@ -98,26 +103,31 @@ def compress_int8(g, error):
     Models the compressed DP all-reduce: what crosses the network is the
     int8 payload + one scale; the residual is fed back next step, so the
     bias vanishes asymptotically (EF-SGD).  ``torch.round`` rounds half
-    to even, as ``jnp.round`` does.  Returns (decompressed, new_error)."""
-    gf, ef = g.reshape(-1), error.reshape(-1)
+    to even, as ``jnp.round`` does.  Returns (decompressed, new_error).
+    A placed leaf is quantized shard by shard with the scale of the whole
+    leaf (``sharding.all_max`` of the shards' maxima)."""
+    g = shd.like(g, error)
+    gl, el = shd.local(g), shd.local(error)
+    gf, ef = gl.reshape(-1), el.reshape(-1)
     pieces = _pieces(gf.numel())
     amax = torch.stack([torch.amax(torch.abs(gf[sl].float() + ef[sl].float())) for sl in pieces])
-    scale = torch.clamp(torch.amax(amax), min=1e-12) / 127.0
-    deq_out = torch.empty(g.shape, dtype=g.dtype, device=g.device)
-    err_out = torch.empty(g.shape, dtype=torch.bfloat16, device=g.device)
+    scale = torch.clamp(shd.all_max(torch.amax(amax), error), min=1e-12) / 127.0
+    deq_out = torch.empty(gl.shape, dtype=gl.dtype, device=gl.device)
+    err_out = torch.empty(gl.shape, dtype=torch.bfloat16, device=gl.device)
     for sl in pieces:
         g32 = gf[sl].float() + ef[sl].float()
         q = torch.clamp(torch.round(g32 / scale), -127, 127).to(torch.int8)
         deq = q.float() * scale
-        deq_out.view(-1)[sl] = deq.to(g.dtype)
+        deq_out.view(-1)[sl] = deq.to(gl.dtype)
         err_out.view(-1)[sl] = (g32 - deq).to(torch.bfloat16)
-    return deq_out, err_out
+    return shd.from_local(deq_out, g), shd.from_local(err_out, error)
 
 
 @torch.no_grad()
 def apply(params, grads, opt: OptState, ocfg: OptConfig):
     """One AdamW step. Returns (new_params, new_opt, metrics)."""
     step = opt.step + 1
+    grads = _map(shd.like, grads, params)  # placed: a param's own placements
 
     new_ef = opt.ef_error
     if ocfg.compress_grads:
@@ -130,6 +140,8 @@ def apply(params, grads, opt: OptState, ocfg: OptConfig):
     b1, b2 = ocfg.b1, ocfg.b2
     bc1 = 1 - b1 ** step.float()
     bc2 = 1 - b2 ** step.float()
+    # replicated on a mesh: every rank's local value is the whole scalar
+    clip, lr_t, bc1, bc2 = (shd.local(x) for x in (clip, lr, bc1, bc2))
 
     def upd_piece(p, g, mu, nu):
         g = g.float() * clip
@@ -138,16 +150,17 @@ def apply(params, grads, opt: OptState, ocfg: OptConfig):
         mhat = mu32 / bc1
         vhat = nu32 / bc2
         delta = mhat / (torch.sqrt(vhat) + ocfg.eps) + ocfg.weight_decay * p.float()
-        newp = p.float() - lr * delta
+        newp = p.float() - lr_t * delta
         return newp.to(p.dtype), mu32.to(mu.dtype), nu32.to(nu.dtype)
 
-    def upd(p, g, mu, nu):
-        outs = tuple(torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in (p, mu, nu))
-        flat = [t.reshape(-1) for t in (p, g, mu, nu)]
-        for sl in _pieces(p.numel()):
+    def upd(p, g, mu, nu):  # on a mesh, each rank's own shards
+        lp, lg, lmu, lnu = (shd.local(t) for t in (p, g, mu, nu))
+        outs = tuple(torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in (lp, lmu, lnu))
+        flat = [t.reshape(-1) for t in (lp, lg, lmu, lnu)]
+        for sl in _pieces(lp.numel()):
             for out, piece in zip(outs, upd_piece(*(t[sl] for t in flat))):
                 out.view(-1)[sl] = piece
-        return outs
+        return tuple(shd.from_local(o, t) for o, t in zip(outs, (p, mu, nu)))
 
     out = _map(upd, params, grads, opt.mu, opt.nu)
     return (

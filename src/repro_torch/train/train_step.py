@@ -5,9 +5,12 @@ step as a plain function: each microbatch's gradients come from
 ``torch.autograd.grad`` of ``model.loss_fn`` and are summed in float32 in
 the reference's order, then cast to the params' dtype; the step reads
 nothing on the host.  ``jit_train_step`` builds the sharding rules for a
-mesh and runs the step under them (``sharding.constrain`` checks ranks);
-nothing is compiled, and ``donate`` writes the new state into the old
-state's tensors in place.
+mesh and runs the step under them; nothing is compiled, and ``donate``
+writes the new state into the old state's tensors in place.  On a mesh
+with a ``DeviceMesh`` it places the state by ``state_pspecs`` and the
+batch by ``batch_pspecs``, as the reference's ``in_shardings`` do, and
+returns the placed state with the metrics whole (its ``out_shardings``
+``(state_sh, None)``).
 """
 
 from __future__ import annotations
@@ -119,20 +122,29 @@ def make_train_step(cfg, ocfg: optim.OptConfig, *, microbatches: int = 1, remat=
 def jit_train_step(cfg, ocfg, mesh, *, microbatches=1, remat=True, seq_shard=True,
                    donate=True):
     """The step for ``mesh``, run under its sharding rules.  Returns (step,
-    rules).  A mesh larger than its device type's devices raises here
+    rules).  A mesh that is not one rank a device raises here
     (``sharding.check_devices``); the state and batch must lie on the
-    mesh's device.  With ``donate`` the new state is written into the
-    passed state's tensors, which the step returns."""
+    mesh's device.  On a mesh with a ``DeviceMesh`` the step places the
+    state and batch (plain or placed) and returns the placed state and
+    whole metrics; every rank calls it.  With ``donate`` the new state is
+    written into the (placed) passed state's tensors, which the step
+    returns."""
     shd.check_devices(mesh)
     rules = shd.ShardingRules.for_config(mesh, cfg, seq_shard=seq_shard)
     step = make_train_step(cfg, ocfg, microbatches=microbatches, remat=remat)
+    placed = mesh.device_mesh is not None
+    sspec = state_pspecs(cfg, ocfg, rules) if placed else None
 
     def wrapped(state, batch):
         for t in tree_leaves(state) + list(batch.values()):
             if t.device.type != mesh.device.type:
                 raise ValueError(f"a tensor on {t.device} given to a step on {mesh.device}")
+        if placed:
+            state = shd.place(state, sspec, mesh)
+            batch = shd.place(batch, batch_pspecs(cfg, rules, batch), mesh)
         with shd.use_rules(rules):
             new, metrics = step(state, batch)
+        metrics = {k: shd.whole(v) for k, v in metrics.items()}
         if not donate:
             return new, metrics
         with torch.no_grad():

@@ -111,6 +111,10 @@ def test_meshes_are_descriptions():
     assert m.shape == {"pod": 2, "data": 16, "model": 16} and m.size == 512
     assert make_debug_mesh(1, 1).shape == {"data": 1, "model": 1}
     assert make_debug_mesh().size == 4
+    # no process group here: each mesh is a description, with no DeviceMesh
+    assert all(m.device_mesh is None for m in (
+        make_production_mesh(), make_production_mesh(multi_pod=True), make_debug_mesh(),
+        dryrun.one_card()))
 
 
 def _jax_shard_bytes(jmesh, leaves, specs) -> int:

@@ -1,0 +1,591 @@
+"""The port's placement across a device mesh (``repro_torch.sharding``,
+``model.place``, ``serve_step.place_cache``, ``jit_train_step`` and the
+checkpoint on a mesh) against its own unplaced path and the JAX package.
+
+Four ranks of a ``gloo`` process group, each a subprocess on one torch
+thread, opened with a ``file://`` store in the module's temporary
+directory, run every check in one group (``RANK_PROGRAM``) on a 2 x 2
+("data", "model") mesh: the JAX mesh tests' configs
+(``tests/test_distributed.py``), ``deepseek-7b`` smoke decode after an
+8 x 32 prefill, a ``qwen3-8b`` smoke step (d_model 128, 2 layers) on an
+8 x 64 batch, a ``gemma-7b`` smoke state saved from the 2 x 2 mesh and
+restored onto a 1 x 4 one.  Each rank writes its results to the
+directory; the cases below assert on them.  The JAX package's
+single-device results, on the port's weights, are computed once in this
+process while the ranks run.
+
+Tolerances, fixed before the first run:
+
+* mesh against the port unplaced: logits and loss max |Δ| / max |ref| <
+  MESH_RTOL = 1e-5 (a row-parallel product sums its partials across
+  ranks, which moves float32 in its last bits); the cache's K/V the same;
+  ``grad_norm`` and the moments < GRAD_RTOL = 1e-3 a leaf, the params
+  after the step by ``PERF.md`` §2's step rule (``step_params_close``);
+* the port unplaced, and the mesh, against the JAX package: < RTOL = 1e-4;
+* exact: greedy tokens, ``kpos``, ``pos``, ``step``, ``lr``, the
+  restored leaves, an int8-compressed leaf's values.
+"""
+
+import os
+import pickle
+import subprocess
+import sys
+import time
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as jconfigs
+from repro.models import attention as jattention
+from repro.models import layers as jlayers
+from repro.models import model as jmodel
+from repro.models import transformer as jtransformer
+from repro.train import optimizer as joptim
+from repro.train import train_step as jts
+from repro_torch import configs as tconfigs
+from repro_torch import sharding as tshd
+from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.models import attention as tattention
+from repro_torch.models import layers as tlayers
+from repro_torch.models import model as tmodel
+from repro_torch.models import schema as tschema
+from repro_torch.models import transformer as ttransformer
+from repro_torch.serve import serve_step as tserve
+from repro_torch.train import optimizer as toptim
+from repro_torch.train import train_step as tts
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+WORLD = 4
+MESH_RTOL = 1e-5
+RTOL = 1e-4
+GRAD_RTOL = 1e-3
+DECODE_ARCH, DECODE_SHAPE = "deepseek-7b", (8, 32)
+TRAIN_ARCH, TRAIN_SHAPE = "qwen3-8b", (8, 64)
+RESTORE_ARCH = "gemma-7b"
+RANK_TIMEOUT = 300
+
+RANK_PROGRAM = r'''
+import os, pickle, sys
+import numpy as np
+import torch
+import torch.distributed as dist
+
+rank, world, store, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
+torch.set_num_threads(1)
+dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=world)
+
+from repro_torch import sharding as shd
+from repro_torch.configs import get_config, make_smoke
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_debug_mesh, make_production_mesh
+from repro_torch.models import model
+from repro_torch.models.schema import tree_leaves
+from repro_torch.serve import serve_step
+from repro_torch.train import optimizer as optim, train_step as ts
+from repro_torch.train.checkpoint import CheckpointManager
+
+
+def host(tree):  # every rank gathers (a collective): numpy, float32 or integer
+    if isinstance(tree, dict):
+        return {k: host(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return [host(v) for v in tree]
+    if tree is None:
+        return None
+    t = shd.whole(tree).detach()
+    return t.float().numpy() if t.is_floating_point() else t.numpy()
+
+
+def items(tree, path=()):  # (path, leaf) in tree_leaves' order
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from items(tree[k], path + (k,))
+    elif isinstance(tree, tuple):
+        for k, v in zip(getattr(tree, "_fields", range(len(tree))), tree):
+            yield from items(v, path + (str(k),))
+    elif tree is not None:
+        yield "/".join(path), tree
+
+
+def layout(tree, spec_tree, mesh):  # (path, local shape, global shape, spec, placed as spec)
+    specs = tree_leaves(spec_tree, is_leaf=lambda s: type(s) is tuple)
+    return [(p, tuple(shd.local(t).shape), tuple(t.shape), s,
+             shd.is_placed(t) and tuple(t.placements) == shd.placements(mesh, s))
+            for (p, t), s in zip(items(tree), specs, strict=True)]
+
+
+def refused(fn):
+    try:
+        fn()
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+res = {}
+mesh = make_debug_mesh(2, 2)
+res["mesh"] = (mesh.device_mesh is not None, mesh.device.type, dict(mesh.shape))
+res["refused"] = {s: refused(lambda: shd.make_mesh(s, ("data", "model"), "cpu"))
+                  for s in ((2, 4), (1, 2), (4, 4))}
+res["world_mesh_ok"] = refused(lambda: shd.check_devices(shd.Mesh({"data": 1, "model": 4},
+                                                                  torch.device("cpu"))))
+res["descriptions"] = (dryrun.one_card().device_mesh, make_production_mesh().device_mesh)
+if rank == 0:
+    cell = dryrun.run_cell(dryrun.Cell("qwen3-8b", "decode_32k", ("1x1",)))[0]
+    res["dry_cell"] = {k: v for k, v in cell.items() if k != "seconds"}
+
+x = torch.arange(8 * 3, dtype=torch.float32).reshape(8, 3)
+res["tuple_local"] = shd.place(x, (("data", "model"), None), mesh).to_local().numpy()
+res["tuple_reversed"] = refused(lambda: shd.place(x, (("model", "data"), None), mesh))
+
+# decode: deepseek-7b smoke, a placed prefill, the cache placed, one step
+cfg = make_smoke(get_config("DECODE_ARCH"))
+rules = shd.ShardingRules.for_config(mesh, cfg, decode=True)
+params = model.init(cfg, 0, "cpu")
+rng = np.random.default_rng(1)
+tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, DECODE_SHAPE).astype(np.int32))
+bspec = rules.spec(("batch", None))
+with torch.no_grad():
+    last0, cache0 = model.prefill(params, cfg, {"tokens": tokens})
+    tok0 = serve_step.sample_greedy(last0)[:, None]
+    step0, cache0 = model.decode_step(params, cfg, cache0, tok0)
+    pp = model.place(params, cfg, rules)
+    with shd.use_rules(rules):
+        last1, cache1 = model.prefill(pp, cfg, {"tokens": shd.place(tokens, bspec, mesh)})
+        tok1 = serve_step.sample_greedy(last1)[:, None]
+    cache1 = serve_step.place_cache(cache1, cfg, rules)
+    cspec = serve_step.cache_pspecs(cfg, rules, cache1)
+    res["decode_layout"] = (layout(pp, model.partition_pspecs(cfg, rules), mesh)
+                            + layout(cache1, cspec, mesh))
+    with shd.use_rules(rules):
+        step1, cache1 = model.decode_step(pp, cfg, cache1, shd.place(tok1, bspec, mesh))
+    res["decode"] = {"unplaced": host({"last": last0, "tok": tok0, "step": step0,
+                                       "next": serve_step.sample_greedy(step0), "cache": cache0}),
+                     "placed": host({"last": last1, "tok": tok1, "step": step1,
+                                     "next": serve_step.sample_greedy(step1), "cache": cache1})}
+
+# train: qwen3-8b smoke at d_model 128, 2 layers, one step
+cfg = make_smoke(get_config("TRAIN_ARCH")).replace(d_model=128, n_layers=2)
+ocfg = optim.OptConfig()
+rng = np.random.default_rng(0)
+batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, TRAIN_SHAPE).astype(np.int32))
+         for k in ("tokens", "targets")}
+st0, m0 = ts.make_train_step(cfg, ocfg)(ts.init_state(cfg, ocfg, 0, "cpu"), batch)
+step, trules = ts.jit_train_step(cfg, ocfg, mesh, donate=False)
+st1, m1 = step(ts.init_state(cfg, ocfg, 0, "cpu"), batch)
+res["train_layout"] = layout(st1, ts.state_pspecs(cfg, ocfg, trules), mesh)
+donating, _ = ts.jit_train_step(cfg, ocfg, mesh, donate=True)
+passed = shd.place(ts.init_state(cfg, ocfg, 0, "cpu"), ts.state_pspecs(cfg, ocfg, trules), mesh)
+st2, _ = donating(passed, batch)
+res["donated"] = all(
+    a.to_local().data_ptr() == b.to_local().data_ptr() and torch.equal(a.to_local(), c.to_local())
+    for a, b, c in zip(tree_leaves(st2), tree_leaves(passed), tree_leaves(st1)))
+res["train"] = {"unplaced": host({"state": st0, "metrics": m0}),
+                "placed": host({"state": st1, "metrics": m1}),
+                "metrics_placed": [shd.is_placed(v) for v in m1.values()]}
+g = torch.randn(16, 24, generator=torch.Generator().manual_seed(3))
+e = torch.randn(16, 24, generator=torch.Generator().manual_seed(4)).to(torch.bfloat16) * 0.01
+pe = shd.place(e, ("data", "model"), mesh)
+res["compress"] = {"unplaced": host(optim.compress_int8(g, e)),
+                   "placed": host(optim.compress_int8(shd.place(g, (None, "model"), mesh), pe))}
+
+# elastic restore: gemma-7b smoke saved from the 2 x 2 mesh, restored onto 1 x 4
+cfg = make_smoke(get_config("RESTORE_ARCH"))
+state = ts.init_state(cfg, ocfg, 0, "cpu")
+placed = shd.place(state, ts.state_pspecs(cfg, ocfg, shd.ShardingRules.for_config(mesh, cfg)), mesh)
+mgr = CheckpointManager(os.path.join(out, "ckpt_mesh"))
+mgr.save(7, placed)
+mgr.save(8, placed, background=True)  # rank 0 writes on a thread; the ranks meet at wait
+mgr.wait()
+res["latest"] = mgr.latest_step()
+if rank == 0:
+    CheckpointManager(os.path.join(out, "ckpt_plain")).save(7, state)
+dist.barrier()
+mesh2 = shd.make_mesh((1, 4), ("data", "model"), "cpu")
+spec2 = ts.state_pspecs(cfg, ocfg, shd.ShardingRules.for_config(mesh2, cfg))
+got = mgr.restore(7, ts.abstract_state(cfg, ocfg), shardings=(mesh2, spec2))
+res["restore_layout"] = layout(got, spec2, mesh2)
+
+
+def bits(t):
+    t = shd.whole(t)
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+
+res["restore_equal"] = [
+    all(a.dtype == b.dtype and torch.equal(bits(a), bits(b))
+        for a, b in zip(tree_leaves(restored), tree_leaves(state)))
+    for restored in (got, mgr.restore(8, ts.abstract_state(cfg, ocfg), shardings=(mesh2, spec2)))]
+
+with open(os.path.join(out, f"rank{rank}.pkl"), "wb") as f:
+    pickle.dump(res, f)
+dist.destroy_process_group()
+'''
+
+
+def rel_err(got, want) -> float:
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    assert got.shape == want.shape
+    return float(np.max(np.abs(got - want)) / max(np.max(np.abs(want)), 1e-30))
+
+
+def leaves(tree) -> list:
+    """The arrays of a rank's result (dicts in sorted key order, lists)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in leaves(tree[k])]
+    if isinstance(tree, list):
+        return [x for v in tree for x in leaves(v)]
+    return [] if tree is None else [tree]
+
+
+def program() -> str:
+    return (RANK_PROGRAM.replace('"DECODE_ARCH"', repr(DECODE_ARCH))
+            .replace("DECODE_SHAPE", repr(DECODE_SHAPE))
+            .replace('"TRAIN_ARCH"', repr(TRAIN_ARCH)).replace("TRAIN_SHAPE", repr(TRAIN_SHAPE))
+            .replace('"RESTORE_ARCH"', repr(RESTORE_ARCH)))
+
+
+def jax_decode(params_np):
+    """The JAX package's prefill and greedy decode step on the port's weights."""
+    cfg = jconfigs.make_smoke(jconfigs.get_config(DECODE_ARCH))
+    params = jax.tree.map(jnp.asarray, params_np)
+    rng = np.random.default_rng(1)
+    tokens = jnp.asarray(rng.integers(0, cfg.vocab_size, DECODE_SHAPE), jnp.int32)
+    last, cache = jmodel.prefill(params, cfg, {"tokens": tokens}, remat=False)
+    tok = jnp.argmax(last, axis=-1).astype(jnp.int32)[:, None]
+    step, _ = jmodel.decode_step(params, cfg, cache, tok)
+    return {"last": np.asarray(last), "tok": np.asarray(tok), "step": np.asarray(step)}
+
+
+def jax_train(params_np):
+    """The JAX package's single-device step from the port's initial state."""
+    cfg = jconfigs.make_smoke(jconfigs.get_config(TRAIN_ARCH)).replace(d_model=128, n_layers=2)
+    ocfg = joptim.OptConfig()
+    params = jax.tree.map(jnp.asarray, params_np)
+    rng = np.random.default_rng(0)
+    batch = {k: jnp.asarray(rng.integers(0, cfg.vocab_size, TRAIN_SHAPE), jnp.int32)
+             for k in ("tokens", "targets")}
+    _, m = jax.jit(jts.make_train_step(cfg, ocfg))(
+        jts.TrainState(params=params, opt=joptim.init(params, ocfg)), batch)
+    return {k: np.asarray(v) for k, v in m.items()}
+
+
+@pytest.fixture(scope="module")
+def ranks(tmp_path_factory):
+    """Start the four ranks, compute the JAX side meanwhile, then read each
+    rank's results.  Every rank process is ended before this returns."""
+    out = tmp_path_factory.mktemp("mesh")
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"), OMP_NUM_THREADS="1")
+    t0 = time.perf_counter()
+    logs = [open(out / f"rank{r}.log", "w") for r in range(WORLD)]
+    procs = [subprocess.Popen([sys.executable, "-c", program(), str(r), str(WORLD),
+                               str(out / "store"), str(out)],
+                              cwd=REPO, env=env, stdout=logs[r], stderr=subprocess.STDOUT)
+             for r in range(WORLD)]
+    try:
+        dcfg = tconfigs.make_smoke(tconfigs.get_config(DECODE_ARCH))
+        tcfg = tconfigs.make_smoke(tconfigs.get_config(TRAIN_ARCH)).replace(d_model=128,
+                                                                            n_layers=2)
+        want = {"decode": jax_decode(tmodel.to_numpy(tmodel.init(dcfg, 0, "cpu"))),
+                "train": jax_train(tmodel.to_numpy(tmodel.init(tcfg, 0, "cpu")))}
+        rcs = [p.wait(timeout=RANK_TIMEOUT) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    for r, rc in enumerate(rcs):
+        assert rc == 0, f"rank {r} exited {rc}:\n{(out / f'rank{r}.log').read_text()[-4000:]}"
+    got = []
+    for r in range(WORLD):
+        with open(out / f"rank{r}.pkl", "rb") as f:
+            got.append(pickle.load(f))  # written by the rank program above
+    return {"ranks": got, "jax": want, "dir": out, "seconds": time.perf_counter() - t0}
+
+
+# ---------------------------------------------------------------------------
+# decode
+# ---------------------------------------------------------------------------
+
+
+def test_decode_on_mesh_matches_unplaced(ranks):
+    """Each rank's gathered logits, greedy tokens and cache against the
+    unplaced prefill and step (the JAX mesh test's own criterion)."""
+    for res in ranks["ranks"]:
+        want, got = res["decode"]["unplaced"], res["decode"]["placed"]
+        assert rel_err(got["last"], want["last"]) < MESH_RTOL
+        assert rel_err(got["step"], want["step"]) < MESH_RTOL
+        for key in ("tok", "next"):
+            np.testing.assert_array_equal(got[key], want[key])
+
+        def cache(g, w, path=()):
+            for k in w:
+                if isinstance(w[k], dict):
+                    cache(g[k], w[k], path + (k,))
+                elif k in ("kpos", "pos"):
+                    np.testing.assert_array_equal(g[k], w[k], err_msg="/".join(path + (k,)))
+                else:
+                    assert rel_err(g[k], w[k]) < MESH_RTOL, path + (k,)
+
+        cache(got["cache"], want["cache"])
+        assert int(got["cache"]["pos"]) == DECODE_SHAPE[1] + 1
+
+
+def test_decode_matches_jax_single_device(ranks):
+    """The port unplaced, and on the mesh, against the JAX package's prefill
+    and step on one device, on the same weights."""
+    want = ranks["jax"]["decode"]
+    for side in ("unplaced", "placed"):
+        got = ranks["ranks"][0]["decode"][side]
+        np.testing.assert_array_equal(got["tok"], want["tok"])
+        assert rel_err(got["last"], want["last"]) < RTOL, side
+        assert rel_err(got["step"], want["step"]) < RTOL, side
+
+
+def test_decode_placements_follow_the_specs(ranks):
+    """Every param and cache leaf of the decode is a DTensor placed as its
+    spec says, its local shard the JAX shard's shape (``shards``)."""
+    mesh = tshd.make_mesh((2, 2), ("data", "model"), "cpu")
+    for res in ranks["ranks"]:
+        assert res["decode_layout"]
+        for path, local, shape, spec, as_spec in res["decode_layout"]:
+            assert as_spec, path
+            cuts = tshd.shards(mesh, spec) + (1,) * (len(shape) - len(spec))
+            assert local == tuple(n // c for n, c in zip(shape, cuts)), (path, spec)
+    # the deepseek cache's kv_heads dim is cut over "model": the in-place
+    # writes went to sharded leaves
+    kv = [row for row in ranks["ranks"][0]["decode_layout"] if row[0].endswith("attn/k")]
+    assert kv and all("model" in row[3] for row in kv)
+
+
+# ---------------------------------------------------------------------------
+# train
+# ---------------------------------------------------------------------------
+
+
+def step_params_close(got, want, mu, lr: float) -> None:
+    """``PERF.md`` §2's step rule: every element within 2 lr + PTOL, and
+    within PTOL = 1e-6 + 1e-5 |p| where the reference's new first moment
+    is well set (|mu| > 2 GRAD_RTOL max |mu| and > (1 - b1) 1e-4)."""
+    for g, w, m in zip(got, want, mu):
+        d, tol, m = np.abs(g - w), 1e-6 + 1e-5 * np.abs(w), np.abs(m)
+        assert np.all(d <= 2.02 * lr + tol)
+        well = m > max(2 * GRAD_RTOL * m.max(), 0.1 * 1e-4)
+        assert np.all(d[well] <= tol[well])
+
+
+def test_train_step_on_mesh_matches_unplaced(ranks):
+    """The step placed by ``jit_train_step`` on the 2 x 2 mesh against the
+    unplaced step from the same state: loss, the metrics returned whole,
+    the params by the step rule, the moments, ``step`` and ``lr``."""
+    for res in ranks["ranks"]:
+        want, got = res["train"]["unplaced"], res["train"]["placed"]
+        assert not any(res["train"]["metrics_placed"])
+        wm, gm = want["metrics"], got["metrics"]
+        assert rel_err(gm["loss"], wm["loss"]) < MESH_RTOL
+        assert rel_err(gm["grad_norm"], wm["grad_norm"]) < GRAD_RTOL
+        np.testing.assert_array_equal(gm["lr"], wm["lr"])
+        (wp, (wmu, wnu, wstep, _)), (gp, (gmu, gnu, gstep, _)) = want["state"], got["state"]
+        np.testing.assert_array_equal(gstep, wstep)
+        for g, w in zip(leaves(gmu) + leaves(gnu), leaves(wmu) + leaves(wnu)):
+            assert rel_err(g, w) < GRAD_RTOL
+        step_params_close(leaves(gp), leaves(wp), leaves(wmu), float(wm["lr"]))
+
+
+def test_train_step_matches_jax_single_device(ranks):
+    want = ranks["jax"]["train"]
+    for side in ("unplaced", "placed"):
+        got = ranks["ranks"][0]["train"][side]["metrics"]
+        assert rel_err(got["loss"], want["loss"]) < RTOL, side
+        assert rel_err(got["grad_norm"], want["grad_norm"]) < GRAD_RTOL, side
+
+
+def test_train_state_placed_by_state_pspecs(ranks):
+    """The placed step's state follows ``state_pspecs``; with ``donate`` the
+    new state lands in the passed placed state's shards, equal to the
+    step without donation."""
+    mesh = tshd.make_mesh((2, 2), ("data", "model"), "cpu")
+    for res in ranks["ranks"]:
+        assert res["donated"]
+        assert res["train_layout"]
+        for path, local, shape, spec, as_spec in res["train_layout"]:
+            assert as_spec, path
+            cuts = tshd.shards(mesh, spec) + (1,) * (len(shape) - len(spec))
+            assert local == tuple(n // c for n, c in zip(shape, cuts)), (path, spec)
+
+
+def test_compression_scale_is_the_whole_leafs(ranks):
+    """int8 error feedback on a leaf cut over both mesh axes: each shard is
+    quantized with the whole leaf's amax, so the values equal the
+    unplaced compression's exactly."""
+    for res in ranks["ranks"]:
+        for g, w in zip(leaves(res["compress"]["placed"]), leaves(res["compress"]["unplaced"])):
+            np.testing.assert_array_equal(g, w)
+
+
+# ---------------------------------------------------------------------------
+# checkpoint: save from 2 x 2, restore onto 1 x 4
+# ---------------------------------------------------------------------------
+
+
+def test_elastic_restore_bit_for_bit(ranks):
+    """The gemma-7b state saved from the 2 x 2 mesh (in the foreground, and
+    again on rank 0's writer thread) restores onto 1 x 4 bit for bit,
+    each leaf placed by its 1 x 4 spec."""
+    mesh2 = tshd.make_mesh((1, 4), ("data", "model"), "cpu")
+    for res in ranks["ranks"]:
+        assert res["restore_equal"] == [True, True]  # the foreground save, the background one
+        assert res["latest"] == 8
+        for path, local, shape, spec, as_spec in res["restore_layout"]:
+            assert as_spec, path
+            cuts = tshd.shards(mesh2, spec) + (1,) * (len(shape) - len(spec))
+            assert local == tuple(n // c for n, c in zip(shape, cuts)), (path, spec)
+
+
+def test_placed_save_writes_the_plain_bytes(ranks):
+    """Rank 0 writes the gathered state: the same manifest (shapes, dtypes,
+    digests) as a plain save of the state, and the same arrays."""
+    import json
+
+    d = ranks["dir"]
+    read = lambda name: json.loads((d / name / "step_00000007" / "manifest.json").read_text())
+    mesh_m, plain_m = read("ckpt_mesh"), read("ckpt_plain")
+    assert mesh_m["leaves"] == plain_m["leaves"] and mesh_m["treedef"] == plain_m["treedef"]
+    assert not list((d / "ckpt_mesh").glob(".tmp_*"))
+
+
+# ---------------------------------------------------------------------------
+# placements, refusals, and no change without a DeviceMesh
+# ---------------------------------------------------------------------------
+
+
+def test_placements_against_spec_every_leaf():
+    """Every param, cache and state leaf of the three configs: one
+    placement a mesh axis, ``Shard(d)`` where the spec names that axis at
+    dim ``d``, else ``Replicate()``; on the 2 x 2 mesh and the multi-pod
+    mesh, whose ("pod", "data") tuples cut one dim by two axes."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    def want(mesh, spec):
+        out = []
+        for name in mesh.axis_names:
+            dims = [d for d, p in enumerate(spec)
+                    if p is not None and name in ((p,) if isinstance(p, str) else p)]
+            assert len(dims) <= 1
+            out.append(Shard(dims[0]) if dims else Replicate())
+        return tuple(out)
+
+    ocfg = toptim.OptConfig(compress_grads=True)
+    tuples = 0
+    for mesh in (tshd.make_mesh((2, 2), ("data", "model"), "cpu"),
+                 make_production_mesh(multi_pod=True)):
+        for name in (DECODE_ARCH, TRAIN_ARCH, RESTORE_ARCH):
+            cfg = tconfigs.make_smoke(tconfigs.get_config(name))
+            for decode in (False, True):
+                rules = tshd.ShardingRules.for_config(mesh, cfg, decode=decode)
+                cache = tmodel.init_cache(cfg, 8, 64, device="meta")
+                specs = [s for tree in (tmodel.partition_pspecs(cfg, rules),
+                                        tserve.cache_pspecs(cfg, rules, cache),
+                                        tts.state_pspecs(cfg, ocfg, rules))
+                         for s in tschema.tree_leaves(tree, is_leaf=lambda s: type(s) is tuple)]
+                for spec in specs:
+                    assert tshd.placements(mesh, spec) == want(mesh, spec), spec
+                    tuples += any(isinstance(p, tuple) for p in spec)
+    assert tuples > 0
+    rules = tshd.ShardingRules.for_config(make_production_mesh(multi_pod=True))
+    assert rules.placements(("batch", None), (64, 8)) == (Shard(0), Shard(0), Replicate())
+
+
+def test_tuple_spec_both_ways(ranks):
+    """A dim cut by ("data", "model") holds on each rank the block JAX
+    gives it, data major: rows 2 r, 2 r + 1 of rank r.  The other order,
+    ("model", "data"), which DTensor's ``Shard`` cannot lay out, raises."""
+    x = np.arange(8 * 3, dtype=np.float32).reshape(8, 3)
+    for r, res in enumerate(ranks["ranks"]):
+        np.testing.assert_array_equal(res["tuple_local"], x[2 * r : 2 * r + 2])
+        assert "major to minor" in res["tuple_reversed"]
+    mesh = make_production_mesh(multi_pod=True)
+    with pytest.raises(ValueError, match="major to minor"):
+        tshd.placements(mesh, (("data", "pod"),))
+
+
+def test_check_devices_refuses_a_mesh_unlike_the_world(ranks):
+    for res in ranks["ranks"]:
+        assert res["mesh"] == (True, "cpu", {"data": 2, "model": 2})
+        for sizes, msg in res["refused"].items():
+            assert msg is not None and "devices" in msg, sizes
+        assert res["world_mesh_ok"] is None
+
+
+def test_no_device_mesh_no_change(ranks):
+    """Without a DeviceMesh ``constrain`` returns its input, the same object,
+    under the rules of a description; with a process group up, the dry
+    run's meshes stay descriptions and its cell equals this process's."""
+    x = torch.ones(2, 3, 4)
+    rules = tshd.ShardingRules.for_config(tshd.make_mesh((2, 2), ("data", "model"), "cpu"))
+    with tshd.use_rules(rules):
+        assert tshd.constrain(x, "batch", "seq", "embed") is x
+    with pytest.raises(ValueError, match="DeviceMesh"):
+        tshd.place({"w": x}, {"w": (None, None, None)}, rules.mesh)
+    for res in ranks["ranks"]:
+        assert res["descriptions"] == (None, None)
+    from repro_torch.launch import dryrun
+
+    cell = dryrun.run_cell(dryrun.Cell("qwen3-8b", "decode_32k", ("1x1",)))[0]
+    assert ranks["ranks"][0]["dry_cell"] == {k: v for k, v in cell.items() if k != "seconds"}
+
+
+# ---------------------------------------------------------------------------
+# the reference's constrain sites on the dense path
+# ---------------------------------------------------------------------------
+
+
+def _constrain_calls(modules, run) -> list:
+    """The logical axes of every ``constrain`` call while ``run`` runs, with
+    each module's ``constrain`` replaced by a recorder."""
+    calls, saved = [], [m.constrain for m in modules]
+
+    def record(x, *axes):
+        calls.append(tuple(axes))
+        return x
+
+    for m in modules:
+        m.constrain = record
+    try:
+        run()
+    finally:
+        for m, f in zip(modules, saved):
+            m.constrain = f
+    return sorted(calls, key=repr)
+
+
+@pytest.mark.parametrize("entry", ["forward", "loss_fn", "decode_step"])
+def test_constrain_sites_match_the_reference(entry):
+    """The dense decoder's constrain sites, counted with their axes: a one-layer
+    model (the reference's scan traces its unit once) runs through the
+    same calls in both packages."""
+    name = DECODE_ARCH
+    jcfg = jconfigs.make_smoke(jconfigs.get_config(name)).replace(n_layers=1)
+    tcfg = tconfigs.make_smoke(tconfigs.get_config(name)).replace(n_layers=1)
+    params = tmodel.init(tcfg, 0, "cpu")
+    jparams = jax.tree.map(jnp.asarray, tmodel.to_numpy(params))
+    tokens = np.random.default_rng(2).integers(0, tcfg.vocab_size, (2, 8)).astype(np.int32)
+    tb = {"tokens": torch.from_numpy(tokens), "targets": torch.from_numpy(tokens)}
+    jb = {k: jnp.asarray(v.numpy()) for k, v in tb.items()}
+    if entry == "decode_step":
+        tcache = tmodel.init_cache(tcfg, 2, 16, device="cpu")
+        jcache = jmodel.init_cache(jcfg, 2, 16)
+        trun = lambda: tmodel.decode_step(params, tcfg, tcache, tb["tokens"][:, :1])
+        jrun = lambda: jmodel.decode_step(jparams, jcfg, jcache, jb["tokens"][:, :1])
+    else:
+        trun = lambda: getattr(tmodel, entry)(params, tcfg, tb)
+        jrun = lambda: getattr(jmodel, entry)(jparams, jcfg, jb)
+    got = _constrain_calls((tattention, tlayers, ttransformer, tmodel), trun)
+    want = _constrain_calls((jattention, jlayers, jtransformer, jmodel), jrun)
+    assert got == want
+    assert len(got) == {"forward": 9, "loss_fn": 8, "decode_step": 7}[entry]
