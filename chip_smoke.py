@@ -604,6 +604,8 @@ MESH_DECODE_STEPS = 8  # timed greedy steps, placed and unplaced
 MESH_LOGIT_BOUND = 2.0 ** -8  # bf16 placed logits against unplaced, max|d| / max|ref|
 MESH_LOSS_RTOL = 1e-3  # the placed train step's loss against the unplaced step's
 MESH_REFUSED = (1, 2)  # a mesh of two devices on one card
+MESH_MOE_ARCH = "deepseek-v2-lite-16b"  # MoE + MLA: full width and depth for the decode
+MESH_MOE_TRAIN_LAYERS = 2  # the dense first layer and one MoE unit (1.08 B params)
 
 
 def log(*args) -> None:
@@ -4839,28 +4841,72 @@ def decode_ms(params, cfg, cache, tok, rules=None) -> float:
     return cuda_ms(step, MESH_DECODE_STEPS, warmup=2)
 
 
-def mesh_decode(mesh, device) -> dict:
-    """``MESH_ARCH`` at full width and depth in bf16 (phase 17's seeded
-    weights): a 16 x 64 prefill and a greedy step, unplaced and then on
-    params placed by ``model.place`` and a cache by ``place_cache``; the
-    placed logits within ``MESH_LOGIT_BOUND`` of the unplaced (whether
-    equal reported), the greedy tokens and the cache's ``kpos`` and
-    ``pos`` equal; then ms a decode step at B = 16, each side."""
-    cfg = get_config(MESH_ARCH)
+@contextlib.contextmanager
+def deterministic():
+    """CUDA's deterministic kernels while the block runs: ``scatter_add_``
+    (the MoE combine) sums in a fixed order in place of its atomics.  Warn
+    only, so an op with no deterministic kernel runs as it is."""
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            yield
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+
+
+def picks_differing(got, want) -> int:
+    """(layer, token) routing decisions that differ between two recordings."""
+    return sum(int((llm_sharding.whole(g) != w).any(-1).sum()) for g, w in zip(got, want))
+
+
+def mesh_decode(mesh, device, name=MESH_ARCH) -> dict:
+    """``name`` at full width and depth in bf16 (the seeded weights of phase
+    17, or of phase 18 at their true fan-in for a MoE arch): a 16 x 64
+    prefill and a greedy step, unplaced and then on params placed by
+    ``model.place`` and a cache by ``place_cache``, both under CUDA's
+    deterministic kernels; the placed logits within ``MESH_LOGIT_BOUND``
+    of the unplaced (whether equal reported), the greedy tokens and the
+    cache's ``kpos`` and ``pos`` equal, and for a MoE arch every (layer,
+    token) routing decision equal (by ``recorded_picks``).  Reported
+    beside them: the unplaced prefill and step twice with the default
+    kernels, how far apart (the MoE combine's ``scatter_add_`` sums by
+    atomics in no fixed order).  Then ms a decode step at B = 16, each
+    side, with the default kernels."""
+    cfg = get_config(name)
     params, made = full_width_params(cfg, device)
+    if cfg.is_moe:
+        at_true_fan_in(params, cfg)
     rules = llm_sharding.ShardingRules.for_config(mesh, cfg, decode=True)
     bspec = rules.spec(("batch", None))
     B, S = MESH_DECODE_SHAPE
     tokens = np.random.default_rng(SEED + 90).integers(0, cfg.vocab_size, (B, S))
     batch = {"tokens": torch.from_numpy(tokens.astype(np.int32)).to(device)}
+    routed = recorded_picks if cfg.is_moe else (lambda cfg, passes: contextlib.nullcontext([]))
     with torch.no_grad():
-        want, want_toks, want_cache = greedy(params, cfg, batch, 1)
-        placed = llm.place(params, cfg, rules)
-        got, got_toks, got_cache = greedy(
-            placed, cfg, llm_sharding.place(batch, {"tokens": bspec}, mesh), 1, rules)
+        runs = []
+        for _ in range(2):
+            with routed(cfg, 2) as picks:
+                runs.append((greedy(params, cfg, batch, 1)[0], picks))
+        repeat = {"rel_err": max(rel_err(g, w) for g, w in zip(runs[1][0], runs[0][0])),
+                  "picks_differ": picks_differing(runs[1][1], runs[0][1])}
+        del runs
+        with deterministic():
+            with routed(cfg, 2) as want_picks:
+                want, want_toks, want_cache = greedy(params, cfg, batch, 1)
+            placed = llm.place(params, cfg, rules)
+            with routed(cfg, 2) as got_picks:
+                got, got_toks, got_cache = greedy(
+                    placed, cfg, llm_sharding.place(batch, {"tokens": bspec}, mesh), 1, rules)
         errs = [rel_err(g, w) for g, w in zip(got, want)]
+        picks_differ = picks_differing(got_picks, want_picks)
         if not max(errs) <= MESH_LOGIT_BOUND:
-            raise AssertionError(f"placed decode logits off by {errs}")
+            raise AssertionError(f"placed decode logits off by {errs} "
+                                 f"({picks_differ} routing decisions differ)")
+        if picks_differ:
+            raise AssertionError(f"{picks_differ} placed routing decisions differ")
         if not torch.equal(got_toks, want_toks):
             raise AssertionError("placed greedy tokens differ from the unplaced")
         for (path, w), g in zip(llm_schema.tree_items(want_cache),
@@ -4872,21 +4918,25 @@ def mesh_decode(mesh, device) -> dict:
                               llm_sharding.place(got_toks[:, -1:], bspec, mesh), rules)
     out = {"params": made["params"], "prefill_rel_err": errs[0], "decode_rel_err": errs[1],
            "logits_equal": all(torch.equal(g, w) for g, w in zip(got, want)),
+           "unplaced_repeat": repeat,
            "decode_ms_unplaced": plain_ms, "decode_ms_placed": placed_ms,
            "placed_over_unplaced": placed_ms / plain_ms}
-    log(f"  {MESH_ARCH} decode at B = {B} ({card_line()}): {json.dumps(out)}")
+    if cfg.is_moe:
+        out["routings"] = len(got_picks)
+        out["picks_differ"] = picks_differ
+    log(f"  {name} decode at B = {B} ({card_line()}): {json.dumps(out)}")
     return out
 
 
-def mesh_train(mesh, device, directory) -> dict:
-    """Phase 20's microbatched, compressed step (``TRAIN_MB_ARCH`` at
-    ``TRAIN_MB_LAYERS`` layers, ``TRAIN_MB_SHAPE``), unplaced by
-    ``make_train_step`` and placed by ``jit_train_step`` on ``mesh``, from
-    one seeded state: the placed loss within ``MESH_LOSS_RTOL``, ``step``
-    and ``lr`` equal, ms a step (the second step of each, by CUDA
-    events); then the placed params saved and restored onto the mesh, bit
+def mesh_train(mesh, device, directory, name=TRAIN_MB_ARCH, layers=TRAIN_MB_LAYERS) -> dict:
+    """Phase 20's microbatched, compressed step (``name`` at ``layers``
+    layers, ``TRAIN_MB_SHAPE``), unplaced by ``make_train_step`` and
+    placed by ``jit_train_step`` on ``mesh``, from one seeded state: the
+    placed loss within ``MESH_LOSS_RTOL``, ``step`` and ``lr`` equal, ms a
+    step (the second step of each, by CUDA events); then, given a
+    ``directory``, the placed params saved and restored onto the mesh, bit
     for bit and placed by their specs."""
-    cfg = get_config(TRAIN_MB_ARCH).replace(n_layers=TRAIN_MB_LAYERS)
+    cfg = get_config(name).replace(n_layers=layers)
     ocfg = llm_optim.OptConfig(compress_grads=True)
     B, S = TRAIN_MB_SHAPE
     batch = train_batch(cfg, B, S, SEED + 80, device, masked=False)
@@ -4918,6 +4968,14 @@ def mesh_train(mesh, device, directory) -> dict:
             and torch.equal(llm_sharding.whole(state.opt.step), torch.full_like(
                 state.opt.step.to_local(), 2))):
         raise AssertionError("placed train step's lr or step differs")
+    out = {"params": llm_params(cfg), "loss_unplaced": float(want["loss"]),
+           "loss_placed": float(got["loss"]), "loss_rel_err": loss_err,
+           "train_ms_unplaced": plain_ms, "train_ms_placed": placed_ms,
+           "placed_over_unplaced": placed_ms / plain_ms}
+    if directory is None:
+        log(f"  {name} at {layers} layers, a train step at {B} x {S} ({card_line()}): "
+            f"{json.dumps(out)}")
+        return out
     t0 = time.perf_counter()
     mgr = CheckpointManager(str(directory))
     mgr.save(1, state.params)
@@ -4929,21 +4987,21 @@ def mesh_train(mesh, device, directory) -> dict:
         if not (bitwise_equal(a.to_local(), b.to_local())
                 and tuple(a.placements) == llm_sharding.placements(mesh, spec)):
             raise AssertionError("the restored params differ from the saved")
-    out = {"loss_unplaced": float(want["loss"]), "loss_placed": float(got["loss"]),
-           "loss_rel_err": loss_err, "train_ms_unplaced": plain_ms, "train_ms_placed": placed_ms,
-           "placed_over_unplaced": placed_ms / plain_ms,
-           "saved_bytes": sum(t.numel() * t.element_size()
-                              for t in llm_schema.tree_leaves(state.params)),
-           "save_s": saved_s, "restore_s": restore_s}
-    log(f"  {TRAIN_MB_ARCH} at {TRAIN_MB_LAYERS} layers, a train step at {B} x {S} "
-        f"({card_line()}): {json.dumps(out)}")
+    out.update(saved_bytes=sum(t.numel() * t.element_size()
+                               for t in llm_schema.tree_leaves(state.params)),
+               save_s=saved_s, restore_s=restore_s)
+    log(f"  {name} at {layers} layers, a train step at {B} x {S} ({card_line()}): "
+        f"{json.dumps(out)}")
     return out
 
 
 def mesh_phase(device) -> dict:
     """Phase 23: a world-size-1 NCCL group (a ``file://`` store in a
     temporary directory) and a 1 x 1 ("data", "model") mesh over it; a
-    (1, 2) mesh refused; ``mesh_decode`` and ``mesh_train`` on it.  The
+    (1, 2) mesh refused; ``mesh_decode`` and ``mesh_train`` on it for the
+    dense ``MESH_ARCH`` (its params saved and restored) and then for the
+    MoE + MLA ``MESH_MOE_ARCH`` (``MESH_MOE_TRAIN_LAYERS`` layers for the
+    step).  The
     group is torn down before this returns, so no later phase sees it."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4964,6 +5022,11 @@ def mesh_phase(device) -> dict:
             out = {"refused": refused, "decode": mesh_decode(mesh, device)}
             torch.cuda.empty_cache()
             out["train"] = mesh_train(mesh, device, Path(tmp) / "ckpt")
+            torch.cuda.empty_cache()
+            out["moe_decode"] = mesh_decode(mesh, device, MESH_MOE_ARCH)
+            torch.cuda.empty_cache()
+            out["moe_train"] = mesh_train(mesh, device, None, MESH_MOE_ARCH,
+                                          MESH_MOE_TRAIN_LAYERS)
         finally:
             dist.destroy_process_group()
     if dist.is_initialized():

@@ -208,7 +208,10 @@ def mla_attention(p, x, cfg, positions, *, cache=None):
     """x: (B, S, d). Returns (out, kv): kv (c_kv, k_rope) for prefill
     collection, or the fresh token's {"c_kv", "k_rope"} delta in decode.
 
-    cache: dict(c_kv, k_rope, kpos), the latent cache, for decode."""
+    cache: dict(c_kv, k_rope, kpos), the latent cache, for decode.  On a
+    mesh (``heads`` cut over "model", the cache by batch) every op runs as
+    DTensor propagates it: the reference has no constrain site here, and
+    no op needs an explicit redistribution."""
     nope, rdim, lora = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.kv_lora_rank
     scale = (nope + rdim) ** -0.5
 

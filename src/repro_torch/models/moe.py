@@ -15,13 +15,24 @@ scattering them to an out-of-range slot (``mode="drop"``); an
 out-of-range index raises in torch, so they go to one dump row past
 the buffer, sliced off.  No boolean-mask indexing and no host read: a
 decode step stays free of syncs.
+
+On a device mesh ``moe_ffn`` constrains ``x``, ``xe``, ``h``, ``ye`` and
+``y`` at the reference's five sites, with its axes.  The top-k, the
+dispatch and the combine are ``sharding.row_local``: after the first site
+every rank holds whole rows, and each runs them on its own, as the
+reference's ``vmap`` keeps them local to a data shard.  Before the
+combine ``ye`` is gathered over the axis that cuts its experts, where
+GSPMD inserts that all-gather.  Without a DeviceMesh every site and
+wrapper returns its input, and the step issues the same torch operations.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .layers import _act, mlp
+from .. import sharding as shd
+from ..sharding import constrain
+from .layers import _act
 
 
 def expert_capacity(cfg, S: int) -> int:
@@ -37,15 +48,21 @@ def route(p, x, cfg):
     """Router probabilities (B, S, E) float32 and each token's top-k
     weights (renormalised) and experts (B, S, k)."""
     logits = torch.einsum("bsd,de->bse", x, p["router"]).float()
+    return _top_k(logits, cfg.top_k)
+
+
+@shd.row_local
+def _top_k(logits, k: int):
     probs = torch.softmax(logits, dim=-1)
     # lax.top_k's order: the larger first, the lower expert first on a tie
     # (bf16 logits tie often); torch.topk leaves ties in no set order
     top_w, top_idx = torch.sort(probs, dim=-1, descending=True, stable=True)
-    top_w, top_idx = top_w[..., : cfg.top_k], top_idx[..., : cfg.top_k]
+    top_w, top_idx = top_w[..., :k], top_idx[..., :k]
     top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
     return probs, top_w, top_idx
 
 
+@shd.row_local
 def _dispatch(x, top_idx, top_w, n_experts: int, capacity: int):
     """Dispatch every row: x (B, S, d), top_idx/top_w (B, S, k).
 
@@ -73,6 +90,7 @@ def _dispatch(x, top_idx, top_w, n_experts: int, capacity: int):
     return xe[:, :rows].reshape(B, n_experts, capacity, d), (slot, st, sw, keep)
 
 
+@shd.row_local
 def _combine(ye, meta, S: int):
     """Each pair's expert output, weighted, summed back onto its token:
     ye (B, E, C, d) -> (B, S, d)."""
@@ -85,28 +103,46 @@ def _combine(ye, meta, S: int):
     return ye.new_zeros((B, S, d)).scatter_add_(1, st[..., None].expand(-1, -1, d), contrib)
 
 
+def _shared_experts(p, x, kind: str):
+    """The shared experts as one dense MLP on the gathered ``x``, with
+    ``layers.mlp``'s products and no constrain site, as the reference."""
+    if kind in ("swiglu", "geglu"):
+        h = _act(kind, x @ p["shared_wg"]) * (x @ p["shared_wi"])
+    else:
+        h = _act(kind, x @ p["shared_wi"])
+    return h @ p["shared_wo"]
+
+
 def moe_ffn(p, x, cfg):
     """x: (B, S, d) -> (B, S, d), plus the load-balance aux loss (float32)."""
     S = x.shape[1]
     E, k = cfg.n_experts, cfg.top_k
 
+    # the sequence gathered once: every rank holds whole rows of its batch
+    x = constrain(x, "batch", None, "embed")
     probs, top_w, top_idx = route(p, x, cfg)
     xe, meta = _dispatch(x, top_idx, top_w, E, expert_capacity(cfg, S))
+    xe = constrain(xe, "batch", "experts", None, "embed")
 
     if "wg" in p:
         g = torch.einsum("becd,edf->becf", xe, p["wg"])
         h = _act(cfg.mlp_kind, g) * torch.einsum("becd,edf->becf", xe, p["wi"])
     else:
         h = _act(cfg.mlp_kind, torch.einsum("becd,edf->becf", xe, p["wi"]))
+    h = constrain(h, "batch", "experts", None, "expert_ffn")
     ye = torch.einsum("becf,efd->becd", h, p["wo"])
-    y = _combine(ye, meta, S)
+    ye = constrain(ye, "batch", "experts", None, "embed")
+    # every expert's rows whole for the row-local combine: an all-gather
+    # over the axis that cuts the experts
+    y = _combine(shd.unshard(ye, 1), meta, S)
+    y = constrain(y, "batch", "seq", "embed")  # back to SP for the residual
 
     if cfg.n_shared_experts:
-        shared = {key[len("shared_"):]: w for key, w in p.items() if key.startswith("shared_")}
-        y = y + mlp(shared, x, cfg.mlp_kind)
+        y = y + _shared_experts(p, x, cfg.mlp_kind)
 
     # load-balance aux (Switch-style): E * sum_e f_e * p_e, f_e from the
-    # one-hot of the picks
+    # one-hot of the picks; on a mesh the means are DTensor reductions
+    # over every rank's rows
     picks = top_idx[..., None] == torch.arange(E, device=x.device)
     frac = picks.float().sum(2).mean((0, 1)) / k
     aux = E * torch.sum(frac * probs.mean((0, 1)))

@@ -17,7 +17,9 @@ from ..models import model
 
 def cache_pspecs(cfg, rules, cache_tree):
     """Partition specs for a decode cache: batch over DP, kv heads or
-    head_dim over TP; recurrent states batch-sharded."""
+    head_dim over TP; MLA's latents ``c_kv`` and ``k_rope`` by batch only
+    (one latent head, nothing for TP to cut); recurrent states
+    batch-sharded."""
 
     def spec(name, leaf):
         nd = leaf.ndim

@@ -19,13 +19,15 @@ the reference calls ``with_sharding_constraint``.  A plain tensor passes
 ``constrain`` unchanged (after the rank check), so a description-only
 mesh (the dry run's ``meta`` meshes) and every unplaced path run as
 before.  :func:`check_devices` refuses a mesh that is not one rank a
-device of the group.
+device of the group.  :func:`row_local` runs a per-row function (what the
+reference ``vmap``s over the batch) on each rank's own rows.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import math
 import threading
 from dataclasses import dataclass, field
@@ -292,6 +294,50 @@ def unshard(x, dim: int):
     return x.redistribute(x.device_mesh, pl)
 
 
+def row_local(fn):
+    """``fn`` run on each rank's own rows, where the reference ``vmap``s a
+    per-row function over the batch (its data-dependent sorts, gathers and
+    scatters stay local to the rows a device holds).  With no DTensor among
+    the arguments (nested tuples) ``fn`` is called as it is.  Otherwise the
+    first DTensor argument's cuts of dim 0, the batch, are the rows'
+    placements; each DTensor argument is redistributed to them (an explicit
+    redistribution: an all-gather of any other dim a mesh axis cuts, an
+    all-reduce of a partial sum), ``fn`` runs on the local shards, and each
+    tensor it returns becomes a DTensor of those placements.  Dim 0 of every
+    tensor argument and result is the batch.  ``to_local`` and
+    ``from_local`` carry gradients, so a train step's backward goes through."""
+
+    @functools.wraps(fn)
+    def wrapped(*args):
+        first = next((a for a in _tensors(args) if is_placed(a)), None)
+        if first is None:
+            return fn(*args)
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+
+        mesh = first.device_mesh
+        rows = tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                     for p in first.placements)
+        down = lambda a: a.redistribute(mesh, rows).to_local() if is_placed(a) else a
+        up = lambda t: DTensor.from_local(t, mesh, rows, run_check=False)
+        return _map_tensors(up, fn(*_map_tensors(down, args)))
+
+    return wrapped
+
+
+def _tensors(tree):
+    if isinstance(tree, tuple):
+        for t in tree:
+            yield from _tensors(t)
+    elif torch.is_tensor(tree):
+        yield tree
+
+
+def _map_tensors(f, tree):
+    if isinstance(tree, tuple):
+        return tuple(_map_tensors(f, t) for t in tree)
+    return f(tree) if torch.is_tensor(tree) else tree
+
+
 def whole(x):
     """The full value of a DTensor on every rank (a collective: every rank
     calls it); a plain tensor as it is."""
@@ -365,8 +411,9 @@ def use_rules(rules: Optional[ShardingRules]):
 def constrain(x, *axes):
     """The reference's ``with_sharding_constraint`` by logical axes: a rank
     check under active rules (a ``ValueError`` on a mismatch), then a
-    DTensor redistributed to ``placements(axes, x.shape)``; a plain tensor
-    is returned unchanged."""
+    DTensor redistributed to ``placements(axes, x.shape)`` (and described
+    as its shard is laid out, :func:`_as_laid_out`); a plain tensor is
+    returned unchanged."""
     rules = active_rules()
     if rules is None:
         return x
@@ -374,4 +421,23 @@ def constrain(x, *axes):
         raise ValueError(f"rank mismatch: {axes} vs {tuple(x.shape)}")
     if not is_placed(x):
         return x
-    return x.redistribute(x.device_mesh, rules.placements(tuple(axes), tuple(x.shape)))
+    return _as_laid_out(x.redistribute(x.device_mesh,
+                                       rules.placements(tuple(axes), tuple(x.shape))))
+
+
+def _as_laid_out(x):
+    """A DTensor whose new local shard is contiguous, with the contiguous
+    global stride.  A redistribution keeps the global stride of the tensor
+    it started from (an einsum's output is a permuted view) while the
+    shard it makes is contiguous; an op that then views by the global
+    stride (the next einsum's reshape) fails on the shard."""
+    loc = x.to_local()
+    if x.is_contiguous() or not loc.is_contiguous():
+        return x
+    from torch.distributed.tensor import DTensor
+
+    stride = [1] * x.ndim
+    for d in range(x.ndim - 2, -1, -1):
+        stride[d] = stride[d + 1] * x.shape[d + 1]
+    return DTensor.from_local(loc, x.device_mesh, x.placements, run_check=False,
+                              shape=x.shape, stride=tuple(stride))

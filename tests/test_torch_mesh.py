@@ -9,10 +9,16 @@ directory, run every check in one group (``RANK_PROGRAM``) on a 2 x 2
 (``tests/test_distributed.py``), ``deepseek-7b`` smoke decode after an
 8 x 32 prefill, a ``qwen3-8b`` smoke step (d_model 128, 2 layers) on an
 8 x 64 batch, a ``gemma-7b`` smoke state saved from the 2 x 2 mesh and
-restored onto a 1 x 4 one.  Each rank writes its results to the
-directory; the cases below assert on them.  The JAX package's
-single-device results, on the port's weights, are computed once in this
-process while the ranks run.
+restored onto a 1 x 4 one.  The MoE and MLA decoders the same way:
+``deepseek-v2-lite-16b`` (8 experts over "model", MLA's latent cache, a
+shared expert, the dense first layer) and ``grok-1-314b`` (one KV head,
+so decode cuts ``head_dim``) smoke decode on 2 x 2, DeepSeek with 6
+experts on 1 x 4 (experts replicated, ``expert_ffn`` cut), a DeepSeek
+step on 2 x 2 and its state saved from 2 x 2 and restored onto 1 x 4.
+DeepSeek's leaves are at their true fan-in (``at_true_fan_in``).  Each
+rank writes its results to the directory; the cases below assert on
+them.  The JAX package's single-device results, on the port's weights,
+are computed once in this process while the ranks run.
 
 Tolerances, fixed before the first run:
 
@@ -23,9 +29,12 @@ Tolerances, fixed before the first run:
   after the step by ``PERF.md`` §2's step rule (``step_params_close``);
 * the port unplaced, and the mesh, against the JAX package: < RTOL = 1e-4;
 * exact: greedy tokens, ``kpos``, ``pos``, ``step``, ``lr``, the
-  restored leaves, an int8-compressed leaf's values.
+  restored leaves, an int8-compressed leaf's values, the experts each
+  MoE layer routes every token to.
 """
 
+import inspect
+import math
 import os
 import pickle
 import subprocess
@@ -42,6 +51,7 @@ from repro import configs as jconfigs
 from repro.models import attention as jattention
 from repro.models import layers as jlayers
 from repro.models import model as jmodel
+from repro.models import moe as jmoe
 from repro.models import transformer as jtransformer
 from repro.train import optimizer as joptim
 from repro.train import train_step as jts
@@ -51,6 +61,7 @@ from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import attention as tattention
 from repro_torch.models import layers as tlayers
 from repro_torch.models import model as tmodel
+from repro_torch.models import moe as tmoe
 from repro_torch.models import schema as tschema
 from repro_torch.models import transformer as ttransformer
 from repro_torch.serve import serve_step as tserve
@@ -65,10 +76,19 @@ GRAD_RTOL = 1e-3
 DECODE_ARCH, DECODE_SHAPE = "deepseek-7b", (8, 32)
 TRAIN_ARCH, TRAIN_SHAPE = "qwen3-8b", (8, 64)
 RESTORE_ARCH = "gemma-7b"
+MOE_ARCH = "deepseek-v2-lite-16b"
+# each MoE decode case: (arch, mesh); the fallback's 6 experts do not
+# divide the 1 x 4 mesh's "model" axis, so they are replicated and
+# expert_ffn is cut 4 ways
+MOE_CASES = {"deepseek-v2-lite-16b": (MOE_ARCH, (2, 2)),
+             "grok-1-314b": ("grok-1-314b", (2, 2)),
+             "fallback": (MOE_ARCH, (1, 4))}
+MOE_CHANGES = {"fallback": {"n_experts": 6}}
+FAN_IN_CASES = ("deepseek-v2-lite-16b", "fallback")  # MLA's leaves at their true fan-in
 RANK_TIMEOUT = 300
 
 RANK_PROGRAM = r'''
-import os, pickle, sys
+import contextlib, math, os, pickle, sys
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -81,11 +101,13 @@ from repro_torch import sharding as shd
 from repro_torch.configs import get_config, make_smoke
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import make_debug_mesh, make_production_mesh
-from repro_torch.models import model
+from repro_torch.models import model, moe
 from repro_torch.models.schema import tree_leaves
 from repro_torch.serve import serve_step
 from repro_torch.train import optimizer as optim, train_step as ts
 from repro_torch.train.checkpoint import CheckpointManager
+
+# DEFINITIONS
 
 
 def host(tree):  # every rank gathers (a collective): numpy, float32 or integer
@@ -141,31 +163,68 @@ x = torch.arange(8 * 3, dtype=torch.float32).reshape(8, 3)
 res["tuple_local"] = shd.place(x, (("data", "model"), None), mesh).to_local().numpy()
 res["tuple_reversed"] = refused(lambda: shd.place(x, (("model", "data"), None), mesh))
 
+@contextlib.contextmanager
+def recorded_picks(picks):  # the experts each moe.route call picks, in call order
+    route = moe.route
+
+    def recording(p, x, cfg):
+        out = route(p, x, cfg)
+        picks.append(out[2])
+        return out
+
+    moe.route = recording
+    try:
+        yield picks
+    finally:
+        moe.route = route
+
+
+def decode_run(cfg, mesh, params):
+    """An 8 x 32 prefill and one greedy step, unplaced and then placed on
+    mesh; returns ({"unplaced", "placed"} gathered, the layout)."""
+    rules = shd.ShardingRules.for_config(mesh, cfg, decode=True)
+    rng = np.random.default_rng(1)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, DECODE_SHAPE).astype(np.int32))
+    bspec = rules.spec(("batch", None))
+    picks0, picks1 = [], []
+    with torch.no_grad():
+        with recorded_picks(picks0):
+            last0, cache0 = model.prefill(params, cfg, {"tokens": tokens})
+            tok0 = serve_step.sample_greedy(last0)[:, None]
+            step0, cache0 = model.decode_step(params, cfg, cache0, tok0)
+        pp = model.place(params, cfg, rules)
+        with shd.use_rules(rules), recorded_picks(picks1):
+            last1, cache1 = model.prefill(pp, cfg, {"tokens": shd.place(tokens, bspec, mesh)})
+            tok1 = serve_step.sample_greedy(last1)[:, None]
+        cache1 = serve_step.place_cache(cache1, cfg, rules)
+        cspec = serve_step.cache_pspecs(cfg, rules, cache1)
+        placed = (layout(pp, model.partition_pspecs(cfg, rules), mesh)
+                  + layout(cache1, cspec, mesh))
+        with shd.use_rules(rules), recorded_picks(picks1):
+            step1, cache1 = model.decode_step(pp, cfg, cache1, shd.place(tok1, bspec, mesh))
+    return {"unplaced": host({"last": last0, "tok": tok0, "step": step0, "picks": tuple(picks0),
+                              "next": serve_step.sample_greedy(step0), "cache": cache0}),
+            "placed": host({"last": last1, "tok": tok1, "step": step1, "picks": tuple(picks1),
+                            "next": serve_step.sample_greedy(step1), "cache": cache1})}, placed
+
+
 # decode: deepseek-7b smoke, a placed prefill, the cache placed, one step
 cfg = make_smoke(get_config("DECODE_ARCH"))
-rules = shd.ShardingRules.for_config(mesh, cfg, decode=True)
-params = model.init(cfg, 0, "cpu")
-rng = np.random.default_rng(1)
-tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, DECODE_SHAPE).astype(np.int32))
-bspec = rules.spec(("batch", None))
-with torch.no_grad():
-    last0, cache0 = model.prefill(params, cfg, {"tokens": tokens})
-    tok0 = serve_step.sample_greedy(last0)[:, None]
-    step0, cache0 = model.decode_step(params, cfg, cache0, tok0)
-    pp = model.place(params, cfg, rules)
-    with shd.use_rules(rules):
-        last1, cache1 = model.prefill(pp, cfg, {"tokens": shd.place(tokens, bspec, mesh)})
-        tok1 = serve_step.sample_greedy(last1)[:, None]
-    cache1 = serve_step.place_cache(cache1, cfg, rules)
-    cspec = serve_step.cache_pspecs(cfg, rules, cache1)
-    res["decode_layout"] = (layout(pp, model.partition_pspecs(cfg, rules), mesh)
-                            + layout(cache1, cspec, mesh))
-    with shd.use_rules(rules):
-        step1, cache1 = model.decode_step(pp, cfg, cache1, shd.place(tok1, bspec, mesh))
-    res["decode"] = {"unplaced": host({"last": last0, "tok": tok0, "step": step0,
-                                       "next": serve_step.sample_greedy(step0), "cache": cache0}),
-                     "placed": host({"last": last1, "tok": tok1, "step": step1,
-                                     "next": serve_step.sample_greedy(step1), "cache": cache1})}
+res["decode"], res["decode_layout"] = decode_run(cfg, mesh, model.init(cfg, 0, "cpu"))
+
+# the MoE archs: DeepSeek-V2-Lite (MLA, a shared expert, the dense first
+# layer; 8 experts over "model") and Grok-1 (one KV head: decode cuts
+# head_dim) on 2 x 2, and DeepSeek with 6 experts on 1 x 4 (experts
+# replicated, expert_ffn cut 4 ways)
+mesh14 = shd.make_mesh((1, 4), ("data", "model"), "cpu")
+res["moe_decode"], res["moe_layout"] = {}, {}
+for case, (name, mesh_of) in MOE_CASES.items():
+    cfg = make_smoke(get_config(name)).replace(**MOE_CHANGES.get(case, {}))
+    params = model.init(cfg, 0, "cpu")
+    if case in FAN_IN_CASES:
+        at_true_fan_in(cfg, params)
+    res["moe_decode"][case], res["moe_layout"][case] = decode_run(
+        cfg, mesh if mesh_of == (2, 2) else mesh14, params)
 
 # train: qwen3-8b smoke at d_model 128, 2 layers, one step
 cfg = make_smoke(get_config("TRAIN_ARCH")).replace(d_model=128, n_layers=2)
@@ -186,6 +245,27 @@ res["donated"] = all(
 res["train"] = {"unplaced": host({"state": st0, "metrics": m0}),
                 "placed": host({"state": st1, "metrics": m1}),
                 "metrics_placed": [shd.is_placed(v) for v in m1.values()]}
+# a MoE train step: deepseek-v2-lite smoke on 2 x 2, and loss_fn's aux
+cfg = make_smoke(get_config("MOE_ARCH"))
+params = model.init(cfg, 0, "cpu")
+at_true_fan_in(cfg, params)
+state = lambda: ts.TrainState(params=params, opt=optim.init(params, ocfg))
+rng = np.random.default_rng(0)
+batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, TRAIN_SHAPE).astype(np.int32))
+         for k in ("tokens", "targets")}
+st0, m0 = ts.make_train_step(cfg, ocfg)(state(), batch)
+step, trules = ts.jit_train_step(cfg, ocfg, mesh, donate=False)
+st1, m1 = step(state(), batch)
+res["moe_train_layout"] = layout(st1, ts.state_pspecs(cfg, ocfg, trules), mesh)
+with torch.no_grad():
+    _, aux0 = model.loss_fn(params, cfg, batch, remat=False)
+    with shd.use_rules(trules):
+        _, aux1 = model.loss_fn(model.place(params, cfg, trules), cfg,
+                                shd.place(batch, ts.batch_pspecs(cfg, trules, batch), mesh),
+                                remat=False)
+res["moe_train"] = {"unplaced": host({"state": st0, "metrics": m0, "aux": aux0["aux"]}),
+                    "placed": host({"state": st1, "metrics": m1, "aux": aux1["aux"]})}
+
 g = torch.randn(16, 24, generator=torch.Generator().manual_seed(3))
 e = torch.randn(16, 24, generator=torch.Generator().manual_seed(4)).to(torch.bfloat16) * 0.01
 pe = shd.place(e, ("data", "model"), mesh)
@@ -204,7 +284,7 @@ res["latest"] = mgr.latest_step()
 if rank == 0:
     CheckpointManager(os.path.join(out, "ckpt_plain")).save(7, state)
 dist.barrier()
-mesh2 = shd.make_mesh((1, 4), ("data", "model"), "cpu")
+mesh2 = mesh14
 spec2 = ts.state_pspecs(cfg, ocfg, shd.ShardingRules.for_config(mesh2, cfg))
 got = mgr.restore(7, ts.abstract_state(cfg, ocfg), shardings=(mesh2, spec2))
 res["restore_layout"] = layout(got, spec2, mesh2)
@@ -219,6 +299,19 @@ res["restore_equal"] = [
     all(a.dtype == b.dtype and torch.equal(bits(a), bits(b))
         for a, b in zip(tree_leaves(restored), tree_leaves(state)))
     for restored in (got, mgr.restore(8, ts.abstract_state(cfg, ocfg), shardings=(mesh2, spec2)))]
+
+# the MoE state: saved from 2 x 2 (experts cut over "model" 2), restored onto
+# 1 x 4 (experts cut 4 ways)
+cfg = make_smoke(get_config("MOE_ARCH"))
+state = ts.init_state(cfg, ocfg, 0, "cpu")
+mgr = CheckpointManager(os.path.join(out, "ckpt_moe"))
+mgr.save(3, shd.place(state, ts.state_pspecs(cfg, ocfg, shd.ShardingRules.for_config(mesh, cfg)),
+                      mesh))
+spec2 = ts.state_pspecs(cfg, ocfg, shd.ShardingRules.for_config(mesh2, cfg))
+got = mgr.restore(3, ts.abstract_state(cfg, ocfg), shardings=(mesh2, spec2))
+res["moe_restore_layout"] = layout(got, spec2, mesh2)
+res["moe_restore_equal"] = all(a.dtype == b.dtype and torch.equal(bits(a), bits(b))
+                               for a, b in zip(tree_leaves(got), tree_leaves(state)))
 
 with open(os.path.join(out, f"rank{rank}.pkl"), "wb") as f:
     pickle.dump(res, f)
@@ -241,16 +334,43 @@ def leaves(tree) -> list:
     return [] if tree is None else [tree]
 
 
+def at_true_fan_in(cfg, params):
+    """Scale in place each leaf that ``init`` draws at 1/sqrt(fan_in) to the
+    fan-in of its product, the leaf's first axis that is neither ``layers``
+    nor ``experts`` (``chip_smoke.at_true_fan_in``).  A stacked leaf's
+    first axis is the layer axis, so at ``init``'s scale MLA's queries and
+    latent keys come out several times too large: with no q-norm its
+    scores are nearly one-hot, and each layer magnifies a last-bit
+    difference of its input (phase 18 brings DeepSeek to this scale on
+    the card for the same reason)."""
+    from repro_torch.models import model as _model
+    from repro_torch.models import schema as _schema
+
+    for path, p in _schema.tree_items(_model.schema(cfg)):
+        if p.init != "fan_in" or p.scale is not None:
+            continue
+        fan_in = next(n for n, a in zip(p.shape, p.axes) if a not in ("layers", "experts"))
+        leaf = params
+        for key in path:
+            leaf = leaf[key]
+        leaf.mul_(math.sqrt(p.shape[0] / fan_in))
+    return params
+
+
 def program() -> str:
-    return (RANK_PROGRAM.replace('"DECODE_ARCH"', repr(DECODE_ARCH))
+    defs = "\n".join([f"MOE_CASES = {MOE_CASES!r}", f"MOE_CHANGES = {MOE_CHANGES!r}",
+                      f"FAN_IN_CASES = {FAN_IN_CASES!r}", inspect.getsource(at_true_fan_in)])
+    return (RANK_PROGRAM.replace("# DEFINITIONS", defs)
+            .replace('"MOE_ARCH"', repr(MOE_ARCH))
+            .replace('"DECODE_ARCH"', repr(DECODE_ARCH))
             .replace("DECODE_SHAPE", repr(DECODE_SHAPE))
             .replace('"TRAIN_ARCH"', repr(TRAIN_ARCH)).replace("TRAIN_SHAPE", repr(TRAIN_SHAPE))
             .replace('"RESTORE_ARCH"', repr(RESTORE_ARCH)))
 
 
-def jax_decode(params_np):
+def jax_decode(params_np, name=DECODE_ARCH):
     """The JAX package's prefill and greedy decode step on the port's weights."""
-    cfg = jconfigs.make_smoke(jconfigs.get_config(DECODE_ARCH))
+    cfg = jconfigs.make_smoke(jconfigs.get_config(name))
     params = jax.tree.map(jnp.asarray, params_np)
     rng = np.random.default_rng(1)
     tokens = jnp.asarray(rng.integers(0, cfg.vocab_size, DECODE_SHAPE), jnp.int32)
@@ -260,9 +380,11 @@ def jax_decode(params_np):
     return {"last": np.asarray(last), "tok": np.asarray(tok), "step": np.asarray(step)}
 
 
-def jax_train(params_np):
+def jax_train(params_np, cfg=None):
     """The JAX package's single-device step from the port's initial state."""
-    cfg = jconfigs.make_smoke(jconfigs.get_config(TRAIN_ARCH)).replace(d_model=128, n_layers=2)
+    if cfg is None:
+        cfg = jconfigs.make_smoke(jconfigs.get_config(TRAIN_ARCH)).replace(d_model=128,
+                                                                           n_layers=2)
     ocfg = joptim.OptConfig()
     params = jax.tree.map(jnp.asarray, params_np)
     rng = np.random.default_rng(0)
@@ -270,7 +392,11 @@ def jax_train(params_np):
              for k in ("tokens", "targets")}
     _, m = jax.jit(jts.make_train_step(cfg, ocfg))(
         jts.TrainState(params=params, opt=joptim.init(params, ocfg)), batch)
-    return {k: np.asarray(v) for k, v in m.items()}
+    out = {k: np.asarray(v) for k, v in m.items()}
+    if cfg.is_moe:
+        _, parts = jax.jit(lambda p, b: jmodel.loss_fn(p, cfg, b, remat=False))(params, batch)
+        out["aux"] = np.asarray(parts["aux"])
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -289,8 +415,13 @@ def ranks(tmp_path_factory):
         dcfg = tconfigs.make_smoke(tconfigs.get_config(DECODE_ARCH))
         tcfg = tconfigs.make_smoke(tconfigs.get_config(TRAIN_ARCH)).replace(d_model=128,
                                                                             n_layers=2)
+        mcfg = tconfigs.make_smoke(tconfigs.get_config(MOE_ARCH))
+        moe_np = tmodel.to_numpy(at_true_fan_in(mcfg, tmodel.init(mcfg, 0, "cpu")))
         want = {"decode": jax_decode(tmodel.to_numpy(tmodel.init(dcfg, 0, "cpu"))),
-                "train": jax_train(tmodel.to_numpy(tmodel.init(tcfg, 0, "cpu")))}
+                "train": jax_train(tmodel.to_numpy(tmodel.init(tcfg, 0, "cpu"))),
+                "moe_decode": jax_decode(moe_np, MOE_ARCH),
+                "moe_train": jax_train(moe_np,
+                                       jconfigs.make_smoke(jconfigs.get_config(MOE_ARCH)))}
         rcs = [p.wait(timeout=RANK_TIMEOUT) for p in procs]
     finally:
         for p in procs:
@@ -317,23 +448,28 @@ def test_decode_on_mesh_matches_unplaced(ranks):
     """Each rank's gathered logits, greedy tokens and cache against the
     unplaced prefill and step (the JAX mesh test's own criterion)."""
     for res in ranks["ranks"]:
-        want, got = res["decode"]["unplaced"], res["decode"]["placed"]
-        assert rel_err(got["last"], want["last"]) < MESH_RTOL
-        assert rel_err(got["step"], want["step"]) < MESH_RTOL
-        for key in ("tok", "next"):
-            np.testing.assert_array_equal(got[key], want[key])
+        decode_matches(res["decode"]["placed"], res["decode"]["unplaced"])
 
-        def cache(g, w, path=()):
-            for k in w:
-                if isinstance(w[k], dict):
-                    cache(g[k], w[k], path + (k,))
-                elif k in ("kpos", "pos"):
-                    np.testing.assert_array_equal(g[k], w[k], err_msg="/".join(path + (k,)))
-                else:
-                    assert rel_err(g[k], w[k]) < MESH_RTOL, path + (k,)
 
-        cache(got["cache"], want["cache"])
-        assert int(got["cache"]["pos"]) == DECODE_SHAPE[1] + 1
+def decode_matches(got, want) -> None:
+    """Logits and the cache's K/V (or latents) within MESH_RTOL; greedy
+    tokens, ``kpos`` and ``pos`` exact."""
+    assert rel_err(got["last"], want["last"]) < MESH_RTOL
+    assert rel_err(got["step"], want["step"]) < MESH_RTOL
+    for key in ("tok", "next"):
+        np.testing.assert_array_equal(got[key], want[key])
+
+    def cache(g, w, path=()):
+        for k in w:
+            if isinstance(w[k], dict):
+                cache(g[k], w[k], path + (k,))
+            elif k in ("kpos", "pos"):
+                np.testing.assert_array_equal(g[k], w[k], err_msg="/".join(path + (k,)))
+            else:
+                assert rel_err(g[k], w[k]) < MESH_RTOL, path + (k,)
+
+    cache(got["cache"], want["cache"])
+    assert int(got["cache"]["pos"]) == DECODE_SHAPE[1] + 1
 
 
 def test_decode_matches_jax_single_device(ranks):
@@ -348,19 +484,77 @@ def test_decode_matches_jax_single_device(ranks):
 
 
 def test_decode_placements_follow_the_specs(ranks):
-    """Every param and cache leaf of the decode is a DTensor placed as its
-    spec says, its local shard the JAX shard's shape (``shards``)."""
-    mesh = tshd.make_mesh((2, 2), ("data", "model"), "cpu")
+    """Every param and cache leaf of each decode (the dense one and the MoE
+    cases, MLA's latents among them) is a DTensor placed as its spec says,
+    its local shard the JAX shard's shape (``shards``)."""
+    meshes = {(2, 2): tshd.make_mesh((2, 2), ("data", "model"), "cpu"),
+              (1, 4): tshd.make_mesh((1, 4), ("data", "model"), "cpu")}
     for res in ranks["ranks"]:
-        assert res["decode_layout"]
-        for path, local, shape, spec, as_spec in res["decode_layout"]:
-            assert as_spec, path
-            cuts = tshd.shards(mesh, spec) + (1,) * (len(shape) - len(spec))
-            assert local == tuple(n // c for n, c in zip(shape, cuts)), (path, spec)
+        cases = [(res["decode_layout"], (2, 2))] + [
+            (res["moe_layout"][case], sizes) for case, (_, sizes) in MOE_CASES.items()]
+        for rows, sizes in cases:
+            assert rows
+            for path, local, shape, spec, as_spec in rows:
+                assert as_spec, path
+                cuts = tshd.shards(meshes[sizes], spec) + (1,) * (len(shape) - len(spec))
+                assert local == tuple(n // c for n, c in zip(shape, cuts)), (path, spec)
     # the deepseek cache's kv_heads dim is cut over "model": the in-place
     # writes went to sharded leaves
     kv = [row for row in ranks["ranks"][0]["decode_layout"] if row[0].endswith("attn/k")]
     assert kv and all("model" in row[3] for row in kv)
+
+
+# ---------------------------------------------------------------------------
+# the MoE and MLA decoders
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("case", list(MOE_CASES))
+def test_moe_decode_on_mesh_matches_unplaced(ranks, case):
+    """A MoE arch's placed prefill and step against the unplaced port: the
+    decode criteria, and each MoE layer's routed experts (every
+    ``moe.route`` call, prefill then step) equal."""
+    cfg = tconfigs.make_smoke(tconfigs.get_config(MOE_CASES[case][0]))
+    moe_layers = cfg.n_layers - cfg.first_dense_layers
+    for res in ranks["ranks"]:
+        want, got = res["moe_decode"][case]["unplaced"], res["moe_decode"][case]["placed"]
+        decode_matches(got, want)
+        assert len(got["picks"]) == len(want["picks"]) == 2 * moe_layers
+        for g, w in zip(got["picks"], want["picks"]):
+            np.testing.assert_array_equal(g, w)
+
+
+def test_moe_decode_matches_jax_single_device(ranks):
+    """DeepSeek-V2-Lite, unplaced and on the 2 x 2 mesh, against the JAX
+    package's prefill and step on one device, on the same weights."""
+    want = ranks["jax"]["moe_decode"]
+    for side in ("unplaced", "placed"):
+        got = ranks["ranks"][0]["moe_decode"][MOE_ARCH][side]
+        np.testing.assert_array_equal(got["tok"], want["tok"])
+        assert rel_err(got["last"], want["last"]) < RTOL, side
+        assert rel_err(got["step"], want["step"]) < RTOL, side
+
+
+@pytest.mark.parametrize("case", list(MOE_CASES))
+def test_expert_leaves_placed_by_the_rules(ranks, case):
+    """Where the experts divide "model" (8 over 2) the stacked expert leaves
+    cut their experts dim over it; where they do not (6 over 4) the
+    experts are replicated and ``expert_ffn`` is cut 4 ways."""
+    cfg = tconfigs.make_smoke(tconfigs.get_config(MOE_CASES[case][0])).replace(
+        **MOE_CHANGES.get(case, {}))
+    model_size = MOE_CASES[case][1][1]
+    ffn_dim = {"wi": 3, "wg": 3, "wo": 2}  # (layers, experts, ...) expert_ffn's dim
+    for res in ranks["ranks"]:
+        rows = {row[0]: row for row in res["moe_layout"][case]}
+        for w, f in ffn_dim.items():
+            _, local, shape, spec, as_spec = rows[f"layers/b0/moe/{w}"]
+            assert as_spec and shape[1] == cfg.n_experts
+            if cfg.n_experts % model_size == 0:
+                assert spec[1] == "model" and spec[f] is None
+                assert local[1] == cfg.n_experts // model_size
+            else:
+                assert spec[1] is None and spec[f] == "model"
+                assert local[1] == cfg.n_experts and local[f] == shape[f] // model_size
 
 
 # ---------------------------------------------------------------------------
@@ -384,17 +578,22 @@ def test_train_step_on_mesh_matches_unplaced(ranks):
     unplaced step from the same state: loss, the metrics returned whole,
     the params by the step rule, the moments, ``step`` and ``lr``."""
     for res in ranks["ranks"]:
-        want, got = res["train"]["unplaced"], res["train"]["placed"]
         assert not any(res["train"]["metrics_placed"])
-        wm, gm = want["metrics"], got["metrics"]
-        assert rel_err(gm["loss"], wm["loss"]) < MESH_RTOL
-        assert rel_err(gm["grad_norm"], wm["grad_norm"]) < GRAD_RTOL
-        np.testing.assert_array_equal(gm["lr"], wm["lr"])
-        (wp, (wmu, wnu, wstep, _)), (gp, (gmu, gnu, gstep, _)) = want["state"], got["state"]
-        np.testing.assert_array_equal(gstep, wstep)
-        for g, w in zip(leaves(gmu) + leaves(gnu), leaves(wmu) + leaves(wnu)):
-            assert rel_err(g, w) < GRAD_RTOL
-        step_params_close(leaves(gp), leaves(wp), leaves(wmu), float(wm["lr"]))
+        step_matches(res["train"]["placed"], res["train"]["unplaced"])
+
+
+def step_matches(got, want) -> None:
+    """The loss within MESH_RTOL, ``grad_norm`` and the moments within
+    GRAD_RTOL, the params by the step rule; ``step`` and ``lr`` exact."""
+    wm, gm = want["metrics"], got["metrics"]
+    assert rel_err(gm["loss"], wm["loss"]) < MESH_RTOL
+    assert rel_err(gm["grad_norm"], wm["grad_norm"]) < GRAD_RTOL
+    np.testing.assert_array_equal(gm["lr"], wm["lr"])
+    (wp, (wmu, wnu, wstep, _)), (gp, (gmu, gnu, gstep, _)) = want["state"], got["state"]
+    np.testing.assert_array_equal(gstep, wstep)
+    for g, w in zip(leaves(gmu) + leaves(gnu), leaves(wmu) + leaves(wnu)):
+        assert rel_err(g, w) < GRAD_RTOL
+    step_params_close(leaves(gp), leaves(wp), leaves(wmu), float(wm["lr"]))
 
 
 def test_train_step_matches_jax_single_device(ranks):
@@ -417,6 +616,34 @@ def test_train_state_placed_by_state_pspecs(ranks):
             assert as_spec, path
             cuts = tshd.shards(mesh, spec) + (1,) * (len(shape) - len(spec))
             assert local == tuple(n // c for n, c in zip(shape, cuts)), (path, spec)
+
+
+def test_moe_train_step_on_mesh_matches_unplaced(ranks):
+    """DeepSeek-V2-Lite's step placed by ``jit_train_step`` on 2 x 2 (its
+    experts cut over "model") against the unplaced step: the step's
+    criteria, the aux loss of ``loss_fn`` (the whole batch's: its means
+    reduce over every rank's rows) within MESH_RTOL, and the new state
+    placed by ``state_pspecs``."""
+    mesh = tshd.make_mesh((2, 2), ("data", "model"), "cpu")
+    for res in ranks["ranks"]:
+        want, got = res["moe_train"]["unplaced"], res["moe_train"]["placed"]
+        step_matches(got, want)
+        assert want["aux"] > 0 and rel_err(got["aux"], want["aux"]) < MESH_RTOL
+        for path, local, shape, spec, as_spec in res["moe_train_layout"]:
+            assert as_spec, path
+            cuts = tshd.shards(mesh, spec) + (1,) * (len(shape) - len(spec))
+            assert local == tuple(n // c for n, c in zip(shape, cuts)), (path, spec)
+
+
+def test_moe_train_step_matches_jax_single_device(ranks):
+    """The same step, and ``loss_fn``'s aux, unplaced and placed, against the
+    JAX package's single-device step on the same weights."""
+    want = ranks["jax"]["moe_train"]
+    for side in ("unplaced", "placed"):
+        got = ranks["ranks"][0]["moe_train"][side]
+        assert rel_err(got["metrics"]["loss"], want["loss"]) < RTOL, side
+        assert rel_err(got["aux"], want["aux"]) < RTOL, side
+        assert rel_err(got["metrics"]["grad_norm"], want["grad_norm"]) < GRAD_RTOL, side
 
 
 def test_compression_scale_is_the_whole_leafs(ranks):
@@ -447,6 +674,21 @@ def test_elastic_restore_bit_for_bit(ranks):
             assert local == tuple(n // c for n, c in zip(shape, cuts)), (path, spec)
 
 
+def test_moe_elastic_restore_bit_for_bit(ranks):
+    """A DeepSeek-V2-Lite state saved from 2 x 2 (experts cut over "model"
+    2) restores onto 1 x 4 (experts cut 4 ways) bit for bit, each leaf
+    placed by its 1 x 4 spec."""
+    mesh2 = tshd.make_mesh((1, 4), ("data", "model"), "cpu")
+    for res in ranks["ranks"]:
+        assert res["moe_restore_equal"]
+        rows = {row[0]: row for row in res["moe_restore_layout"]}
+        assert rows["params/layers/b0/moe/wi"][1][1] == 2  # 8 experts over 4
+        for path, local, shape, spec, as_spec in res["moe_restore_layout"]:
+            assert as_spec, path
+            cuts = tshd.shards(mesh2, spec) + (1,) * (len(shape) - len(spec))
+            assert local == tuple(n // c for n, c in zip(shape, cuts)), (path, spec)
+
+
 def test_placed_save_writes_the_plain_bytes(ranks):
     """Rank 0 writes the gathered state: the same manifest (shapes, dtypes,
     digests) as a plain save of the state, and the same arrays."""
@@ -465,7 +707,8 @@ def test_placed_save_writes_the_plain_bytes(ranks):
 
 
 def test_placements_against_spec_every_leaf():
-    """Every param, cache and state leaf of the three configs: one
+    """Every param, cache and state leaf of the five configs (the MoE ones'
+    expert leaves and MLA latents among them): one
     placement a mesh axis, ``Shard(d)`` where the spec names that axis at
     dim ``d``, else ``Replicate()``; on the 2 x 2 mesh and the multi-pod
     mesh, whose ("pod", "data") tuples cut one dim by two axes."""
@@ -484,7 +727,7 @@ def test_placements_against_spec_every_leaf():
     tuples = 0
     for mesh in (tshd.make_mesh((2, 2), ("data", "model"), "cpu"),
                  make_production_mesh(multi_pod=True)):
-        for name in (DECODE_ARCH, TRAIN_ARCH, RESTORE_ARCH):
+        for name in (DECODE_ARCH, TRAIN_ARCH, RESTORE_ARCH, MOE_ARCH, "grok-1-314b"):
             cfg = tconfigs.make_smoke(tconfigs.get_config(name))
             for decode in (False, True):
                 rules = tshd.ShardingRules.for_config(mesh, cfg, decode=decode)
@@ -541,7 +784,7 @@ def test_no_device_mesh_no_change(ranks):
 
 
 # ---------------------------------------------------------------------------
-# the reference's constrain sites on the dense path
+# the reference's constrain sites
 # ---------------------------------------------------------------------------
 
 
@@ -564,14 +807,28 @@ def _constrain_calls(modules, run) -> list:
     return sorted(calls, key=repr)
 
 
-@pytest.mark.parametrize("entry", ["forward", "loss_fn", "decode_step"])
-def test_constrain_sites_match_the_reference(entry):
-    """The dense decoder's constrain sites, counted with their axes: a one-layer
-    model (the reference's scan traces its unit once) runs through the
-    same calls in both packages."""
-    name = DECODE_ARCH
-    jcfg = jconfigs.make_smoke(jconfigs.get_config(name)).replace(n_layers=1)
-    tcfg = tconfigs.make_smoke(tconfigs.get_config(name)).replace(n_layers=1)
+# the dense case keeps its ids; the MoE cases: DeepSeek-V2-Lite at 2 layers
+# (the dense first layer and one MoE unit), Grok-1 at 1
+SITE_CASES = [pytest.param(DECODE_ARCH, 1, entry, id=entry)
+              for entry in ("forward", "loss_fn", "decode_step")] + [
+    pytest.param(name, n, entry, id=f"{name}-{entry}")
+    for name, n in ((MOE_ARCH, 2), ("grok-1-314b", 1))
+    for entry in ("forward", "loss_fn", "decode_step")]
+SITE_COUNTS = {
+    DECODE_ARCH: {"forward": 9, "loss_fn": 8, "decode_step": 7},
+    MOE_ARCH: {"forward": 12, "loss_fn": 11, "decode_step": 10},
+    "grok-1-314b": {"forward": 13, "loss_fn": 12, "decode_step": 11},
+}
+
+
+@pytest.mark.parametrize("name, n_layers, entry", SITE_CASES)
+def test_constrain_sites_match_the_reference(name, n_layers, entry):
+    """The decoder's constrain sites, counted with their axes: a model of
+    ``n_layers`` layers (the reference's scan traces its unit once) runs
+    through the same calls in both packages, ``moe_ffn``'s five sites
+    included and no site in the shared experts."""
+    jcfg = jconfigs.make_smoke(jconfigs.get_config(name)).replace(n_layers=n_layers)
+    tcfg = tconfigs.make_smoke(tconfigs.get_config(name)).replace(n_layers=n_layers)
     params = tmodel.init(tcfg, 0, "cpu")
     jparams = jax.tree.map(jnp.asarray, tmodel.to_numpy(params))
     tokens = np.random.default_rng(2).integers(0, tcfg.vocab_size, (2, 8)).astype(np.int32)
@@ -585,7 +842,14 @@ def test_constrain_sites_match_the_reference(entry):
     else:
         trun = lambda: getattr(tmodel, entry)(params, tcfg, tb)
         jrun = lambda: getattr(jmodel, entry)(jparams, jcfg, jb)
-    got = _constrain_calls((tattention, tlayers, ttransformer, tmodel), trun)
-    want = _constrain_calls((jattention, jlayers, jtransformer, jmodel), jrun)
+    got = _constrain_calls((tattention, tlayers, tmoe, ttransformer, tmodel), trun)
+    # the reference's sites are calls at trace time: a jaxpr records them
+    # all, without running the model op by op
+    want = _constrain_calls((jattention, jlayers, jmoe, jtransformer, jmodel),
+                            lambda: jax.make_jaxpr(jrun)())
     assert got == want
-    assert len(got) == {"forward": 9, "loss_fn": 8, "decode_step": 7}[entry]
+    assert len(got) == SITE_COUNTS[name][entry]
+    if tcfg.is_moe:
+        for axes in (("batch", None, "embed"), ("batch", "experts", None, "embed"),
+                     ("batch", "experts", None, "expert_ffn")):
+            assert axes in got
