@@ -351,7 +351,17 @@ Phases, each timed, any failure fatal (a traceback and exit code 1):
             on the mesh, the loss within 1e-3, ``lr`` and ``step`` equal;
             the placed params saved and restored onto the mesh bit for
             bit; ms a decode step at B = 16 and a train step, placed and
-            unplaced.  The group is torn down at the end.
+            unplaced.  Then deepseek-v2-lite-16b the same way (its decode
+            at full depth, its step at 2 layers, each (layer, token)
+            routing decision equal), its unplaced decode and step each run
+            twice with the default kernels and required equal bit for bit
+            (the MoE combine and the dispatch's gradient sum in a fixed
+            order); mamba2-130m, recurrentgemma-9b and whisper-large-v3
+            (its frames placed with the prompts) decoded at full width and
+            depth at their true fan-in, placed against unplaced; and
+            phase 20's mamba2-130m step at full depth, 8 x 512, placed
+            against unplaced, its params saved and restored.  The group
+            is torn down at the end.
 24. report  one JSON line of per-kernel results (nine rows), then the
             card's name and power limit, then the result line.
 
@@ -606,6 +616,9 @@ MESH_LOSS_RTOL = 1e-3  # the placed train step's loss against the unplaced step'
 MESH_REFUSED = (1, 2)  # a mesh of two devices on one card
 MESH_MOE_ARCH = "deepseek-v2-lite-16b"  # MoE + MLA: full width and depth for the decode
 MESH_MOE_TRAIN_LAYERS = 2  # the dense first layer and one MoE unit (1.08 B params)
+MESH_STATE_ARCHS = SERVE_RECURRENT_SMOKE_ARCHS  # phase 19's archs: full width and depth, decode
+MESH_FAN_IN_ARCHS = (MESH_MOE_ARCH,) + MESH_STATE_ARCHS  # decoded at their true fan-in
+MESH_COMBINE_ITERS = 20  # timed calls of each MoE combine
 
 
 def log(*args) -> None:
@@ -4842,19 +4855,63 @@ def decode_ms(params, cfg, cache, tok, rules=None) -> float:
 
 
 @contextlib.contextmanager
-def deterministic():
-    """CUDA's deterministic kernels while the block runs: ``scatter_add_``
-    (the MoE combine) sums in a fixed order in place of its atomics.  Warn
-    only, so an op with no deterministic kernel runs as it is."""
-    was = (torch.are_deterministic_algorithms_enabled(),
-           torch.is_deterministic_algorithms_warn_only_enabled())
-    torch.use_deterministic_algorithms(True, warn_only=True)
+def gather_backward():
+    """The MoE dispatch's row gather with ``gather``'s own backward while the
+    block runs: each token's k gradient rows added by ``scatter_add``'s
+    atomics in no fixed order, as before ``moe._Take`` summed them by
+    ``moe._fold``.  For reading what the fixed order repairs."""
+    take = llm_moe._Take.apply
+    llm_moe._Take.apply = lambda x, st, pairs: llm_moe._take(x, st)
     try:
-        with warnings.catch_warnings():
-            warnings.simplefilter("ignore")
-            yield
+        yield
     finally:
-        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+        llm_moe._Take.apply = take
+
+
+def scatter_add_combine(ye, meta, S: int):
+    """The MoE combine as one ``scatter_add_``: each pair's weighted output
+    added onto its token by atomics in no fixed order (the combine before
+    ``moe._combine`` summed in expert order)."""
+    slot, st, sw, keep = meta
+    B, E, C, d = ye.shape
+    yf = ye.reshape(B, E * C, d)
+    idx = torch.clamp(slot, max=E * C - 1)[..., None].expand(-1, -1, d)
+    contrib = torch.where(keep[..., None], yf.gather(1, idx) * sw[..., None].to(yf.dtype), 0)
+    return ye.new_zeros((B, S, d)).scatter_add_(1, st[..., None].expand(-1, -1, d), contrib)
+
+
+def combine_cost(device, name=MESH_MOE_ARCH) -> dict:
+    """ms of ``name``'s MoE combine in bf16 (``MESH_COMBINE_ITERS`` calls by
+    CUDA events) at its decode's 16 x 64 prefill and at phase 20's
+    microbatch of ``TRAIN_MB_SHAPE``, each at the config's capacity: the
+    fixed-order ``moe._combine`` against ``scatter_add_combine``, on the
+    same seeded routing and expert outputs.  Their results must agree
+    within k bf16 roundings, k 2^-8 of the largest (each adds a token's k
+    contributions, rounding after each add, in another order)."""
+    cfg = get_config(name)
+    E, k, d = cfg.n_experts, cfg.top_k, cfg.d_model
+    rng = np.random.default_rng(SEED + 95)
+    out = {}
+    for label, (B, S) in (("prefill", MESH_DECODE_SHAPE),
+                          ("train_microbatch", (TRAIN_MB_SHAPE[0] // TRAIN_MICROBATCHES,
+                                                TRAIN_MB_SHAPE[1]))):
+        C = llm_moe.expert_capacity(cfg, S)
+        top_idx = torch.from_numpy(np.argsort(rng.random((B, S, E)), axis=-1)[..., :k].copy())
+        top_w = torch.from_numpy(rng.random((B, S, k)).astype(np.float32))
+        x = torch.zeros((B, S, 1), dtype=torch.bfloat16, device=device)
+        _, meta = llm_moe._dispatch(x, top_idx.to(device), top_w.to(device), E, C)
+        ye = torch.from_numpy(rng.normal(size=(B, E, C, d)).astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+        fixed, atomic = llm_moe._combine(ye, meta, S), scatter_add_combine(ye, meta, S)
+        err = rel_err(fixed.float(), atomic.float())
+        if not err <= k * 2.0**-8:
+            raise AssertionError(f"the fixed-order combine is off the scatter_add one by {err}")
+        fixed_ms = cuda_ms(lambda: llm_moe._combine(ye, meta, S), MESH_COMBINE_ITERS)
+        atomic_ms = cuda_ms(lambda: scatter_add_combine(ye, meta, S), MESH_COMBINE_ITERS)
+        out[label] = {"shape": [B, S, E, C, d], "fixed_ms": fixed_ms, "scatter_add_ms": atomic_ms,
+                      "fixed_over_scatter_add": fixed_ms / atomic_ms, "rel_err": err}
+    log(f"  {name} combine ({card_line()}): {json.dumps(out)}")
+    return out
 
 
 def picks_differing(got, want) -> int:
@@ -4864,42 +4921,46 @@ def picks_differing(got, want) -> int:
 
 def mesh_decode(mesh, device, name=MESH_ARCH) -> dict:
     """``name`` at full width and depth in bf16 (the seeded weights of phase
-    17, or of phase 18 at their true fan-in for a MoE arch): a 16 x 64
-    prefill and a greedy step, unplaced and then on params placed by
-    ``model.place`` and a cache by ``place_cache``, both under CUDA's
-    deterministic kernels; the placed logits within ``MESH_LOGIT_BOUND``
-    of the unplaced (whether equal reported), the greedy tokens and the
-    cache's ``kpos`` and ``pos`` equal, and for a MoE arch every (layer,
-    token) routing decision equal (by ``recorded_picks``).  Reported
-    beside them: the unplaced prefill and step twice with the default
-    kernels, how far apart (the MoE combine's ``scatter_add_`` sums by
-    atomics in no fixed order).  Then ms a decode step at B = 16, each
-    side, with the default kernels."""
+    17; of phase 18 or 19 at their true fan-in for the archs of
+    ``MESH_FAN_IN_ARCHS``): a 16 x 64 prefill (with its frames, drawn after
+    the prompts, for an encoder-decoder) and a greedy step, twice unplaced
+    and then on params placed by ``model.place`` and a cache by
+    ``place_cache``, all with the default kernels.  The two unplaced runs
+    against each other (``unplaced_repeat``): for a MoE arch they must be
+    equal bit for bit and route alike, or the phase fails.  The placed
+    logits within ``MESH_LOGIT_BOUND`` of the unplaced (whether equal
+    reported), the greedy tokens and the cache's ``kpos`` and ``pos``
+    equal, and for a MoE arch every (layer, token) routing decision equal
+    (by ``recorded_picks``).  Then ms a decode step at B = 16, each side."""
     cfg = get_config(name)
     params, made = full_width_params(cfg, device)
-    if cfg.is_moe:
+    if name in MESH_FAN_IN_ARCHS:
         at_true_fan_in(params, cfg)
     rules = llm_sharding.ShardingRules.for_config(mesh, cfg, decode=True)
-    bspec = rules.spec(("batch", None))
     B, S = MESH_DECODE_SHAPE
-    tokens = np.random.default_rng(SEED + 90).integers(0, cfg.vocab_size, (B, S))
-    batch = {"tokens": torch.from_numpy(tokens.astype(np.int32)).to(device)}
+    rng = np.random.default_rng(SEED + 90)
+    batch = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)).to(device)}
+    if cfg.is_encoder_decoder:
+        batch["frames"] = torch.from_numpy(rng.normal(size=(B, cfg.encoder_seq, cfg.d_model))).to(
+            device=device, dtype=getattr(torch, cfg.act_dtype))
+    bspec = llm_train.batch_pspecs(cfg, rules, batch)
     routed = recorded_picks if cfg.is_moe else (lambda cfg, passes: contextlib.nullcontext([]))
     with torch.no_grad():
-        runs = []
-        for _ in range(2):
-            with routed(cfg, 2) as picks:
-                runs.append((greedy(params, cfg, batch, 1)[0], picks))
-        repeat = {"rel_err": max(rel_err(g, w) for g, w in zip(runs[1][0], runs[0][0])),
-                  "picks_differ": picks_differing(runs[1][1], runs[0][1])}
-        del runs
-        with deterministic():
-            with routed(cfg, 2) as want_picks:
-                want, want_toks, want_cache = greedy(params, cfg, batch, 1)
-            placed = llm.place(params, cfg, rules)
-            with routed(cfg, 2) as got_picks:
-                got, got_toks, got_cache = greedy(
-                    placed, cfg, llm_sharding.place(batch, {"tokens": bspec}, mesh), 1, rules)
+        with routed(cfg, 2) as want_picks:
+            want, want_toks, want_cache = greedy(params, cfg, batch, 1)
+        with routed(cfg, 2) as again_picks:
+            again = greedy(params, cfg, batch, 1)[0]
+        repeat = {"rel_err": max(rel_err(g, w) for g, w in zip(again, want)),
+                  "picks_differ": picks_differing(again_picks, want_picks)}
+        del again, again_picks
+        if cfg.is_moe and (repeat["rel_err"] != 0.0 or repeat["picks_differ"]):
+            raise AssertionError(f"{name}: the unplaced decode differs from itself run to run: "
+                                 f"{repeat}")
+        placed = llm.place(params, cfg, rules)
+        with routed(cfg, 2) as got_picks:
+            got, got_toks, got_cache = greedy(
+                placed, cfg, llm_sharding.place(batch, bspec, mesh), 1, rules)
         errs = [rel_err(g, w) for g, w in zip(got, want)]
         picks_differ = picks_differing(got_picks, want_picks)
         if not max(errs) <= MESH_LOGIT_BOUND:
@@ -4915,7 +4976,7 @@ def mesh_decode(mesh, device, name=MESH_ARCH) -> dict:
                 raise AssertionError(f"placed cache {'/'.join(path)} differs")
         plain_ms = decode_ms(params, cfg, want_cache, want_toks[:, -1:])
         placed_ms = decode_ms(placed, cfg, got_cache,
-                              llm_sharding.place(got_toks[:, -1:], bspec, mesh), rules)
+                              llm_sharding.place(got_toks[:, -1:], bspec["tokens"], mesh), rules)
     out = {"params": made["params"], "prefill_rel_err": errs[0], "decode_rel_err": errs[1],
            "logits_equal": all(torch.equal(g, w) for g, w in zip(got, want)),
            "unplaced_repeat": repeat,
@@ -4928,17 +4989,23 @@ def mesh_decode(mesh, device, name=MESH_ARCH) -> dict:
     return out
 
 
-def mesh_train(mesh, device, directory, name=TRAIN_MB_ARCH, layers=TRAIN_MB_LAYERS) -> dict:
-    """Phase 20's microbatched, compressed step (``name`` at ``layers``
-    layers, ``TRAIN_MB_SHAPE``), unplaced by ``make_train_step`` and
-    placed by ``jit_train_step`` on ``mesh``, from one seeded state: the
-    placed loss within ``MESH_LOSS_RTOL``, ``step`` and ``lr`` equal, ms a
-    step (the second step of each, by CUDA events); then, given a
-    ``directory``, the placed params saved and restored onto the mesh, bit
-    for bit and placed by their specs."""
-    cfg = get_config(name).replace(n_layers=layers)
-    ocfg = llm_optim.OptConfig(compress_grads=True)
-    B, S = TRAIN_MB_SHAPE
+def mesh_train(mesh, device, directory, name=TRAIN_MB_ARCH, layers=TRAIN_MB_LAYERS,
+               shape=TRAIN_MB_SHAPE, microbatches=TRAIN_MICROBATCHES, compress=True,
+               repeat=False) -> dict:
+    """A step of ``name`` (``layers`` layers, full depth with ``None``) on a
+    ``shape`` batch, by default phase 20's microbatched, compressed step,
+    unplaced by ``make_train_step`` and placed by ``jit_train_step`` on
+    ``mesh``, from one seeded state: the placed loss within
+    ``MESH_LOSS_RTOL``, ``step`` and ``lr`` equal, ms a step (the second
+    step of each, by CUDA events).  With ``repeat`` the unplaced two steps
+    run twice from the state, with the default kernels: their first losses
+    and gradient norms and the params after them must be equal bit for
+    bit; then twice with ``gather_backward``, how far apart reported.
+    Then, given a ``directory``, the placed params saved and restored onto
+    the mesh, bit for bit and placed by their specs."""
+    cfg = get_config(name) if layers is None else get_config(name).replace(n_layers=layers)
+    ocfg = llm_optim.OptConfig(compress_grads=compress)
+    B, S = shape
     batch = train_batch(cfg, B, S, SEED + 80, device, masked=False)
 
     def two_steps(step, state):
@@ -4951,12 +5018,39 @@ def mesh_train(mesh, device, directory, name=TRAIN_MB_ARCH, layers=TRAIN_MB_LAYE
         return state, first, start.elapsed_time(end)
 
     # each state goes straight into two_steps: two states live at most, as in phase 20
-    _, want, plain_ms = two_steps(
-        llm_train.make_train_step(cfg, ocfg, microbatches=TRAIN_MICROBATCHES),
-        llm_train.init_state(cfg, ocfg, SEED, device))
-    del _
+    plain = llm_train.make_train_step(cfg, ocfg, microbatches=microbatches)
+    want_state, want, plain_ms = two_steps(plain, llm_train.init_state(cfg, ocfg, SEED, device))
+    out = {}
+    if repeat:
+        again_state, again, _ = two_steps(plain, llm_train.init_state(cfg, ocfg, SEED, device))
+        differ = [p for (p, a), b in zip(llm_schema.tree_items(again_state.params),
+                                         llm_schema.tree_leaves(want_state.params))
+                  if not bitwise_equal(a, b)]
+        out["unplaced_repeat"] = {
+            "loss_equal": bool(torch.equal(again["loss"], want["loss"])),
+            "grad_norm_equal": bool(torch.equal(again["grad_norm"], want["grad_norm"])),
+            "params_differ": len(differ)}
+        del again_state
+        if not (out["unplaced_repeat"]["loss_equal"] and out["unplaced_repeat"]["grad_norm_equal"]
+                and not differ):
+            raise AssertionError(f"{name}: the unplaced step differs from itself run to run: "
+                                 f"{out['unplaced_repeat']}, params {differ[:4]}")
+        # the same twice with gather's own backward in the dispatch: reported
+        with gather_backward():
+            runs = [two_steps(plain, llm_train.init_state(cfg, ocfg, SEED, device))
+                    for _ in range(2)]
+        (a_state, a, a_ms), (b_state, b, _) = runs
+        out["gather_backward_repeat"] = {
+            "loss_equal": bool(torch.equal(a["loss"], b["loss"])),
+            "grad_norm_rel_err": rel_err(b["grad_norm"], a["grad_norm"]),
+            "params_differ": sum(not bitwise_equal(x, y) for x, y in zip(
+                llm_schema.tree_leaves(a_state.params), llm_schema.tree_leaves(b_state.params))),
+            "params": len(llm_schema.tree_leaves(a_state.params)),
+            "train_ms": a_ms}
+        del runs, a_state, b_state
+    del want_state
     torch.cuda.empty_cache()
-    step, rules = llm_train.jit_train_step(cfg, ocfg, mesh, microbatches=TRAIN_MICROBATCHES,
+    step, rules = llm_train.jit_train_step(cfg, ocfg, mesh, microbatches=microbatches,
                                            donate=False)
     sspec = llm_train.state_pspecs(cfg, ocfg, rules)
     state, got, placed_ms = two_steps(
@@ -4968,13 +5062,13 @@ def mesh_train(mesh, device, directory, name=TRAIN_MB_ARCH, layers=TRAIN_MB_LAYE
             and torch.equal(llm_sharding.whole(state.opt.step), torch.full_like(
                 state.opt.step.to_local(), 2))):
         raise AssertionError("placed train step's lr or step differs")
-    out = {"params": llm_params(cfg), "loss_unplaced": float(want["loss"]),
-           "loss_placed": float(got["loss"]), "loss_rel_err": loss_err,
-           "train_ms_unplaced": plain_ms, "train_ms_placed": placed_ms,
-           "placed_over_unplaced": placed_ms / plain_ms}
+    out.update({"params": llm_params(cfg), "loss_unplaced": float(want["loss"]),
+                "loss_placed": float(got["loss"]), "loss_rel_err": loss_err,
+                "train_ms_unplaced": plain_ms, "train_ms_placed": placed_ms,
+                "placed_over_unplaced": placed_ms / plain_ms})
+    label = f"  {name} at {cfg.n_layers} layers, a train step at {B} x {S} ({card_line()})"
     if directory is None:
-        log(f"  {name} at {layers} layers, a train step at {B} x {S} ({card_line()}): "
-            f"{json.dumps(out)}")
+        log(f"{label}: {json.dumps(out)}")
         return out
     t0 = time.perf_counter()
     mgr = CheckpointManager(str(directory))
@@ -4990,8 +5084,7 @@ def mesh_train(mesh, device, directory, name=TRAIN_MB_ARCH, layers=TRAIN_MB_LAYE
     out.update(saved_bytes=sum(t.numel() * t.element_size()
                                for t in llm_schema.tree_leaves(state.params)),
                save_s=saved_s, restore_s=restore_s)
-    log(f"  {name} at {layers} layers, a train step at {B} x {S} ({card_line()}): "
-        f"{json.dumps(out)}")
+    log(f"{label}: {json.dumps(out)}")
     return out
 
 
@@ -4999,10 +5092,13 @@ def mesh_phase(device) -> dict:
     """Phase 23: a world-size-1 NCCL group (a ``file://`` store in a
     temporary directory) and a 1 x 1 ("data", "model") mesh over it; a
     (1, 2) mesh refused; ``mesh_decode`` and ``mesh_train`` on it for the
-    dense ``MESH_ARCH`` (its params saved and restored) and then for the
-    MoE + MLA ``MESH_MOE_ARCH`` (``MESH_MOE_TRAIN_LAYERS`` layers for the
-    step).  The
-    group is torn down before this returns, so no later phase sees it."""
+    dense ``MESH_ARCH`` (its params saved and restored), for the MoE + MLA
+    ``MESH_MOE_ARCH`` (``MESH_MOE_TRAIN_LAYERS`` layers for the step, run
+    twice unplaced for ``unplaced_repeat``), then ``mesh_decode`` of each
+    of ``MESH_STATE_ARCHS`` and phase 20's ``TRAIN_ARCH`` step at full
+    depth on ``TRAIN_BATCH`` x ``TRAIN_SEQ`` (its params saved and
+    restored).  The group is torn down before this returns, so no later
+    phase sees it."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.cuda.set_device(torch.cuda.current_device() if device.index is None else device.index)
@@ -5026,7 +5122,16 @@ def mesh_phase(device) -> dict:
             out["moe_decode"] = mesh_decode(mesh, device, MESH_MOE_ARCH)
             torch.cuda.empty_cache()
             out["moe_train"] = mesh_train(mesh, device, None, MESH_MOE_ARCH,
-                                          MESH_MOE_TRAIN_LAYERS)
+                                          MESH_MOE_TRAIN_LAYERS, repeat=True)
+            torch.cuda.empty_cache()
+            out["moe_combine"] = combine_cost(device)
+            for name in MESH_STATE_ARCHS:
+                torch.cuda.empty_cache()
+                out[f"{name}_decode"] = mesh_decode(mesh, device, name)
+            torch.cuda.empty_cache()
+            out["state_train"] = mesh_train(
+                mesh, device, Path(tmp) / "ckpt_state", TRAIN_ARCH, None,
+                (TRAIN_BATCH, TRAIN_SEQ), 1, False)
         finally:
             dist.destroy_process_group()
     if dist.is_initialized():

@@ -361,14 +361,17 @@ def _embed_in(params, cfg, tokens, pos=None):
     """Token embeddings in the activations' dtype, plus the learned
     positions (whisper) at 0..S-1, or at the decode position ``pos`` (a
     device scalar).  A position past the table reads its last row, as
-    the reference's clamping gather does."""
+    the reference's clamping gather does.  The rows are gathered by
+    indexing: on a table placed on a mesh whose gradient comes back cut
+    along the rows, ``index_select``'s backward returns a DTensor whose
+    shard is the whole table."""
     x = embed_tokens(params["tok_embed"], tokens, cfg.embed_scale, cfg.d_model)
     x = x.to(getattr(torch, cfg.act_dtype))
     if cfg.rope == "learned":
         if pos is None:
             pos = torch.arange(tokens.shape[1], device=tokens.device)
         idx = torch.clamp(pos, max=cfg.max_seq - 1).to(torch.int64).reshape(-1)
-        x = x + params["pos_embed"].index_select(0, idx)[None].to(x.dtype)
+        x = x + params["pos_embed"][idx][None].to(x.dtype)
     return x
 
 
@@ -601,14 +604,16 @@ def _ring_gather(kv, S, length, axis: int = 1):
 
 def _fill_unit_cache(cache_b, col_b, S):
     """Fill one sub-block's cache from what its prefill collected: an
-    ``ssm``/``rec`` state and conv window copied in; K/V (or MLA's
+    ``ssm``/``rec`` state and conv window taken as the new leaves (on a
+    mesh, placed as they come out); K/V (or MLA's
     ``c_kv``, ``k_rope``) ring-gathered, with the slots' positions.  The
     positions run along the cache's ring axis: 2 for the units' stacked
     leaves (n_units, B, S, ...), 1 for a single layer's (B, S, ...)."""
     for kind in ("ssm", "rec"):
         if kind in col_b:
+            sub = cache_b[kind]
             for name, leaf in col_b[kind].items():
-                cache_b[kind][name].copy_(leaf)
+                sub[name] = leaf.to(sub[name].dtype).contiguous()
             return cache_b
     sub = cache_b["self"] if "self_kv" in col_b else cache_b["attn"]
     axis = sub["kpos"].ndim - 1
@@ -623,12 +628,15 @@ def _fill_unit_cache(cache_b, col_b, S):
 def _fill_cross(cross, p_cross, enc_out):
     """The units' cross-attention cache from the encoder's output: each
     layer's ``enc_out @ wk`` and ``enc_out @ wv`` (no RoPE, no k-norm) at
-    the frames' positions, written into the stacked leaves in place."""
-    for i in range(cross["k"].shape[0]):
-        cross["k"][i] = torch.einsum("bsd,dhk->bshk", enc_out, p_cross["wk"][i])
-        cross["v"][i] = torch.einsum("bsd,dhk->bshk", enc_out, p_cross["wv"][i])
-    cross["kpos"].copy_(torch.arange(cross["kpos"].shape[-1], device=enc_out.device)
-                        .expand(cross["kpos"].shape))
+    the frames' positions, stacked into new leaves (on a mesh, placed as
+    the products come out, as the ring-gathered K/V are)."""
+    for name, w in (("k", "wk"), ("v", "wv")):
+        cross[name] = torch.stack([
+            torch.einsum("bsd,dhk->bshk", enc_out, p_cross[w][i]).to(cross[name].dtype)
+            for i in range(cross[name].shape[0])])
+    kp = cross["kpos"]
+    cross["kpos"] = torch.arange(kp.shape[-1], dtype=kp.dtype, device=kp.device).expand(
+        kp.shape).contiguous()
 
 
 def _sub_blocks(cache, collected):

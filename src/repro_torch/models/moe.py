@@ -3,8 +3,12 @@
 The port of ``repro.models.moe``.  Tokens pick top-k experts; each row's
 (token, expert) pairs are sorted by expert and gathered into a dense
 capacity buffer, each expert runs a batched product, and the results
-scatter back weighted.  Shared experts (DeepSeek-V2) run densely as one
-MLP.
+come back weighted, each token's k summed in ascending expert order
+(``_fold``), the order of the reference's ``.at[].add``.  The backward of
+the dispatch's row gather sums each token's k gradient rows in that
+order too (``_Take``): a ``scatter_add`` adds them by atomics on the
+card, in no fixed order, and a rerun would differ.  Shared experts
+(DeepSeek-V2) run densely as one MLP.
 
 The reference ``vmap``s its per-row dispatch over the batch; here the
 rows go through one batched pass with the reference's order: pairs
@@ -85,22 +89,77 @@ def _dispatch(x, top_idx, top_w, n_experts: int, capacity: int):
 
     rows = n_experts * capacity
     xe = x.new_zeros((B, rows + 1, d)).scatter_(
-        1, slot[..., None].expand(B, S * k, d), x.gather(1, st[..., None].expand(B, S * k, d))
+        1, slot[..., None].expand(B, S * k, d), _Take.apply(x, st, _token_pairs(st, k))
     )
     return xe[:, :rows].reshape(B, n_experts, capacity, d), (slot, st, sw, keep)
 
 
+def _token_pairs(st, k: int):
+    """Each token's k positions in the sorted order, ascending (its
+    experts in ascending order): (B, S, k).  ``st`` holds every token k
+    times, so a stable sort of it groups them."""
+    B, n = st.shape
+    return torch.sort(st, dim=-1, stable=True).indices.reshape(B, n // k, k)
+
+
+def _fold(c, pairs):
+    """c (B, S k, d), one row a pair in the sorted order -> (B, S, d): each
+    token's k rows added one pick at a time in ``c``'s dtype, in ascending
+    sorted position.  That is the order in which the CPU's sequential
+    ``scatter_add_`` and the reference's ``.at[st].add`` add them, where the
+    card's ``scatter_add_`` adds them by atomics in no fixed order."""
+    d = c.shape[-1]
+    y = c.new_zeros(pairs.shape[:2] + (d,))
+    for j in range(pairs.shape[-1]):
+        y = y + c.gather(1, pairs[..., j, None].expand(-1, -1, d))
+    return y
+
+
+def _take(x, st):
+    """x (B, S, d) -> the rows of the pairs' tokens, (B, S k, d)."""
+    return x.gather(1, st[..., None].expand(-1, -1, x.shape[-1]))
+
+
+class _Take(torch.autograd.Function):
+    """``_take``, whose backward sums each token's k gradient rows by
+    ``_fold`` (gather's own backward adds them by atomics on the card)."""
+
+    @staticmethod
+    def forward(ctx, x, st, pairs):
+        ctx.save_for_backward(pairs)
+        return _take(x, st)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _fold(g, *ctx.saved_tensors), None, None
+
+
+class _Fold(torch.autograd.Function):
+    """``_fold``, whose backward is its adjoint ``_take``: one gather in
+    place of k gathers' scatters."""
+
+    @staticmethod
+    def forward(ctx, c, st, pairs):
+        ctx.save_for_backward(st)
+        return _fold(c, pairs)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _take(g, *ctx.saved_tensors), None, None
+
+
 @shd.row_local
 def _combine(ye, meta, S: int):
-    """Each pair's expert output, weighted, summed back onto its token:
-    ye (B, E, C, d) -> (B, S, d)."""
+    """Each pair's expert output, weighted, summed back onto its token in a
+    fixed order (``_fold``): ye (B, E, C, d) -> (B, S, d); a dropped pair
+    adds 0."""
     slot, st, sw, keep = meta
     B, E, C, d = ye.shape
     yf = ye.reshape(B, E * C, d)
     idx = torch.clamp(slot, max=E * C - 1)[..., None].expand(-1, -1, d)
     contrib = yf.gather(1, idx) * sw[..., None].to(yf.dtype)
     contrib = torch.where(keep[..., None], contrib, 0)
-    return ye.new_zeros((B, S, d)).scatter_add_(1, st[..., None].expand(-1, -1, d), contrib)
+    return _Fold.apply(contrib, st, _token_pairs(st, st.shape[1] // S))
 
 
 def _shared_experts(p, x, kind: str):

@@ -13,7 +13,9 @@ log-depth doubling (Hillis-Steele) scan over the positions in place of the
 reference's ``associative_scan`` (12 elementwise passes at S = 4,096; a
 per-position loop would issue S steps a layer, and ``exp(cumsum(log a))``
 underflows, since log a reaches -8 softplus(Lambda) a step); the decode is
-a one-step update.
+a one-step update.  On a device mesh ``recurrent_block`` constrains the
+recurrence's input at the reference's site (``lru`` over "model"), and
+the gates, the scan and the decode step run on the cut width.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..sharding import constrain
 from .layers import conv1d_causal
 
 _C = 8.0
@@ -61,7 +64,7 @@ def recurrent_block(p, x, cfg, *, cache=None):
     Returns (out, new_cache, {"state", "conv"}): new_cache None without a
     cache."""
     gate = F.gelu(x @ p["w_gate"], approximate="tanh")
-    rec = x @ p["w_rec"]
+    rec = constrain(x @ p["w_rec"], "batch", None, "lru")
 
     conv_cache = cache["conv"] if cache is not None else None
     rec, new_conv = conv1d_causal(rec, p["conv_w"], p["conv_b"], cache=conv_cache)

@@ -10,6 +10,9 @@ chunk weights in the input dtype, the chunk states and ``y_inter`` in
 float32, the final or new state in the input dtype.
 
 The decode path carries (conv window, ssm state) and is O(1) a token.
+On a device mesh ``ssm_block`` constrains ``xBC`` at the reference's site
+(``ssm_inner`` over "model"); the within-chunk ``cumsum`` runs on each
+rank's rows (``_cumsum``).
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .. import sharding as shd
+from ..sharding import constrain
 from .layers import conv1d_causal, rms_norm
 
 
@@ -25,6 +30,13 @@ def _repeat(t, n: int, dim: int):
     ``n`` times, by a broadcast view and one copy (no host sync)."""
     shape = t.shape
     return t.unsqueeze(dim + 1).expand(*shape[: dim + 1], n, *shape[dim + 1 :]).flatten(dim, dim + 1)
+
+
+@shd.row_local
+def _cumsum(a, dim: int):
+    """``torch.cumsum`` along ``dim``, on a mesh on each rank's own rows:
+    DTensor (torch 2.11) has no strategy for the ``flip`` of its backward."""
+    return torch.cumsum(a, dim=dim)
 
 
 def _ssd_chunked(xh, dt, A, Bm, Cm, chunk: int):
@@ -41,12 +53,15 @@ def _ssd_chunked(xh, dt, A, Bm, Cm, chunk: int):
     Cc = Cm.reshape(B_, nc, chunk, G, N)
 
     dA = dtc * A  # (B, nc, Q, H), negative
-    cum = torch.cumsum(dA, dim=2)  # within-chunk cumulative
+    cum = _cumsum(dA, 2)  # within-chunk cumulative
 
     # intra-chunk: scores[b,c,h,i,j] = C_i . B_j * exp(cum_i - cum_j) * dt_j
     CB = torch.einsum("bcqgn,bckgn->bcgqk", Cc, Bc)  # (B,nc,G,Q,Q)
     CB = _repeat(CB, hper, 2)  # (B,nc,H,Q,Q)
-    cum_t = cum.transpose(2, 3)  # (B,nc,H,Q)
+    # (B,nc,H,Q), contiguous: the (Q, Q) products then come out in the
+    # default layout, which a placed run's DTensor assumes of them (a
+    # shard that follows a transposed input fails the einsum's view)
+    cum_t = cum.transpose(2, 3).contiguous()
     # <= 0 on the causal (lower) triangle; clamped so the masked upper
     # triangle cannot overflow exp
     decay = torch.exp(torch.clamp(cum_t[..., :, None] - cum_t[..., None, :], max=0.0))
@@ -91,6 +106,7 @@ def ssm_block(p, x, cfg, *, cache=None):
 
     zxbcdt = x @ p["in_proj"]
     z, xBC, dt = torch.split(zxbcdt, [d_in, d_in + 2 * G * N, H], dim=-1)
+    xBC = constrain(xBC, "batch", None, "ssm_inner")
 
     conv_cache = cache["conv"] if cache is not None else None
     xBC, new_conv = conv1d_causal(xBC, p["conv_w"], p["conv_b"], cache=conv_cache)

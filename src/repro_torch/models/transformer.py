@@ -14,7 +14,9 @@ values do not change.  Sub-block kinds:
   xattn  — encoder-decoder block (self + cross attention + MLP)
 In decode the ``ssm`` and ``rec`` sub-blocks write their new state and
 conv window into the cache in place (``copy_`` into the stacked leaves'
-views), where the reference returns them through its cache channel.
+views), where the reference returns them through its cache channel; a
+placed cache is written shard by shard, each value first redistributed
+to its leaf's placements, as ``model._write_delta`` writes K/V.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from typing import Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from .. import sharding as shd
 from ..sharding import constrain
 from .attention import gqa_attention, mla_attention
 from .layers import layer_norm, mlp, rms_norm
@@ -80,12 +83,15 @@ def split_layers(cfg) -> tuple[int, int, list[str]]:
 
 def _state_block(kind, block, p, x, cfg, cache, mode):
     """An ``ssm`` or ``rec`` mixer on the normed input, residual added.  In
-    decode its new state and conv window go into ``cache[kind]`` in place."""
+    decode its new state and conv window go into ``cache[kind]`` in place
+    (on a mesh into each rank's own shard, after a redistribution to the
+    leaf's placements, which the cache keeps)."""
     sub = cache.get(kind) if cache else None
     h, c_new, state = block(p[kind], norm(p["norm"], x, cfg), cfg, cache=sub)
     if c_new is not None:
         for name, leaf in c_new.items():
-            sub[name].copy_(leaf)
+            dst = sub[name]
+            shd.local(dst).copy_(shd.local(shd.like(leaf.to(dst.dtype), dst)))
     return x + h, ({kind: state} if mode == "prefill" else None)
 
 

@@ -15,9 +15,16 @@ shared expert, the dense first layer) and ``grok-1-314b`` (one KV head,
 so decode cuts ``head_dim``) smoke decode on 2 x 2, DeepSeek with 6
 experts on 1 x 4 (experts replicated, ``expert_ffn`` cut), a DeepSeek
 step on 2 x 2 and its state saved from 2 x 2 and restored onto 1 x 4.
-DeepSeek's leaves are at their true fan-in (``at_true_fan_in``).  Each
-rank writes its results to the directory; the cases below assert on
-them.  The JAX package's single-device results, on the port's weights,
+The SSM, RG-LRU and encoder-decoder archs the same way: ``mamba2-130m``
+(its SSM state and conv window), ``recurrentgemma-9b`` (its RG-LRU state
+and windowed attention ring) and ``whisper-large-v3`` (its frames placed
+with the prompts, its cross cache) decode and take a step on 2 x 2, and
+a RecurrentGemma state is saved from 2 x 2 and restored onto 1 x 4.
+DeepSeek's leaves, and the three archs' (as phase 19 serves them), are
+at their true fan-in (``at_true_fan_in``; at ``init``'s scale Mamba2's
+placed logits sit 1.6e-5 and 2.5e-5 from the unplaced, each layer
+magnifying a last-bit difference of its input).  Each rank writes its
+results to the directory; the cases below assert on them.  The JAX package's single-device results, on the port's weights,
 are computed once in this process while the ranks run.
 
 Tolerances, fixed before the first run:
@@ -52,6 +59,8 @@ from repro.models import attention as jattention
 from repro.models import layers as jlayers
 from repro.models import model as jmodel
 from repro.models import moe as jmoe
+from repro.models import rglru as jrglru
+from repro.models import ssm as jssm
 from repro.models import transformer as jtransformer
 from repro.train import optimizer as joptim
 from repro.train import train_step as jts
@@ -62,7 +71,9 @@ from repro_torch.models import attention as tattention
 from repro_torch.models import layers as tlayers
 from repro_torch.models import model as tmodel
 from repro_torch.models import moe as tmoe
+from repro_torch.models import rglru as trglru
 from repro_torch.models import schema as tschema
+from repro_torch.models import ssm as tssm
 from repro_torch.models import transformer as ttransformer
 from repro_torch.serve import serve_step as tserve
 from repro_torch.train import optimizer as toptim
@@ -85,6 +96,10 @@ MOE_CASES = {"deepseek-v2-lite-16b": (MOE_ARCH, (2, 2)),
              "fallback": (MOE_ARCH, (1, 4))}
 MOE_CHANGES = {"fallback": {"n_experts": 6}}
 FAN_IN_CASES = ("deepseek-v2-lite-16b", "fallback")  # MLA's leaves at their true fan-in
+# the SSM, RG-LRU and encoder-decoder archs, each at its true fan-in, as
+# phase 19 serves them: decode and a step on 2 x 2
+STATE_ARCHS = ("mamba2-130m", "recurrentgemma-9b", "whisper-large-v3")
+STATE_RESTORE_ARCH = "recurrentgemma-9b"
 RANK_TIMEOUT = 300
 
 RANK_PROGRAM = r'''
@@ -180,28 +195,29 @@ def recorded_picks(picks):  # the experts each moe.route call picks, in call ord
 
 
 def decode_run(cfg, mesh, params):
-    """An 8 x 32 prefill and one greedy step, unplaced and then placed on
-    mesh; returns ({"unplaced", "placed"} gathered, the layout)."""
+    """An 8 x 32 prefill (with its frames for an encoder-decoder) and one
+    greedy step, unplaced and then placed on mesh; returns ({"unplaced",
+    "placed"} gathered, the layout)."""
     rules = shd.ShardingRules.for_config(mesh, cfg, decode=True)
-    rng = np.random.default_rng(1)
-    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, DECODE_SHAPE).astype(np.int32))
-    bspec = rules.spec(("batch", None))
+    batch = {k: torch.from_numpy(v) for k, v in decode_batch(cfg).items()}
+    bspec = ts.batch_pspecs(cfg, rules, batch)
     picks0, picks1 = [], []
     with torch.no_grad():
         with recorded_picks(picks0):
-            last0, cache0 = model.prefill(params, cfg, {"tokens": tokens})
+            last0, cache0 = model.prefill(params, cfg, batch)
             tok0 = serve_step.sample_greedy(last0)[:, None]
             step0, cache0 = model.decode_step(params, cfg, cache0, tok0)
         pp = model.place(params, cfg, rules)
         with shd.use_rules(rules), recorded_picks(picks1):
-            last1, cache1 = model.prefill(pp, cfg, {"tokens": shd.place(tokens, bspec, mesh)})
+            last1, cache1 = model.prefill(pp, cfg, shd.place(batch, bspec, mesh))
             tok1 = serve_step.sample_greedy(last1)[:, None]
         cache1 = serve_step.place_cache(cache1, cfg, rules)
         cspec = serve_step.cache_pspecs(cfg, rules, cache1)
         placed = (layout(pp, model.partition_pspecs(cfg, rules), mesh)
                   + layout(cache1, cspec, mesh))
         with shd.use_rules(rules), recorded_picks(picks1):
-            step1, cache1 = model.decode_step(pp, cfg, cache1, shd.place(tok1, bspec, mesh))
+            step1, cache1 = model.decode_step(pp, cfg, cache1,
+                                              shd.place(tok1, bspec["tokens"], mesh))
     return {"unplaced": host({"last": last0, "tok": tok0, "step": step0, "picks": tuple(picks0),
                               "next": serve_step.sample_greedy(step0), "cache": cache0}),
             "placed": host({"last": last1, "tok": tok1, "step": step1, "picks": tuple(picks1),
@@ -229,9 +245,7 @@ for case, (name, mesh_of) in MOE_CASES.items():
 # train: qwen3-8b smoke at d_model 128, 2 layers, one step
 cfg = make_smoke(get_config("TRAIN_ARCH")).replace(d_model=128, n_layers=2)
 ocfg = optim.OptConfig()
-rng = np.random.default_rng(0)
-batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, TRAIN_SHAPE).astype(np.int32))
-         for k in ("tokens", "targets")}
+batch = {k: torch.from_numpy(v) for k, v in train_batch(cfg).items()}
 st0, m0 = ts.make_train_step(cfg, ocfg)(ts.init_state(cfg, ocfg, 0, "cpu"), batch)
 step, trules = ts.jit_train_step(cfg, ocfg, mesh, donate=False)
 st1, m1 = step(ts.init_state(cfg, ocfg, 0, "cpu"), batch)
@@ -250,9 +264,7 @@ cfg = make_smoke(get_config("MOE_ARCH"))
 params = model.init(cfg, 0, "cpu")
 at_true_fan_in(cfg, params)
 state = lambda: ts.TrainState(params=params, opt=optim.init(params, ocfg))
-rng = np.random.default_rng(0)
-batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, TRAIN_SHAPE).astype(np.int32))
-         for k in ("tokens", "targets")}
+batch = {k: torch.from_numpy(v) for k, v in train_batch(cfg).items()}
 st0, m0 = ts.make_train_step(cfg, ocfg)(state(), batch)
 step, trules = ts.jit_train_step(cfg, ocfg, mesh, donate=False)
 st1, m1 = step(state(), batch)
@@ -271,6 +283,22 @@ e = torch.randn(16, 24, generator=torch.Generator().manual_seed(4)).to(torch.bfl
 pe = shd.place(e, ("data", "model"), mesh)
 res["compress"] = {"unplaced": host(optim.compress_int8(g, e)),
                    "placed": host(optim.compress_int8(shd.place(g, (None, "model"), mesh), pe))}
+
+# the SSM, RG-LRU and encoder-decoder archs: decode and a step on 2 x 2
+for key in ("state_decode", "state_layout", "state_train", "state_train_layout"):
+    res[key] = {}
+for name in STATE_ARCHS:
+    cfg = make_smoke(get_config(name))
+    params = at_true_fan_in(cfg, model.init(cfg, 0, "cpu"))
+    res["state_decode"][name], res["state_layout"][name] = decode_run(cfg, mesh, params)
+    state = lambda: ts.TrainState(params=params, opt=optim.init(params, ocfg))
+    batch = {k: torch.from_numpy(v) for k, v in train_batch(cfg).items()}
+    st0, m0 = ts.make_train_step(cfg, ocfg)(state(), batch)
+    step, trules = ts.jit_train_step(cfg, ocfg, mesh, donate=False)
+    st1, m1 = step(state(), batch)
+    res["state_train_layout"][name] = layout(st1, ts.state_pspecs(cfg, ocfg, trules), mesh)
+    res["state_train"][name] = {"unplaced": host({"state": st0, "metrics": m0}),
+                                "placed": host({"state": st1, "metrics": m1})}
 
 # elastic restore: gemma-7b smoke saved from the 2 x 2 mesh, restored onto 1 x 4
 cfg = make_smoke(get_config("RESTORE_ARCH"))
@@ -311,6 +339,19 @@ spec2 = ts.state_pspecs(cfg, ocfg, shd.ShardingRules.for_config(mesh2, cfg))
 got = mgr.restore(3, ts.abstract_state(cfg, ocfg), shardings=(mesh2, spec2))
 res["moe_restore_layout"] = layout(got, spec2, mesh2)
 res["moe_restore_equal"] = all(a.dtype == b.dtype and torch.equal(bits(a), bits(b))
+                               for a, b in zip(tree_leaves(got), tree_leaves(state)))
+
+# a RecurrentGemma state: saved from 2 x 2 (the RG-LRU width cut over "model"
+# 2), restored onto 1 x 4 (cut 4 ways)
+cfg = make_smoke(get_config("STATE_RESTORE_ARCH"))
+state = ts.init_state(cfg, ocfg, 0, "cpu")
+mgr = CheckpointManager(os.path.join(out, "ckpt_rec"))
+mgr.save(4, shd.place(state, ts.state_pspecs(cfg, ocfg, shd.ShardingRules.for_config(mesh, cfg)),
+                      mesh))
+spec2 = ts.state_pspecs(cfg, ocfg, shd.ShardingRules.for_config(mesh2, cfg))
+got = mgr.restore(4, ts.abstract_state(cfg, ocfg), shardings=(mesh2, spec2))
+res["rec_restore_layout"] = layout(got, spec2, mesh2)
+res["rec_restore_equal"] = all(a.dtype == b.dtype and torch.equal(bits(a), bits(b))
                                for a, b in zip(tree_leaves(got), tree_leaves(state)))
 
 with open(os.path.join(out, f"rank{rank}.pkl"), "wb") as f:
@@ -359,8 +400,11 @@ def at_true_fan_in(cfg, params):
 
 def program() -> str:
     defs = "\n".join([f"MOE_CASES = {MOE_CASES!r}", f"MOE_CHANGES = {MOE_CHANGES!r}",
-                      f"FAN_IN_CASES = {FAN_IN_CASES!r}", inspect.getsource(at_true_fan_in)])
+                      f"FAN_IN_CASES = {FAN_IN_CASES!r}", f"STATE_ARCHS = {STATE_ARCHS!r}",
+                      inspect.getsource(at_true_fan_in), inspect.getsource(decode_batch),
+                      inspect.getsource(train_batch)])
     return (RANK_PROGRAM.replace("# DEFINITIONS", defs)
+            .replace('"STATE_RESTORE_ARCH"', repr(STATE_RESTORE_ARCH))
             .replace('"MOE_ARCH"', repr(MOE_ARCH))
             .replace('"DECODE_ARCH"', repr(DECODE_ARCH))
             .replace("DECODE_SHAPE", repr(DECODE_SHAPE))
@@ -368,13 +412,35 @@ def program() -> str:
             .replace('"RESTORE_ARCH"', repr(RESTORE_ARCH)))
 
 
+def decode_batch(cfg):
+    """The decode's prompts (``DECODE_SHAPE``) and, for an encoder-decoder,
+    its frames drawn after them; numpy."""
+    rng = np.random.default_rng(1)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, DECODE_SHAPE).astype(np.int32)}
+    if cfg.is_encoder_decoder:
+        batch["frames"] = rng.normal(
+            size=(DECODE_SHAPE[0], cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+def train_batch(cfg):
+    """A step's tokens and targets (``TRAIN_SHAPE``) and, for an
+    encoder-decoder, its frames drawn after them; numpy."""
+    rng = np.random.default_rng(0)
+    batch = {k: rng.integers(0, cfg.vocab_size, TRAIN_SHAPE).astype(np.int32)
+             for k in ("tokens", "targets")}
+    if cfg.is_encoder_decoder:
+        batch["frames"] = rng.normal(
+            size=(TRAIN_SHAPE[0], cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    return batch
+
+
 def jax_decode(params_np, name=DECODE_ARCH):
     """The JAX package's prefill and greedy decode step on the port's weights."""
     cfg = jconfigs.make_smoke(jconfigs.get_config(name))
     params = jax.tree.map(jnp.asarray, params_np)
-    rng = np.random.default_rng(1)
-    tokens = jnp.asarray(rng.integers(0, cfg.vocab_size, DECODE_SHAPE), jnp.int32)
-    last, cache = jmodel.prefill(params, cfg, {"tokens": tokens}, remat=False)
+    batch = {k: jnp.asarray(v) for k, v in decode_batch(cfg).items()}
+    last, cache = jmodel.prefill(params, cfg, batch, remat=False)
     tok = jnp.argmax(last, axis=-1).astype(jnp.int32)[:, None]
     step, _ = jmodel.decode_step(params, cfg, cache, tok)
     return {"last": np.asarray(last), "tok": np.asarray(tok), "step": np.asarray(step)}
@@ -387,9 +453,7 @@ def jax_train(params_np, cfg=None):
                                                                            n_layers=2)
     ocfg = joptim.OptConfig()
     params = jax.tree.map(jnp.asarray, params_np)
-    rng = np.random.default_rng(0)
-    batch = {k: jnp.asarray(rng.integers(0, cfg.vocab_size, TRAIN_SHAPE), jnp.int32)
-             for k in ("tokens", "targets")}
+    batch = {k: jnp.asarray(v) for k, v in train_batch(cfg).items()}
     _, m = jax.jit(jts.make_train_step(cfg, ocfg))(
         jts.TrainState(params=params, opt=joptim.init(params, ocfg)), batch)
     out = {k: np.asarray(v) for k, v in m.items()}
@@ -422,6 +486,12 @@ def ranks(tmp_path_factory):
                 "moe_decode": jax_decode(moe_np, MOE_ARCH),
                 "moe_train": jax_train(moe_np,
                                        jconfigs.make_smoke(jconfigs.get_config(MOE_ARCH)))}
+        for name in STATE_ARCHS:
+            scfg = tconfigs.make_smoke(tconfigs.get_config(name))
+            state_np = tmodel.to_numpy(at_true_fan_in(scfg, tmodel.init(scfg, 0, "cpu")))
+            want[name] = {"decode": jax_decode(state_np, name),
+                          "train": jax_train(state_np,
+                                             jconfigs.make_smoke(jconfigs.get_config(name)))}
         rcs = [p.wait(timeout=RANK_TIMEOUT) for p in procs]
     finally:
         for p in procs:
@@ -484,14 +554,17 @@ def test_decode_matches_jax_single_device(ranks):
 
 
 def test_decode_placements_follow_the_specs(ranks):
-    """Every param and cache leaf of each decode (the dense one and the MoE
-    cases, MLA's latents among them) is a DTensor placed as its spec says,
-    its local shard the JAX shard's shape (``shards``)."""
+    """Every param and cache leaf of each decode (the dense one, the MoE
+    cases, MLA's latents among them, and the SSM, RG-LRU and
+    encoder-decoder archs, their states, conv windows and cross caches) is
+    a DTensor placed as its spec says, its local shard the JAX shard's
+    shape (``shards``)."""
     meshes = {(2, 2): tshd.make_mesh((2, 2), ("data", "model"), "cpu"),
               (1, 4): tshd.make_mesh((1, 4), ("data", "model"), "cpu")}
     for res in ranks["ranks"]:
         cases = [(res["decode_layout"], (2, 2))] + [
-            (res["moe_layout"][case], sizes) for case, (_, sizes) in MOE_CASES.items()]
+            (res["moe_layout"][case], sizes) for case, (_, sizes) in MOE_CASES.items()] + [
+            (res["state_layout"][name], (2, 2)) for name in STATE_ARCHS]
         for rows, sizes in cases:
             assert rows
             for path, local, shape, spec, as_spec in rows:
@@ -555,6 +628,49 @@ def test_expert_leaves_placed_by_the_rules(ranks, case):
             else:
                 assert spec[1] is None and spec[f] == "model"
                 assert local[1] == cfg.n_experts and local[f] == shape[f] // model_size
+
+
+# ---------------------------------------------------------------------------
+# the SSM, RG-LRU and encoder-decoder archs
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", STATE_ARCHS)
+def test_state_decode_on_mesh_matches_unplaced(ranks, name):
+    """Mamba2's SSM state and conv window, RecurrentGemma's RG-LRU state,
+    conv window and attention ring, Whisper's self and cross caches: the
+    placed prefill (with frames for Whisper) and step against the unplaced
+    port by the decode criteria."""
+    for res in ranks["ranks"]:
+        decode_matches(res["state_decode"][name]["placed"], res["state_decode"][name]["unplaced"])
+
+
+@pytest.mark.parametrize("name", STATE_ARCHS)
+def test_state_decode_matches_jax_single_device(ranks, name):
+    """The same prefill and step, unplaced and on the 2 x 2 mesh, against the
+    JAX package's on one device, on the same weights."""
+    want = ranks["jax"][name]["decode"]
+    for side in ("unplaced", "placed"):
+        got = ranks["ranks"][0]["state_decode"][name][side]
+        np.testing.assert_array_equal(got["tok"], want["tok"])
+        assert rel_err(got["last"], want["last"]) < RTOL, side
+        assert rel_err(got["step"], want["step"]) < RTOL, side
+
+
+def test_state_sites_cut_the_inner_widths(ranks):
+    """On 2 x 2 the leaves that the SSM's and the RG-LRU's sites act on are
+    cut over "model" (``ssm_inner`` of ``in_proj``, ``lru`` of ``w_rec``);
+    the decode caches' conv windows, the SSM state and the remainder
+    layer's RG-LRU state over "data" only, on their batch dim."""
+    rows = {name: {row[0]: row[3] for row in ranks["ranks"][0]["state_layout"][name]}
+            for name in STATE_ARCHS}
+    mamba, rec = rows["mamba2-130m"], rows["recurrentgemma-9b"]
+    assert mamba["layers/b0/ssm/in_proj"][-1] == "model"
+    assert rec["layers/b0/rec/w_rec"][-1] == "model"
+    for spec in (mamba["layers/b0/ssm/conv"], mamba["layers/b0/ssm/state"],
+                 rec["layers/b0/rec/conv"], rec["layers/b1/rec/conv"]):
+        assert spec[1] == "data" and "model" not in spec, spec
+    assert rec["tail_0/rec/state"] == ("data", None)
 
 
 # ---------------------------------------------------------------------------
@@ -646,6 +762,29 @@ def test_moe_train_step_matches_jax_single_device(ranks):
         assert rel_err(got["metrics"]["grad_norm"], want["grad_norm"]) < GRAD_RTOL, side
 
 
+@pytest.mark.parametrize("name", STATE_ARCHS)
+def test_state_train_step_on_mesh_matches_unplaced(ranks, name):
+    """Each arch's step placed by ``jit_train_step`` on 2 x 2 (Whisper's
+    batch with its frames) against the unplaced step by the step's
+    criteria, the new state placed by ``state_pspecs``."""
+    mesh = tshd.make_mesh((2, 2), ("data", "model"), "cpu")
+    for res in ranks["ranks"]:
+        step_matches(res["state_train"][name]["placed"], res["state_train"][name]["unplaced"])
+        for path, local, shape, spec, as_spec in res["state_train_layout"][name]:
+            assert as_spec, path
+            cuts = tshd.shards(mesh, spec) + (1,) * (len(shape) - len(spec))
+            assert local == tuple(n // c for n, c in zip(shape, cuts)), (path, spec)
+
+
+@pytest.mark.parametrize("name", STATE_ARCHS)
+def test_state_train_step_matches_jax_single_device(ranks, name):
+    want = ranks["jax"][name]["train"]
+    for side in ("unplaced", "placed"):
+        got = ranks["ranks"][0]["state_train"][name][side]["metrics"]
+        assert rel_err(got["loss"], want["loss"]) < RTOL, side
+        assert rel_err(got["grad_norm"], want["grad_norm"]) < GRAD_RTOL, side
+
+
 def test_compression_scale_is_the_whole_leafs(ranks):
     """int8 error feedback on a leaf cut over both mesh axes: each shard is
     quantized with the whole leaf's amax, so the values equal the
@@ -689,6 +828,22 @@ def test_moe_elastic_restore_bit_for_bit(ranks):
             assert local == tuple(n // c for n, c in zip(shape, cuts)), (path, spec)
 
 
+def test_recurrent_elastic_restore_bit_for_bit(ranks):
+    """A RecurrentGemma state saved from 2 x 2 (the RG-LRU width cut over
+    "model" 2) restores onto 1 x 4 (cut 4 ways) bit for bit, each leaf
+    placed by its 1 x 4 spec."""
+    mesh2 = tshd.make_mesh((1, 4), ("data", "model"), "cpu")
+    for res in ranks["ranks"]:
+        assert res["rec_restore_equal"]
+        rows = {row[0]: row for row in res["rec_restore_layout"]}
+        local, shape = rows["params/layers/b0/rec/w_rec"][1:3]
+        assert local[-1] * 4 == shape[-1]
+        for path, local, shape, spec, as_spec in res["rec_restore_layout"]:
+            assert as_spec, path
+            cuts = tshd.shards(mesh2, spec) + (1,) * (len(shape) - len(spec))
+            assert local == tuple(n // c for n, c in zip(shape, cuts)), (path, spec)
+
+
 def test_placed_save_writes_the_plain_bytes(ranks):
     """Rank 0 writes the gathered state: the same manifest (shapes, dtypes,
     digests) as a plain save of the state, and the same arrays."""
@@ -707,8 +862,9 @@ def test_placed_save_writes_the_plain_bytes(ranks):
 
 
 def test_placements_against_spec_every_leaf():
-    """Every param, cache and state leaf of the five configs (the MoE ones'
-    expert leaves and MLA latents among them): one
+    """Every param, cache and state leaf of the eight configs (the MoE ones'
+    expert leaves and MLA latents, the SSM and RG-LRU states and conv
+    windows, Whisper's encoder and cross caches among them): one
     placement a mesh axis, ``Shard(d)`` where the spec names that axis at
     dim ``d``, else ``Replicate()``; on the 2 x 2 mesh and the multi-pod
     mesh, whose ("pod", "data") tuples cut one dim by two axes."""
@@ -727,7 +883,7 @@ def test_placements_against_spec_every_leaf():
     tuples = 0
     for mesh in (tshd.make_mesh((2, 2), ("data", "model"), "cpu"),
                  make_production_mesh(multi_pod=True)):
-        for name in (DECODE_ARCH, TRAIN_ARCH, RESTORE_ARCH, MOE_ARCH, "grok-1-314b"):
+        for name in (DECODE_ARCH, TRAIN_ARCH, RESTORE_ARCH, MOE_ARCH, "grok-1-314b") + STATE_ARCHS:
             cfg = tconfigs.make_smoke(tconfigs.get_config(name))
             for decode in (False, True):
                 rules = tshd.ShardingRules.for_config(mesh, cfg, decode=decode)
@@ -808,31 +964,45 @@ def _constrain_calls(modules, run) -> list:
 
 
 # the dense case keeps its ids; the MoE cases: DeepSeek-V2-Lite at 2 layers
-# (the dense first layer and one MoE unit), Grok-1 at 1
+# (the dense first layer and one MoE unit), Grok-1 at 1; Mamba2 at 1,
+# RecurrentGemma at 3 (one unit of its pattern), Whisper at 1 with one
+# encoder layer
 SITE_CASES = [pytest.param(DECODE_ARCH, 1, entry, id=entry)
               for entry in ("forward", "loss_fn", "decode_step")] + [
     pytest.param(name, n, entry, id=f"{name}-{entry}")
-    for name, n in ((MOE_ARCH, 2), ("grok-1-314b", 1))
+    for name, n in ((MOE_ARCH, 2), ("grok-1-314b", 1), ("mamba2-130m", 1),
+                    ("recurrentgemma-9b", 3), ("whisper-large-v3", 1))
     for entry in ("forward", "loss_fn", "decode_step")]
 SITE_COUNTS = {
     DECODE_ARCH: {"forward": 9, "loss_fn": 8, "decode_step": 7},
     MOE_ARCH: {"forward": 12, "loss_fn": 11, "decode_step": 10},
     "grok-1-314b": {"forward": 13, "loss_fn": 12, "decode_step": 11},
+    "mamba2-130m": {"forward": 3, "loss_fn": 2, "decode_step": 1},
+    "recurrentgemma-9b": {"forward": 13, "loss_fn": 12, "decode_step": 11},
+    "whisper-large-v3": {"forward": 16, "loss_fn": 15, "decode_step": 9},
 }
 
 
 @pytest.mark.parametrize("name, n_layers, entry", SITE_CASES)
 def test_constrain_sites_match_the_reference(name, n_layers, entry):
-    """The decoder's constrain sites, counted with their axes: a model of
-    ``n_layers`` layers (the reference's scan traces its unit once) runs
-    through the same calls in both packages, ``moe_ffn``'s five sites
-    included and no site in the shared experts."""
-    jcfg = jconfigs.make_smoke(jconfigs.get_config(name)).replace(n_layers=n_layers)
-    tcfg = tconfigs.make_smoke(tconfigs.get_config(name)).replace(n_layers=n_layers)
+    """The model's constrain sites, counted with their axes: a model of
+    ``n_layers`` layers (the reference's scan traces its unit once; one
+    encoder layer for Whisper) runs through the same calls in both
+    packages, ``moe_ffn``'s five sites included and no site in the shared
+    experts, the SSM's ``ssm_inner`` and the RG-LRU's ``lru`` sites too."""
+    small = {"n_layers": n_layers}
+    if name == "whisper-large-v3":
+        small["encoder_layers"] = 1
+    jcfg = jconfigs.make_smoke(jconfigs.get_config(name)).replace(**small)
+    tcfg = tconfigs.make_smoke(tconfigs.get_config(name)).replace(**small)
     params = tmodel.init(tcfg, 0, "cpu")
     jparams = jax.tree.map(jnp.asarray, tmodel.to_numpy(params))
-    tokens = np.random.default_rng(2).integers(0, tcfg.vocab_size, (2, 8)).astype(np.int32)
+    rng = np.random.default_rng(2)
+    tokens = rng.integers(0, tcfg.vocab_size, (2, 8)).astype(np.int32)
     tb = {"tokens": torch.from_numpy(tokens), "targets": torch.from_numpy(tokens)}
+    if tcfg.is_encoder_decoder:
+        tb["frames"] = torch.from_numpy(
+            rng.normal(size=(2, tcfg.encoder_seq, tcfg.d_model)).astype(np.float32))
     jb = {k: jnp.asarray(v.numpy()) for k, v in tb.items()}
     if entry == "decode_step":
         tcache = tmodel.init_cache(tcfg, 2, 16, device="cpu")
@@ -842,10 +1012,10 @@ def test_constrain_sites_match_the_reference(name, n_layers, entry):
     else:
         trun = lambda: getattr(tmodel, entry)(params, tcfg, tb)
         jrun = lambda: getattr(jmodel, entry)(jparams, jcfg, jb)
-    got = _constrain_calls((tattention, tlayers, tmoe, ttransformer, tmodel), trun)
+    got = _constrain_calls((tattention, tlayers, tmoe, trglru, tssm, ttransformer, tmodel), trun)
     # the reference's sites are calls at trace time: a jaxpr records them
     # all, without running the model op by op
-    want = _constrain_calls((jattention, jlayers, jmoe, jtransformer, jmodel),
+    want = _constrain_calls((jattention, jlayers, jmoe, jrglru, jssm, jtransformer, jmodel),
                             lambda: jax.make_jaxpr(jrun)())
     assert got == want
     assert len(got) == SITE_COUNTS[name][entry]
@@ -853,3 +1023,6 @@ def test_constrain_sites_match_the_reference(name, n_layers, entry):
         for axes in (("batch", None, "embed"), ("batch", "experts", None, "embed"),
                      ("batch", "experts", None, "expert_ffn")):
             assert axes in got
+    kinds = set(ttransformer.layer_kinds(tcfg))
+    assert (("batch", None, "ssm_inner") in got) == ("ssm" in kinds)
+    assert (("batch", None, "lru") in got) == ("rec" in kinds)

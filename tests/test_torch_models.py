@@ -526,6 +526,132 @@ def test_dispatch_and_combine_match_the_jax_vmap(capacity):
     assert rel_err(cpu(got_y), np.asarray(want_y)) < RTOL
 
 
+def scatter_add_combine(ye, meta, S: int):
+    """The combine as it stood before it summed in a fixed order: each
+    pair's weighted output added onto its token by ``scatter_add_`` (on the
+    card by atomics, in no fixed order)."""
+    slot, st, sw, keep = meta
+    B_, E, C, d = ye.shape
+    yf = ye.reshape(B_, E * C, d)
+    idx = torch.clamp(slot, max=E * C - 1)[..., None].expand(-1, -1, d)
+    contrib = yf.gather(1, idx) * sw[..., None].to(yf.dtype)
+    contrib = torch.where(keep[..., None], contrib, 0)
+    return ye.new_zeros((B_, S, d)).scatter_add_(1, st[..., None].expand(-1, -1, d), contrib), contrib
+
+
+def combine_inputs(dtype, seed=17, E=16, k=6, capacity=4):
+    """Seeded routing of DeepSeek-V2-Lite's top-k (6) over 16 experts, at a
+    capacity that drops pairs, and expert outputs in ``dtype``."""
+    rng = np.random.default_rng(seed)
+    d = 32
+    x = torch.from_numpy(rng.normal(size=(B, S, d)).astype(np.float32)).to(getattr(torch, dtype))
+    top_idx = torch.from_numpy(np.argsort(rng.random((B, S, E)) ** 3, axis=-1)[..., :k].copy())
+    top_w = torch.from_numpy(rng.random((B, S, k)).astype(np.float32))
+    _, meta = tmoe._dispatch(x, top_idx, top_w, E, capacity)
+    ye = torch.from_numpy(rng.normal(size=(B, E, capacity, d)).astype(np.float32))
+    return x, top_idx, top_w, meta, ye.to(getattr(torch, dtype))
+
+
+def bits(t) -> np.ndarray:
+    return cpu(t.view(torch.int16) if t.dtype == torch.bfloat16 else t)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_combine_sums_each_token_in_expert_order(dtype):
+    """``_combine`` adds each token's k contributions one pick at a time in
+    ascending expert order, in ``ye``'s dtype, a dropped pair adding 0: bit
+    for bit the reference's ``.at[st].add`` (``_combine_row`` under
+    ``jax.vmap``) in float32 and bfloat16, and in float32 bit for bit the
+    old ``scatter_add_`` formula.  In bfloat16 this CPU's ``scatter_add_``
+    sums a token's contributions in float32 and rounds once, where the
+    reference rounds after each add; there the old formula sits within
+    the k roundings of the sum (unit roundoff 2^-8 of its absolute sum)."""
+    x, top_idx, top_w, meta, ye = combine_inputs(dtype)
+    E, C = ye.shape[1:3]
+    k = top_idx.shape[-1]
+    assert not meta[3].all()  # pairs dropped
+    got = tmoe._combine(ye, meta, S)
+    old, contrib = scatter_add_combine(ye, meta, S)
+    jdt = getattr(jnp, dtype)
+    _, jmeta = jax.vmap(lambda xr, ti, tw: jmoe._dispatch_row(xr, ti, tw, E, C))(
+        jnp.asarray(x.float().numpy()).astype(jdt), jnp.asarray(top_idx.numpy().astype(np.int32)),
+        jnp.asarray(top_w.numpy()))
+    want = jax.vmap(lambda yr, mt: jmoe._combine_row(yr, mt, S))(
+        jnp.asarray(ye.float().numpy()).astype(jdt), jmeta)
+    assert got.dtype == ye.dtype
+    np.testing.assert_array_equal(cpu(got.float()), np.asarray(want.astype(jnp.float32)))
+    if dtype == "float32":
+        np.testing.assert_array_equal(bits(got), bits(old))
+    else:
+        abs_sum = ye.new_zeros(got.shape, dtype=torch.float32).scatter_add_(
+            1, meta[1][..., None].expand(-1, -1, got.shape[-1]), contrib.float().abs())
+        gap = (got.float() - old.float()).abs()
+        assert bool((gap <= k * 2.0**-8 * abs_sum).all())
+
+
+class _Ops(torch.utils._python_dispatch.TorchDispatchMode):
+    """The aten operations dispatched while the mode is on, by name."""
+
+    def __init__(self):
+        super().__init__()
+        self.names = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.names.append(str(func))
+        return func(*args, **(kwargs or {}))
+
+
+def _adds_by_index(names) -> list:
+    return [n for n in names if "scatter_add" in n or "index_add" in n or "scatter_reduce" in n]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_ffn_forward_issues_no_scatter_add(dtype):
+    """``moe_ffn``'s forward issues no ``scatter_add`` or ``index_add`` (each
+    sums by atomics on the card, in no fixed order), and the gradient of
+    the dispatch's row gather, which sums each token's k gradient rows,
+    none either.  The recorder sees them where they are: in the old
+    combine and in a plain ``gather``'s backward."""
+    name = "deepseek-v2-lite-16b"
+    cfg = tconfigs.make_smoke(tconfigs.get_config(name))
+    rng = np.random.default_rng(15)
+    tdt = getattr(torch, dtype)
+    p = {key: torch.from_numpy(v).to(tdt) for key, v in moe_params(cfg, rng).items()}
+    x = torch.from_numpy(rng.normal(size=(B, S, cfg.d_model)).astype(np.float32)).to(tdt)
+    with _Ops() as ops:
+        tmoe.moe_ffn(p, x, cfg)
+    assert any("gather" in n for n in ops.names) and not _adds_by_index(ops.names)
+
+    xg, top_idx, top_w, meta, ye = combine_inputs(dtype)
+    with _Ops() as ops:
+        scatter_add_combine(ye, meta, S)
+    assert _adds_by_index(ops.names)  # the recorder sees the old combine's
+
+    xg = xg.detach().requires_grad_(True)
+    E, C, d = ye.shape[1], ye.shape[2], xg.shape[-1]
+    xe, _ = tmoe._dispatch(xg, top_idx, top_w, E, C)
+    g = torch.from_numpy(np.random.default_rng(18).normal(size=xe.shape).astype(np.float32))
+    with _Ops() as ops:
+        got, = torch.autograd.grad(xe, xg, g.to(xe.dtype))
+    assert not _adds_by_index(ops.names)
+    # the same dispatch with a plain gather: its backward adds by index
+    slot, st = meta[0], meta[1]
+    with _Ops() as ops:
+        plain = xg.new_zeros((B, E * C + 1, d)).scatter_(
+            1, slot[..., None].expand(-1, -1, d), tmoe._take(xg, st))[:, : E * C]
+        want, = torch.autograd.grad(plain.reshape(xe.shape), xg, g.to(xe.dtype))
+    assert _adds_by_index(ops.names)
+    if dtype == "float32":
+        np.testing.assert_array_equal(bits(got), bits(want))
+    else:  # each token's k rows rounded once there, after each add here
+        x32 = xg.detach().float().requires_grad_(True)
+        plain32 = x32.new_zeros((B, E * C + 1, d)).scatter_(
+            1, slot[..., None].expand(-1, -1, d), tmoe._take(x32, st))[:, : E * C]
+        abs_sum, = torch.autograd.grad(plain32.reshape(xe.shape), x32, g.abs())
+        k = top_idx.shape[-1]
+        assert bool(((got.float() - want.float()).abs() <= k * 2.0**-8 * abs_sum).all())
+
+
 def mla_params(cfg, rng):
     sch = tmodel._mla_schema(cfg)
     p = {key: rng.normal(size=v.shape) * v.shape[0] ** -0.5 for key, v in sch.items()}
