@@ -302,9 +302,16 @@ Phases, each timed, any failure fatal (a traceback and exit code 1):
             and peak memory.
 21. tools   the launch tools and the static analysis (``tools_phase``):
             ``launch/dryrun.py`` over every (arch x shape) cell on the
-            ``meta`` device on the 1 x 1 and 16 x 16 meshes, in
-            ``TOOLS_JOBS`` worker processes, one line a cell and the grid's
-            wall time; then for real on the card, at full width and the
+            ``meta`` device on the 1 x 1 card and, placed (each cell in a
+            worker with its own ``fake`` process group), on the 16 x 16
+            mesh for the 13 cells whose placement was repaired
+            (``TOOLS_REPAIRED``) and every decode cell, and on the
+            2 x 16 x 16 mesh for ``TOOLS_MULTI_POD``,
+            in ``TOOLS_JOBS`` worker processes, one line a cell and the
+            grid's wall time;
+            a cell that errs, or a placed cell with no collective, fails
+            the phase, each placed cell's collectives by kind and roofline
+            terms reported; then for real on the card, at full width and the
             shape's own batch and length, every decode cell that the 1 x 1
             dry run puts under ``TOOLS_HEADROOM`` of 80 GiB, Mamba2-130M's
             ``decode_32k`` and ``long_500k`` and RecurrentGemma-9B's
@@ -589,6 +596,18 @@ DEDUP_Q = 16  # PipelineConfig.dedup_ram_q: the dedup cascade's Q0 builds
 
 # 21. tools: the dry-run grid, cells run for real, the op audit on the card
 TOOLS_MESHES = ("1x1", "16x16")
+# the 16 x 16 cells that run placed: those whose placement failed before the
+# head views, the microbatch split and the SSD's views were repaired, and
+# every decode cell (the whole placed grid added 105-175 s to the phase on
+# the card's host; it is a CLI run, PERF.md)
+TOOLS_REPAIRED = (("qwen3-8b", "prefill_32k"), ("qwen3-8b", "train_4k"),
+                  ("starcoder2-15b", "prefill_32k"), ("starcoder2-15b", "train_4k"),
+                  ("grok-1-314b", "prefill_32k"), ("qwen2-vl-7b", "prefill_32k"),
+                  ("whisper-large-v3", "prefill_32k"), ("deepseek-v2-lite-16b", "train_4k"),
+                  ("grok-1-314b", "train_4k"), ("qwen2-vl-7b", "train_4k"),
+                  ("recurrentgemma-9b", "train_4k"), ("whisper-large-v3", "train_4k"),
+                  ("mamba2-130m", "train_4k"))
+TOOLS_MULTI_POD = ("qwen3-8b", "decode_32k")  # the one cell placed on 2 x 16 x 16
 TOOLS_JOBS = 6  # dry-run worker processes; the card's host has 8 cores
 TOOLS_HEADROOM = 0.8  # a decode cell runs if args + step estimate <= 80% of 80 GiB
 TOOLS_STEPS = 8  # timed decode steps a real cell
@@ -4541,22 +4560,55 @@ def train_phase(device, kernels) -> dict:
     return out
 
 
-def dry_grid() -> tuple:
-    """``dryrun`` over every (arch x shape) cell on ``TOOLS_MESHES``, the
-    train cells first (the longest), in ``TOOLS_JOBS`` processes; one line
-    a cell.  Returns ({(arch, shape, mesh): result}, wall seconds)."""
+def tools_cells() -> list:
+    """Every (arch x shape) cell on the 1 x 1 card; on the 16 x 16 mesh,
+    placed, the ``TOOLS_REPAIRED`` cells and every decode cell; on the
+    2 x 16 x 16 mesh ``TOOLS_MULTI_POD``.  The train cells first (the
+    longest)."""
     order = {"train": 0, "prefill": 1, "decode": 2}
-    cells = sorted((dryrun.Cell(a, s, TOOLS_MESHES) for a in ARCHS for s in SHAPES),
-                   key=lambda c: order[SHAPES[c.shape].kind])
+    cells = []
+    for a in ARCHS:
+        for s in SHAPES:
+            placed = (a, s) in TOOLS_REPAIRED or SHAPES[s].kind == "decode"
+            meshes = TOOLS_MESHES if placed else TOOLS_MESHES[:1]
+            if (a, s) == TOOLS_MULTI_POD:
+                meshes += ("2x16x16",)
+            cells.append(dryrun.Cell(a, s, meshes))
+    return sorted(cells, key=lambda c: order[SHAPES[c.shape].kind])
+
+
+def dry_grid() -> tuple:
+    """``dryrun`` over ``tools_cells`` in ``TOOLS_JOBS`` processes (each
+    placed cell in a worker with its own ``fake`` group); one line a cell.
+    A cell that errs fails the phase, as does a placed cell whose
+    collectives are none: every config is cut over the mesh.  Returns
+    ({(arch, shape, mesh): result}, wall seconds)."""
     t0 = time.perf_counter()
     results = {}
-    for _, res in dryrun.run_grid(cells, TOOLS_JOBS):
+    for _, res in dryrun.run_grid(tools_cells(), TOOLS_JOBS):
         for r in res:
             log("  " + dryrun.summary(r))
             if r["status"] == "error":
-                raise AssertionError(f"dry run of {r['arch']} {r['shape']}: {r['error']}")
+                raise AssertionError(f"dry run of {r['arch']} {r['shape']} on {r['mesh']}: "
+                                     f"{r['error']}")
+            if r["status"] == "ok" and r["mesh"] in dryrun.PLACED and not (
+                    r["collectives"]["total"] > 0):
+                raise AssertionError(f"dry run of {r['arch']} {r['shape']} on {r['mesh']}: "
+                                     "placed, and no collective")
             results[(r["arch"], r["shape"], r["mesh"])] = r
+    if dist.is_initialized():
+        raise AssertionError("the dry run left this process a process group")
     return results, time.perf_counter() - t0
+
+
+def placed_report(dry) -> dict:
+    """The placed cells' seconds, collectives by kind and roofline terms."""
+    return {f"{a} {s} {m}": {"seconds": r["seconds"], "collectives": r["collectives"],
+                             "calls": r["collective_calls"]["total"],
+                             **{k: r["roofline"][k] for k in ("t_compute_s", "t_memory_s",
+                                                              "t_collective_s", "bound")}}
+            for (a, s, m), r in sorted(dry.items())
+            if m in dryrun.PLACED and r["status"] == "ok"}
 
 
 def grown_bytes(build) -> tuple:
@@ -4782,8 +4834,10 @@ def tools_phase(device, kernels) -> dict:
     """Phase 21: the dry-run grid, the cells run for real, the op audit on
     the card, ``spec_check`` and the lint."""
     dry, grid_s = dry_grid()
-    log(f"  dry-run grid: {len(dry)} (cell, mesh) results in {grid_s:.1f} s")
-    report = {"grid_s": grid_s, "grid_results": len(dry)}
+    placed = placed_report(dry)
+    log(f"  dry-run grid: {len(dry)} (cell, mesh) results, {len(placed)} placed, in "
+        f"{grid_s:.1f} s")
+    report = {"grid_s": grid_s, "grid_results": len(dry), "placed": placed}
     report["real"] = real_cells(device, dry)
     report["audit"] = tools_audit(kernels)
     for name in ("spec", "lint"):

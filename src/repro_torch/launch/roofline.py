@@ -10,9 +10,11 @@ mesh), in seconds:
 The rates are the NVIDIA H100 SXM data sheet's (in place of the TPU
 v5e's of the reference).  The port has no compiled program to read: the
 dry run (``launch/dryrun.py``) counts a step's flops as it runs on the
-``meta`` device, and on one device a step has no collectives, so the
-reference's HLO parser (``collective_bytes``) has no counterpart.  The
-memory term is the bytes a step must move, whatever code runs it
+``meta`` device, and on a placed mesh the bytes of every collective the
+step issues, by kind, in the reference's output-shape convention
+(``dryrun.StepMeter``, where the reference parses the HLO with
+``collective_bytes``); the collective term is their total over
+``LINK_BW``, one card's NVLink.  The memory term is the bytes a step must move, whatever code runs it
 (``step_bytes``: ``prefill_bytes``, ``decode_bytes``, ``train_bytes``),
 the same counts that ``prefill_bound_ms``, ``decode_bound_ms`` and
 ``train_bound_ms`` put over the HBM rate for the serving and training
@@ -33,7 +35,8 @@ from ..models.transformer import layer_kinds
 PEAK_FLOPS = 989e12  # dense bf16 tensor-core peak
 HBM_BW = 3.35e12  # HBM3, bytes/s
 # NVLink 4, bytes/s one way: a data sheet number that one card cannot
-# measure (a mesh of more than one card waits for a machine with two)
+# measure (a mesh of more than one card waits for a machine with two); the
+# dry run's collective term
 LINK_BW = 450e9
 
 

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from ..sharding import constrain
+from ..sharding import constrain, flatten, is_placed, like, local_over, matmul, unflatten, unshard
 from .layers import apply_mrope, apply_rope, rms_norm
 
 NEG_INF = -1e30
@@ -80,6 +80,7 @@ def _attend_chunked(
     return torch.cat(outs, dim=1)
 
 
+@local_over(0, 2)
 def attend(
     q, k, v, q_pos, k_pos, *, causal=True, window=0, softcap=0.0,
     q_chunk=512, kv_chunk=1024, chunk_threshold=2048, scale=None,
@@ -104,6 +105,7 @@ def attend(
     )
 
 
+@local_over(0, 2)
 def _attend_decode(qg, ck, cv, kpos, k_new, v_new, q_pos, *, window, softcap, scale):
     """Single-token decode over a read-only cache plus the fresh K/V.
 
@@ -124,6 +126,52 @@ def _attend_decode(qg, ck, cv, kpos, k_new, v_new, q_pos, *, window, softcap, sc
 # ---------------------------------------------------------------------------
 # GQA attention layer (covers MHA and MQA as kv_heads extremes)
 # ---------------------------------------------------------------------------
+
+
+def project_heads(x, w):
+    """``einsum("bsd,dhk->bshk", x, w)``: one product over the flattened
+    (h·k) columns, then viewed as (h, k) heads, as the einsum computes it.
+    On a mesh two cuts are gathered first (``sharding.unshard``,
+    ``unflatten``): a cut of ``w``'s head dim, which flattened behind the
+    heads is a strided cut whose every redistribution DTensor plans by a
+    graph search (minutes a step on the 2 x 16 x 16 mesh); and a cut of
+    the product's columns that does not fall between whole heads (8 KV
+    heads' columns cut 16 ways, 28 or 20 heads'), which DTensor cannot
+    view.  The weight's gradient comes back whole the same way
+    (``sharding.flatten``)."""
+    _, h, k = w.shape
+    return unflatten(matmul(x, flatten(unshard(w, 2), 1, 2)), -1, (h, k))
+
+
+def project_out(o, w):
+    """``einsum("bshk,hkd->bsd", o, w)``: one product over the flattened
+    (h·k) heads, as the einsum computes it.  On a mesh a cut of the head
+    dim (decode's, with few KV heads) is gathered first in ``o`` and
+    ``w``: flattened behind the heads it would be a strided cut (see
+    :func:`project_heads`)."""
+    return matmul(flatten(unshard(o, 3), 2, 3), flatten(unshard(w, 1), 0, 1))
+
+
+def _query_groups(q, k, v, kv_heads: int):
+    """(qg, k, v) for ``attend``: q (B, S, H, Dh) as (B, S, KV, G, Dh),
+    each KV head's G query heads, beside k, v (B, S, KV, Dh).  On a mesh
+    whose cut of the heads falls inside a group (32 heads over 8 KV heads,
+    cut 16 ways) DTensor cannot view q so: each KV head is then repeated
+    for its G query heads and cut as q is (a local slice of K/V that no
+    mesh axis cuts), and the groups are (H, 1), the same scores."""
+    B, S, H, Dh = q.shape
+    if is_placed(q):
+        from torch.distributed.tensor import Shard
+
+        cuts = 1
+        for i, p in enumerate(q.placements):
+            if isinstance(p, Shard) and p.dim == 2:
+                cuts *= q.device_mesh.size(i)
+        if kv_heads % cuts:
+            G = H // kv_heads
+            k, v = (like(t.repeat_interleave(G, dim=2), q) for t in (k, v))
+            return q.unsqueeze(3), k, v
+    return q.reshape(B, S, kv_heads, H // kv_heads, Dh), k, v
 
 
 def gqa_attention(
@@ -150,13 +198,13 @@ def gqa_attention(
     H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     G = H // KV
 
-    q = constrain(torch.einsum("bsd,dhk->bshk", x, p["wq"]), "batch", None, "heads", "head_dim")
+    q = constrain(project_heads(x, p["wq"]), "batch", None, "heads", "head_dim")
     if is_cross and cache is not None:  # cross-attn decode: cached enc K/V
         k, v = cache["k"], cache["v"]
     else:
         src = kv_from if is_cross else x
-        k = torch.einsum("bsd,dhk->bshk", src, p["wk"])
-        v = torch.einsum("bsd,dhk->bshk", src, p["wv"])
+        k = project_heads(src, p["wk"])
+        v = project_heads(src, p["wv"])
     k = constrain(k, "batch", None, "kv_heads", "head_dim")
     v = constrain(v, "batch", None, "kv_heads", "head_dim")
 
@@ -173,15 +221,14 @@ def gqa_attention(
             q = apply_rope(q, positions, cfg.rope_theta)
             k = apply_rope(k, positions, cfg.rope_theta)
 
-    qg = q.reshape(B, S, KV, G, Dh)
     if cache is not None and not is_cross:
         # decode: read-only cache + fresh-token merge; emit the delta
         o = _attend_decode(
-            qg, cache["k"], cache["v"], cache["kpos"], k, v, positions,
+            q.reshape(B, S, KV, G, Dh), cache["k"], cache["v"], cache["kpos"], k, v, positions,
             window=window, softcap=cfg.logit_softcap, scale=Dh**-0.5,
         )
         o = constrain(o.reshape(B, S, H, Dh), "batch", None, "heads", "head_dim")
-        return torch.einsum("bshk,hkd->bsd", o, p["wo"]), {"k": k, "v": v}
+        return project_out(o, p["wo"]), {"k": k, "v": v}
 
     if cache is not None:  # cross-attn decode
         k_pos = cache["kpos"]
@@ -189,14 +236,15 @@ def gqa_attention(
         k_pos = torch.arange(k.shape[1], device=x.device).expand(k.shape[:2])
     else:
         k_pos = positions
+    qg, kh, vh = _query_groups(q, k, v, KV)
     o = attend(
-        qg, k, v, positions, k_pos,
+        qg, kh, vh, positions, k_pos,
         causal=causal and not is_cross,
         window=window,
         softcap=cfg.logit_softcap,
     )
     o = constrain(o.reshape(B, S, H, Dh), "batch", None, "heads", "head_dim")
-    return torch.einsum("bshk,hkd->bsd", o, p["wo"]), (k, v)
+    return project_out(o, p["wo"]), (k, v)
 
 
 # ---------------------------------------------------------------------------
@@ -215,11 +263,11 @@ def mla_attention(p, x, cfg, positions, *, cache=None):
     nope, rdim, lora = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.kv_lora_rank
     scale = (nope + rdim) ** -0.5
 
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])  # (B,S,H,nope+rope)
+    q = project_heads(x, p["wq"])  # (B,S,H,nope+rope)
     q_nope, q_rope = q[..., :nope], q[..., nope:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
 
-    ckv_full = torch.einsum("bsd,dk->bsk", x, p["w_dkv"])  # (B,S,lora+rope)
+    ckv_full = matmul(x, p["w_dkv"])  # (B,S,lora+rope)
     c_kv = rms_norm(ckv_full[..., :lora], p["kv_norm"], cfg.norm_eps)
     # the shared single-head rope key
     k_rope = apply_rope(ckv_full[..., None, lora:], positions, cfg.rope_theta)[:, :, 0, :]
@@ -243,7 +291,7 @@ def mla_attention(p, x, cfg, positions, *, cache=None):
             "bhst,btl->bshl", w[..., :-1].to(x.dtype), cache["c_kv"]
         ) + torch.einsum("bhst,btl->bshl", w[..., -1:].to(x.dtype), c_kv)
         o = torch.einsum("bshl,lhv->bshv", ctx, p["w_uv"])
-        out = torch.einsum("bshv,hvd->bsd", o, p["wo"])
+        out = project_out(o, p["wo"])
         return out, {"c_kv": c_kv, "k_rope": k_rope}
 
     # Absorbed MLA == GQA with ONE latent KV head: queries in (lora + rope)
@@ -254,5 +302,5 @@ def mla_attention(p, x, cfg, positions, *, cache=None):
         q_all, k_all, c_kv[:, :, None, :], positions, positions, causal=True, scale=scale
     )[:, :, 0]  # (B, S, H, lora)
     o = torch.einsum("bshl,lhv->bshv", ctx.to(x.dtype), p["w_uv"])
-    out = torch.einsum("bshv,hvd->bsd", o, p["wo"])
+    out = project_out(o, p["wo"])
     return out, (c_kv, k_rope)

@@ -44,7 +44,7 @@ from .. import sharding as shd
 from ..core.quotient_filter import resolve_device
 from ..sharding import constrain
 from . import schema as S
-from .attention import gqa_attention
+from .attention import gqa_attention, project_heads
 from .layers import embed_tokens, mlp, unembed
 from .transformer import (
     apply_unit,
@@ -362,16 +362,16 @@ def _embed_in(params, cfg, tokens, pos=None):
     positions (whisper) at 0..S-1, or at the decode position ``pos`` (a
     device scalar).  A position past the table reads its last row, as
     the reference's clamping gather does.  The rows are gathered by
-    indexing: on a table placed on a mesh whose gradient comes back cut
-    along the rows, ``index_select``'s backward returns a DTensor whose
-    shard is the whole table."""
+    ``sharding.take_rows`` (on a mesh each rank picks its own rows from
+    the whole table; ``index_select``'s backward returned a DTensor whose
+    shard was the whole table)."""
     x = embed_tokens(params["tok_embed"], tokens, cfg.embed_scale, cfg.d_model)
     x = x.to(getattr(torch, cfg.act_dtype))
     if cfg.rope == "learned":
         if pos is None:
             pos = torch.arange(tokens.shape[1], device=tokens.device)
         idx = torch.clamp(pos, max=cfg.max_seq - 1).to(torch.int64).reshape(-1)
-        x = x + params["pos_embed"][idx][None].to(x.dtype)
+        x = x + shd.take_rows(params["pos_embed"], idx)[None].to(x.dtype)
     return x
 
 
@@ -596,6 +596,8 @@ def _ring_gather(kv, S, length, axis: int = 1):
             torch.arange(S, dtype=torch.int32, device=device),
             torch.full((length - S,), -1, dtype=torch.int32, device=device),
         ])
+        if length == S:  # no empty slot: the K/V as they are, copied
+            return kv.clone(memory_format=torch.contiguous_format), idx
         return torch.nn.functional.pad(kv, pad), idx
     offs = (torch.arange(length, device=device) - S) % length
     idx = (S - length + offs).to(torch.int32)
@@ -632,7 +634,7 @@ def _fill_cross(cross, p_cross, enc_out):
     the products come out, as the ring-gathered K/V are)."""
     for name, w in (("k", "wk"), ("v", "wv")):
         cross[name] = torch.stack([
-            torch.einsum("bsd,dhk->bshk", enc_out, p_cross[w][i]).to(cross[name].dtype)
+            project_heads(enc_out, p_cross[w][i]).to(cross[name].dtype)
             for i in range(cross[name].shape[0])])
     kp = cross["kpos"]
     cross["kpos"] = torch.arange(kp.shape[-1], dtype=kp.dtype, device=kp.device).expand(

@@ -35,7 +35,7 @@ from __future__ import annotations
 import torch
 
 from .. import sharding as shd
-from ..sharding import constrain
+from ..sharding import constrain, matmul
 from .layers import _act
 
 
@@ -51,7 +51,7 @@ def expert_capacity(cfg, S: int) -> int:
 def route(p, x, cfg):
     """Router probabilities (B, S, E) float32 and each token's top-k
     weights (renormalised) and experts (B, S, k)."""
-    logits = torch.einsum("bsd,de->bse", x, p["router"]).float()
+    logits = matmul(x, p["router"]).float()
     return _top_k(logits, cfg.top_k)
 
 
@@ -166,10 +166,10 @@ def _shared_experts(p, x, kind: str):
     """The shared experts as one dense MLP on the gathered ``x``, with
     ``layers.mlp``'s products and no constrain site, as the reference."""
     if kind in ("swiglu", "geglu"):
-        h = _act(kind, x @ p["shared_wg"]) * (x @ p["shared_wi"])
+        h = _act(kind, matmul(x, p["shared_wg"])) * matmul(x, p["shared_wi"])
     else:
-        h = _act(kind, x @ p["shared_wi"])
-    return h @ p["shared_wo"]
+        h = _act(kind, matmul(x, p["shared_wi"]))
+    return matmul(h, p["shared_wo"])
 
 
 def moe_ffn(p, x, cfg):

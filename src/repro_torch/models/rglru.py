@@ -23,7 +23,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..sharding import constrain
+from ..sharding import constrain, matmul, unshard
 from .layers import conv1d_causal
 
 _C = 8.0
@@ -41,9 +41,14 @@ def _scan(a, h):
 
 
 def _rg_lru(p, x, h0=None):
-    """x: (B, S, W). Returns (y, h_last)."""
-    r = torch.sigmoid((x @ p["w_a"]).float() + p["b_a"].float())
-    i = torch.sigmoid((x @ p["w_x"]).float() + p["b_x"].float())
+    """x: (B, S, W). Returns (y, h_last).  On a mesh the gates' products
+    take x with its width whole (``sharding.unshard``), the columns of
+    ``w_a`` and ``w_x`` cut as their specs say: DTensor of torch 2.11
+    otherwise picks a layout that asks to turn a cut into a partial sum,
+    which it cannot."""
+    xw = unshard(x, -1)
+    r = torch.sigmoid(matmul(xw, p["w_a"]).float() + p["b_a"].float())
+    i = torch.sigmoid(matmul(xw, p["w_x"]).float() + p["b_x"].float())
     log_a = -_C * F.softplus(p["lam"].float()) * r  # (B,S,W)
     a = torch.exp(log_a)
     gated = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) * (i * x.float())
@@ -63,8 +68,8 @@ def recurrent_block(p, x, cfg, *, cache=None):
 
     Returns (out, new_cache, {"state", "conv"}): new_cache None without a
     cache."""
-    gate = F.gelu(x @ p["w_gate"], approximate="tanh")
-    rec = constrain(x @ p["w_rec"], "batch", None, "lru")
+    gate = F.gelu(matmul(x, p["w_gate"]), approximate="tanh")
+    rec = constrain(matmul(x, p["w_rec"]), "batch", None, "lru")
 
     conv_cache = cache["conv"] if cache is not None else None
     rec, new_conv = conv1d_causal(rec, p["conv_w"], p["conv_b"], cache=conv_cache)
@@ -72,6 +77,6 @@ def recurrent_block(p, x, cfg, *, cache=None):
     h0 = cache["state"] if cache is not None else None
     rec, h_last = _rg_lru(p, rec, h0)
 
-    y = (gate * rec) @ p["w_out"]
+    y = matmul(gate * rec, p["w_out"])
     new_cache = {"conv": new_conv, "state": h_last} if cache is not None else None
     return y, new_cache, {"state": h_last, "conv": new_conv}

@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import sharding as shd
-from ..sharding import constrain
+from ..sharding import constrain, flatten, matmul
 from .layers import conv1d_causal, rms_norm
 
 
@@ -47,10 +47,9 @@ def _ssd_chunked(xh, dt, A, Bm, Cm, chunk: int):
     hper = H // G
     nc = S // chunk
 
-    xc = xh.reshape(B_, nc, chunk, H, P)
-    dtc = dt.reshape(B_, nc, chunk, H)
-    Bc = Bm.reshape(B_, nc, chunk, G, N)
-    Cc = Cm.reshape(B_, nc, chunk, G, N)
+    # (B, nc, Q, ...): on a mesh whose cut of the sequence does not divide
+    # the chunk count, the sequence is gathered first (``sharding.unflatten``)
+    xc, dtc, Bc, Cc = (shd.unflatten(t, 1, (nc, chunk)) for t in (xh, dt, Bm, Cm))
 
     dA = dtc * A  # (B, nc, Q, H), negative
     cum = _cumsum(dA, 2)  # within-chunk cumulative
@@ -90,7 +89,7 @@ def _ssd_chunked(xh, dt, A, Bm, Cm, chunk: int):
     Ch = _repeat(Cc, hper, 3) if G != H else Cc
     y_inter = torch.einsum("bcqhn,bchpn->bcqhp", Ch.float() * torch.exp(cum)[..., None], prev)
     y = y_intra + y_inter.to(xh.dtype)
-    return y.reshape(B_, S, H, P), h.to(xh.dtype)
+    return flatten(y, 1, 2), h.to(xh.dtype)
 
 
 def ssm_block(p, x, cfg, *, cache=None):
@@ -104,7 +103,7 @@ def ssm_block(p, x, cfg, *, cache=None):
     P = cfg.ssm_head_dim
     H = d_in // P
 
-    zxbcdt = x @ p["in_proj"]
+    zxbcdt = matmul(x, p["in_proj"])
     z, xBC, dt = torch.split(zxbcdt, [d_in, d_in + 2 * G * N, H], dim=-1)
     xBC = constrain(xBC, "batch", None, "ssm_inner")
 
@@ -143,8 +142,8 @@ def ssm_block(p, x, cfg, *, cache=None):
         new_state = h1.to(x.dtype)
 
     y = y + xh * p["D"][None, None, :, None].to(y.dtype)
-    y = y.reshape(B, S, d_in)
+    y = flatten(y, 2, 3)  # (B, S, d_in); on a mesh its gradient viewed back whole
     y = rms_norm(y * F.silu(z), p["out_norm"], cfg.norm_eps)
-    out = y @ p["out_proj"]
+    out = matmul(y, p["out_proj"])
     new_cache = {"conv": new_conv, "state": new_state} if cache is not None else None
     return out, new_cache, {"state": new_state, "conv": new_conv}

@@ -17,10 +17,22 @@ placements (:meth:`ShardingRules.placements`), :func:`place` distributes
 a tree by its specs and :func:`constrain` redistributes a DTensor, where
 the reference calls ``with_sharding_constraint``.  A plain tensor passes
 ``constrain`` unchanged (after the rank check), so a description-only
-mesh (the dry run's ``meta`` meshes) and every unplaced path run as
-before.  :func:`check_devices` refuses a mesh that is not one rank a
-device of the group.  :func:`row_local` runs a per-row function (what the
-reference ``vmap``s over the batch) on each rank's own rows.
+mesh and every unplaced path run as before.  :func:`meta_mesh` holds a
+``DeviceMesh`` whose arrays live on ``meta``: the dry run's placed mesh,
+where :func:`place` makes each leaf rank 0's shard with no memory.
+:func:`check_devices` refuses a mesh that is not one rank a device of
+the group.
+
+Where GSPMD partitions an op that DTensor cannot (a view of a dim cut
+inside its leading part; on torch 2.11, a view of several dims as one
+where any but the first is cut), the model calls a named redistribution
+that is the identity on a plain tensor: :func:`unflatten` and
+:func:`flatten` view dims as several or as one, :func:`matmul` gathers
+a cut sequence before a product, :func:`take_rows` picks a table's rows
+for each rank's own index rows, :func:`row_local` runs a per-row
+function (what the reference ``vmap``s over the batch) on each rank's
+own rows and :func:`local_over` an attention core on each rank's own
+batch and heads.
 """
 
 from __future__ import annotations
@@ -44,11 +56,14 @@ _STATE = threading.local()
 @dataclass(frozen=True)
 class Mesh:
     """A named device mesh: ``shape`` an ordered {axis name: size}, and
-    ``device_mesh`` the ranks' ``DeviceMesh`` (``None``: a description)."""
+    ``device_mesh`` the ranks' ``DeviceMesh`` (``None``: a description),
+    whose dims are ``device_axes``' groups of adjacent axes."""
 
     shape: dict
     device: torch.device
     device_mesh: Any = None
+    # the DeviceMesh's dims as groups of axis names (None: one axis a dim)
+    device_axes: Optional[tuple] = None
 
     @property
     def axis_names(self) -> tuple:
@@ -57,6 +72,11 @@ class Mesh:
     @property
     def size(self) -> int:
         return math.prod(self.shape.values())
+
+    @property
+    def groups(self) -> tuple:
+        """The axes each dim of the ``DeviceMesh`` stands for."""
+        return self.device_axes or tuple((a,) for a in self.shape)
 
 
 def make_mesh(sizes, names, device=None) -> Mesh:
@@ -75,6 +95,32 @@ def make_mesh(sizes, names, device=None) -> Mesh:
     check_devices(mesh)
     dm = init_device_mesh(mesh.device.type, tuple(mesh.shape.values()),
                           mesh_dim_names=mesh.axis_names)
+    return dataclasses.replace(mesh, device_mesh=dm)
+
+
+def meta_mesh(sizes, names, device_axes=None) -> Mesh:
+    """A mesh of ``sizes`` over ``names`` whose arrays live on ``meta`` and
+    that holds a ``DeviceMesh`` (of the CPU's device type) over the
+    initialised group's ranks, one a device (:func:`check_devices`).  The
+    dry run's placed mesh: its workers open a ``fake`` group of
+    ``mesh.size`` ranks as rank 0, :func:`place` makes each leaf rank 0's
+    shard on ``meta``, and a step then runs every redistribution and
+    collective its placements call for, on shapes alone.  ``device_axes``
+    groups adjacent axes into one dim of the ``DeviceMesh`` (axes every
+    spec cuts together, as the data-parallel ("pod", "data")): one
+    collective then spans the group's ranks, as XLA's does."""
+    if not dist.is_initialized():
+        raise ValueError("a placed meta mesh needs an initialised process group")
+    mesh = dataclasses.replace(make_mesh(sizes, names, device="meta"),
+                               device_axes=None if device_axes is None
+                               else tuple(map(tuple, device_axes)))
+    if [a for g in mesh.groups for a in g] != list(mesh.shape):
+        raise ValueError(f"device axes {mesh.groups} are not the axes {tuple(mesh.shape)} in order")
+    check_devices(mesh)
+    from torch.distributed.device_mesh import init_device_mesh
+
+    dm = init_device_mesh("cpu", tuple(math.prod(mesh.shape[a] for a in g) for g in mesh.groups),
+                          mesh_dim_names=tuple("_".join(g) for g in mesh.groups))
     return dataclasses.replace(mesh, device_mesh=dm)
 
 
@@ -223,18 +269,20 @@ def shards(mesh, spec) -> tuple:
 
 
 def placements(mesh, spec) -> tuple:
-    """A partition spec as DTensor placements, one a mesh axis in the
-    mesh's order: ``Shard(d)`` where the axis cuts tensor dim ``d``,
+    """A partition spec as DTensor placements, one a dim of the mesh's
+    ``DeviceMesh`` (a mesh axis, or a group of them, ``Mesh.groups``) in
+    the mesh's order: ``Shard(d)`` where the axis cuts tensor dim ``d``,
     ``Replicate()`` elsewhere, and on an axis of one device, which cuts
     nothing (a ``Shard`` there would stop DTensor from merging the dim in
     a view, as a decode step's ``seq`` of 1).  JAX cuts a dim named by a
     tuple of axes major to minor in the tuple's order, DTensor in
     mesh-axis order, so a tuple against the mesh's order (a layout
-    DTensor's ``Shard`` cannot hold) raises."""
+    DTensor's ``Shard`` cannot hold) raises, as does a spec that cuts a
+    part of a group."""
     from torch.distributed.tensor import Replicate, Shard
 
     names = mesh.axis_names
-    out = [Replicate()] * len(names)
+    out = [Replicate()] * len(mesh.groups)
     for d, part in enumerate(spec):
         if part is None:
             continue
@@ -245,8 +293,12 @@ def placements(mesh, spec) -> tuple:
                 f"spec {spec} cuts dim {d} by {axes} major to minor; "
                 f"the mesh {names} would cut it in its own order"
             )
-        for i in order:
-            if mesh.shape[names[i]] > 1:
+        for i, group in enumerate(mesh.groups):
+            cut = [a for a in group if a in axes]
+            if cut and len(cut) < len(group):
+                raise ValueError(f"spec {spec} cuts dim {d} by {axes}, a part of the "
+                                 f"device mesh dim {group}")
+            if cut and math.prod(mesh.shape[a] for a in group) > 1:
                 out[i] = Shard(d)
     return tuple(out)
 
@@ -281,17 +333,179 @@ def from_local(x, ref):
                               shape=ref.shape, stride=ref.stride())
 
 
-def unshard(x, dim: int):
-    """A DTensor redistributed so that no mesh axis cuts ``dim``, its other
-    placements kept: the explicit redistribution before an op whose
+def unshard(x, *dims: int):
+    """A DTensor redistributed so that no mesh axis cuts ``dims``, its
+    other placements kept: the explicit redistribution before an op whose
     DTensor strategy fails on a cut dim.  A plain tensor as it is."""
     if not is_placed(x):
         return x
     from torch.distributed.tensor import Replicate, Shard
 
-    dim %= x.ndim
-    pl = [Replicate() if isinstance(p, Shard) and p.dim == dim else p for p in x.placements]
+    dims = {d % x.ndim for d in dims}
+    pl = [Replicate() if isinstance(p, Shard) and p.dim in dims else p for p in x.placements]
     return x.redistribute(x.device_mesh, pl)
+
+
+def unflatten(x, dim: int, sizes: tuple):
+    """``x.unflatten(dim, sizes)``.  On a DTensor, the mesh axes that cut
+    ``dim`` are first gathered (an explicit all-gather, :func:`unshard`)
+    unless their product divides ``sizes[0]``: DTensor cannot view a cut
+    dim as several when the cut falls inside the leading one (a 16-way
+    cut of 8 KV heads' columns, of a 256-row batch viewed as 2
+    microbatches, of an SSD's 24 heads)."""
+    if is_placed(x):
+        from torch.distributed.tensor import Shard
+
+        dim %= x.ndim
+        cuts = math.prod(x.device_mesh.size(i) for i, p in enumerate(x.placements)
+                         if isinstance(p, Shard) and p.dim == dim)
+        if sizes[0] % cuts:
+            x = unshard(x, dim)
+    return x.unflatten(dim, sizes)
+
+
+def matmul(x, w):
+    """``x @ w`` for x (..., d) and w (d, n).  ``aten.matmul`` views x's
+    leading dims as one; DTensor of torch 2.11 cannot view dims as one
+    where a mesh axis cuts any but the first (a sequence cut between
+    blocks, sequence parallelism), so on a DTensor those cuts are gathered
+    first (an explicit all-gather, as Megatron's sequence parallelism
+    gathers the sequence before a column-parallel product).  The product
+    is then redistributed to its own placements, so that its gradient
+    comes back in them before the backward's products view it the same
+    way."""
+    if not (is_placed(x) and x.ndim > 2):
+        return x @ w
+    return _grad_as_output(unshard(x, *range(1, x.ndim - 1)) @ w)
+
+
+def take_rows(table, idx):
+    """``table[idx]``: rows of a table picked by an index tensor.  On a
+    mesh each rank picks the rows of its own index rows (dim 0 of
+    ``idx``, the batch) from the whole table; the table's gradient is
+    each rank's picks summed over the ranks whose index rows differ (a
+    partial sum, which DTensor reduces into the table's placements).
+    DTensor of torch 2.11 has no working strategy for the backward
+    (``index_put``) of a table indexed by a cut index; with no gradient to
+    take (serving) the rows are DTensor's own pick, which gathers no
+    table."""
+    if not (is_placed(table) or is_placed(idx)) or not (
+            torch.is_grad_enabled() and table.requires_grad):
+        return table[idx]
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = (idx if is_placed(idx) else table).device_mesh
+    rows = tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                 for p in idx.placements) if is_placed(idx) else (Replicate(),) * mesh.ndim
+    if is_placed(table):
+        sums = [Partial() if isinstance(p, Shard) else Replicate() for p in rows]
+        table = table.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(
+            grad_placements=sums)
+    shape = tuple(idx.shape) + tuple(table.shape[1:])
+    if is_placed(idx):
+        idx = idx.redistribute(mesh, rows).to_local()
+    return DTensor.from_local(table[idx], mesh, rows, run_check=False, shape=shape,
+                              stride=_contiguous_stride(shape))
+
+
+def _contiguous_stride(shape) -> tuple:
+    stride = [1] * len(shape)
+    for d in range(len(shape) - 2, -1, -1):
+        stride[d] = stride[d + 1] * shape[d + 1]
+    return tuple(stride)
+
+
+def _grad_as_output(y):
+    """The DTensor ``y`` redistributed to its own placements: nothing moves
+    in the forward, and the backward brings the gradient to them."""
+    return y.redistribute(y.device_mesh, y.placements)
+
+
+def local_over(*dims):
+    """A decorator: ``fn`` run on each rank's own block of ``dims`` (an
+    attention core's batch and heads, each block's work independent of
+    the others') where the reference lets GSPMD partition the ops inside.
+    DTensor of torch 2.11 cannot run them partitioned: each batched
+    product views the batch and the heads as one dim, both cut.  With no
+    DTensor among the arguments, or one cut outside ``dims`` (a cache's
+    head dim cut for few KV heads: a contraction DTensor sums over the
+    ranks, where blocks would gather the cache), ``fn`` is called as it
+    is.  Otherwise the first DTensor argument's cuts are the blocks: each tensor argument is redistributed
+    to them (a plain tensor taken as replicated, so a local slice; an
+    argument keeps the cuts of the dims it has), ``fn`` runs on the local
+    tensors, and each tensor it returns becomes a DTensor of those
+    placements.  ``to_local`` and ``from_local`` carry gradients."""
+
+    def decorate(fn):
+        @functools.wraps(fn)
+        def wrapped(*args, **kwargs):
+            placed = [a for a in args if is_placed(a)]
+            if not placed:
+                return fn(*args, **kwargs)
+            from torch.distributed.tensor import DTensor, Replicate, Shard
+
+            if any(isinstance(p, Shard) and p.dim not in dims
+                   for a in placed for p in a.placements):
+                return fn(*args, **kwargs)
+            first = placed[0]
+            mesh = first.device_mesh
+
+            def blocks(t):
+                return tuple(p if isinstance(p, Shard) and p.dim < t.ndim else Replicate()
+                             for p in first.placements)
+
+            def down(a):
+                if not torch.is_tensor(a):
+                    return a
+                if not is_placed(a):
+                    a = DTensor.from_local(a, mesh, [Replicate()] * mesh.ndim, run_check=False)
+                return a.redistribute(mesh, blocks(a)).to_local()
+
+            n = math.prod(mesh.size(i) for i, p in enumerate(first.placements)
+                          if isinstance(p, Shard))
+            prev = getattr(_STATE, "blocks", None)
+            _STATE.blocks = (prev or 1) * n
+            try:
+                out = fn(*(down(a) for a in args), **kwargs)
+            finally:
+                _STATE.blocks = prev
+            def up(t):  # a cut dim of a result is the first argument's (maybe uneven)
+                pl = blocks(t)
+                cuts = [1] * t.ndim
+                for i, p in enumerate(pl):
+                    if isinstance(p, Shard):
+                        cuts[p.dim] *= mesh.size(i)
+                shape = tuple(first.shape[d] if cuts[d] > 1 else n for d, n in enumerate(t.shape))
+                if shape == tuple(n * c for n, c in zip(t.shape, cuts)):
+                    return DTensor.from_local(t, mesh, pl, run_check=False)
+                return DTensor.from_local(t.contiguous(), mesh, pl, run_check=False, shape=shape,
+                                          stride=_contiguous_stride(shape))
+
+            return _map_tensors(up, out)
+
+        return wrapped
+
+    return decorate
+
+
+def local_blocks() -> Optional[int]:
+    """How many blocks the work in progress is one of: inside a
+    :func:`local_over` call on a mesh, the product of the sizes of the
+    mesh axes that cut its blocks (the dry run's meter counts a block's
+    flops this many times); None outside."""
+    return getattr(_STATE, "blocks", None)
+
+
+def flatten(x, start: int, end: int):
+    """``x.flatten(start, end)``.  On a DTensor the flattened tensor is then
+    redistributed to its own placements: nothing moves in the forward,
+    and the backward brings the gradient to those placements (an explicit
+    all-gather where it comes back cut) before the view that unflattens
+    it, which DTensor cannot make of a gradient cut inside the leading dim
+    (a weight's columns cut 16 ways behind 8 KV heads, an SSD output cut
+    16 ways behind 24 heads)."""
+    y = x.flatten(start, end)
+    return _grad_as_output(y) if is_placed(y) else y
 
 
 def row_local(fn):
@@ -360,16 +574,26 @@ def place(tree, spec_tree, mesh: Mesh):
     """Each leaf of a tree (nested dicts, ``NamedTuple`` fields, ``None``)
     on ``mesh``'s ``DeviceMesh`` by its spec: a plain tensor distributed
     (every rank holds the same whole tensor, made from one seed; DTensor
-    takes rank 0's), a DTensor redistributed.  A mesh without a
-    ``DeviceMesh`` raises: nothing is placed on a description."""
+    takes rank 0's), a DTensor redistributed.  On a :func:`meta_mesh` a
+    plain leaf becomes rank 0's shard (the ceiling shard, the one
+    :func:`shards` counts), empty on ``meta``, at the leaf's global shape
+    and stride.  A mesh without a ``DeviceMesh`` raises: nothing is placed
+    on a description."""
     if mesh.device_mesh is None:
         raise ValueError(f"the mesh {dict(mesh.shape)} has no DeviceMesh to place on")
-    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor import DTensor, distribute_tensor
 
     def one(x, spec):
         pl = placements(mesh, spec)
         if is_placed(x):
             return x.redistribute(mesh.device_mesh, pl)
+        if mesh.device.type == "meta":
+            from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+            shape, _ = compute_local_shape_and_global_offset(x.shape, mesh.device_mesh, pl)
+            return DTensor.from_local(torch.empty(shape, dtype=x.dtype, device="meta"),
+                                      mesh.device_mesh, pl, run_check=False,
+                                      shape=x.shape, stride=x.stride())
         return distribute_tensor(x.to(mesh.device), mesh.device_mesh, pl)
 
     def walk(x, spec):
@@ -436,8 +660,5 @@ def _as_laid_out(x):
         return x
     from torch.distributed.tensor import DTensor
 
-    stride = [1] * x.ndim
-    for d in range(x.ndim - 2, -1, -1):
-        stride[d] = stride[d + 1] * x.shape[d + 1]
     return DTensor.from_local(loc, x.device_mesh, x.placements, run_check=False,
-                              shape=x.shape, stride=tuple(stride))
+                              shape=x.shape, stride=_contiguous_stride(x.shape))

@@ -96,14 +96,18 @@ def make_train_step(cfg, ocfg: optim.OptConfig, *, microbatches: int = 1, remat=
     def train_step(state: TrainState, batch):
         params = state.params
         if microbatches > 1:
-            # microbatch m takes rows m b/mb ... (m + 1) b/mb - 1
-            mbs = {k: v.reshape(microbatches, v.shape[0] // microbatches, *v.shape[1:])
+            # microbatch m takes rows m b/mb ... (m + 1) b/mb - 1.  On a mesh
+            # the rows are gathered before the view where the data axes do
+            # not divide mb (``sharding.unflatten``), and each microbatch is
+            # then cut as the batch was (``sharding.like``: a local slice)
+            mbs = {k: shd.unflatten(v, 0, (microbatches, v.shape[0] // microbatches))
                    for k, v in batch.items()}
             gacc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                     for p in tree_leaves(params)]
             loss = torch.zeros((), dtype=torch.float32, device=gacc[0].device)
             for m in range(microbatches):
-                mb_loss, g = value_and_grad(params, {k: v[m] for k, v in mbs.items()})
+                mb = {k: shd.like(v[m], batch[k]) for k, v in mbs.items()}
+                mb_loss, g = value_and_grad(params, mb)
                 gacc = [a + b.float() / microbatches for a, b in zip(gacc, g)]
                 loss = loss + mb_loss / microbatches
             grads = [a.to(p.dtype) for a, p in zip(gacc, tree_leaves(params))]

@@ -219,14 +219,27 @@ def test_full_width_decode_cell():
 
 def test_dryrun_cli_writes_an_ok_cell(tmp_path):
     """The cell's memory term is the bytes the decode step must move,
-    ``decode_bound_ms``'s, over the mesh's devices."""
+    ``decode_bound_ms``'s, over the mesh's devices.  The 16 x 16 cell runs
+    placed in a worker: its collectives by kind sum to its total, the
+    roofline's collective term; the 1 x 1 cell has none.  This process
+    holds no process group after."""
+    import torch.distributed as dist
+
     rc = dryrun.main(["--arch", "mamba2-130m", "--shape", "long_500k", "--out", str(tmp_path)])
-    assert rc == 0
+    assert rc == 0 and not dist.is_initialized()
     cfg = get_config("mamba2-130m")
     for mesh, chips in (("1x1", 1), ("16x16", 256)):
         res = json.loads((tmp_path / f"mamba2-130m__long_500k__{mesh}.json").read_text())
         assert res["status"] == "ok" and res["memory"]["fits_80GB"]
-        assert res["collectives"] is None and res["roofline"]["coll_bytes_per_device"] is None
+        coll, roof = res["collectives"], res["roofline"]
+        if chips == 1:
+            assert coll is None and roof["coll_bytes_per_device"] is None
+        else:
+            assert set(coll) == set(dryrun.COLLECTIVES) | {"total"}
+            assert coll["total"] == sum(coll[k] for k in dryrun.COLLECTIVES) > 0
+            assert roof["coll_bytes_per_device"] == coll["total"]
+            assert roof["t_collective_s"] == coll["total"] / rf.LINK_BW
+            assert res["collective_calls"]["total"] > 0
         assert res["roofline"]["bytes_per_device"] == rf.decode_bytes(cfg, 1, 524288) / chips
     assert res["roofline"]["t_memory_s"] * 256e3 == pytest.approx(
         rf.decode_bound_ms(cfg, 1, 524288), rel=1e-12)

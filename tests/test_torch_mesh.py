@@ -20,6 +20,11 @@ The SSM, RG-LRU and encoder-decoder archs the same way: ``mamba2-130m``
 and windowed attention ring) and ``whisper-large-v3`` (its frames placed
 with the prompts, its cross cache) decode and take a step on 2 x 2, and
 a RecurrentGemma state is saved from 2 x 2 and restored onto 1 x 4.
+The sites repaired so that full-width configs run on the 16 x 16 mesh
+(``REPAIR_CASES``), each on the smoke shape and mesh whose placed run
+failed there before: the queries' view into KV groups (1 x 4), the
+microbatch split (4 x 1), the SSD's chunk and head views (1 x 4); and
+``qwen2-vl-7b`` (M-RoPE, its step too) and ``starcoder2-15b`` on 2 x 2.
 DeepSeek's leaves, and the three archs' (as phase 19 serves them), are
 at their true fan-in (``at_true_fan_in``; at ``init``'s scale Mamba2's
 placed logits sit 1.6e-5 and 2.5e-5 from the unplaced, each layer
@@ -100,6 +105,19 @@ FAN_IN_CASES = ("deepseek-v2-lite-16b", "fallback")  # MLA's leaves at their tru
 # phase 19 serves them: decode and a step on 2 x 2
 STATE_ARCHS = ("mamba2-130m", "recurrentgemma-9b", "whisper-large-v3")
 STATE_RESTORE_ARCH = "recurrentgemma-9b"
+# the repaired sites, each on a smoke shape whose placed run failed there
+# before the repair: (arch, config changes, mesh, runs, microbatches, true
+# fan-in).  4 heads over 2 KV heads cut 4 ways (the queries' view into KV
+# groups); 8 rows cut 4 ways over "data" viewed as 2 microbatches of 4; an
+# SSD of 6 heads whose 32 positions, cut 4 ways, are viewed as 2 chunks
+REPAIR_CASES = {
+    "kv-groups": ("qwen3-8b", {"n_kv_heads": 2}, (1, 4), ("decode", "step"), 1, False),
+    "microbatches": ("qwen3-8b", {"d_model": 128, "n_layers": 2}, (4, 1), ("step",), 2, False),
+    "ssd-chunks": ("mamba2-130m", {"d_model": 96, "ssm_head_dim": 32}, (1, 4),
+                   ("decode", "step"), 1, True),
+}
+# archs pinned on 2 x 2: decode, and Qwen2-VL's step (M-RoPE's backward)
+PINNED_ARCHS = ("qwen2-vl-7b", "starcoder2-15b")
 RANK_TIMEOUT = 300
 
 RANK_PROGRAM = r'''
@@ -300,6 +318,40 @@ for name in STATE_ARCHS:
     res["state_train"][name] = {"unplaced": host({"state": st0, "metrics": m0}),
                                 "placed": host({"state": st1, "metrics": m1})}
 
+# the repaired sites (REPAIR_CASES) on their own meshes, and the archs
+# pinned on 2 x 2 (PINNED_ARCHS), each placed against unplaced
+
+
+def step_run(cfg, mesh, params, microbatches=1):
+    """One step from ``params``' fresh state, unplaced and placed on mesh."""
+    state = lambda: ts.TrainState(params=params, opt=optim.init(params, ocfg))
+    batch = {k: torch.from_numpy(v) for k, v in train_batch(cfg).items()}
+    st0, m0 = ts.make_train_step(cfg, ocfg, microbatches=microbatches)(state(), batch)
+    step, _ = ts.jit_train_step(cfg, ocfg, mesh, microbatches=microbatches, donate=False)
+    st1, m1 = step(state(), batch)
+    return {"unplaced": host({"state": st0, "metrics": m0}),
+            "placed": host({"state": st1, "metrics": m1})}
+
+
+res["repair"], res["pinned"] = {}, {}
+for case, (name, changes, shape, runs, mb, fan_in) in REPAIR_CASES.items():
+    cfg = make_smoke(get_config(name)).replace(**changes)
+    params = model.init(cfg, 0, "cpu")
+    if fan_in:
+        at_true_fan_in(cfg, params)
+    rmesh = shd.make_mesh(shape, ("data", "model"), "cpu")
+    res["repair"][case] = {}
+    if "decode" in runs:
+        res["repair"][case]["decode"] = decode_run(cfg, rmesh, params)[0]
+    if "step" in runs:
+        res["repair"][case]["step"] = step_run(cfg, rmesh, params, mb)
+for name in PINNED_ARCHS:
+    cfg = make_smoke(get_config(name))
+    params = model.init(cfg, 0, "cpu")
+    res["pinned"][name] = {"decode": decode_run(cfg, mesh, params)[0]}
+    if cfg.rope == "mrope":
+        res["pinned"][name]["step"] = step_run(cfg, mesh, params)
+
 # elastic restore: gemma-7b smoke saved from the 2 x 2 mesh, restored onto 1 x 4
 cfg = make_smoke(get_config("RESTORE_ARCH"))
 state = ts.init_state(cfg, ocfg, 0, "cpu")
@@ -400,6 +452,7 @@ def at_true_fan_in(cfg, params):
 
 def program() -> str:
     defs = "\n".join([f"MOE_CASES = {MOE_CASES!r}", f"MOE_CHANGES = {MOE_CHANGES!r}",
+                      f"REPAIR_CASES = {REPAIR_CASES!r}", f"PINNED_ARCHS = {PINNED_ARCHS!r}",
                       f"FAN_IN_CASES = {FAN_IN_CASES!r}", f"STATE_ARCHS = {STATE_ARCHS!r}",
                       inspect.getsource(at_true_fan_in), inspect.getsource(decode_batch),
                       inspect.getsource(train_batch)])
@@ -710,6 +763,33 @@ def step_matches(got, want) -> None:
     for g, w in zip(leaves(gmu) + leaves(gnu), leaves(wmu) + leaves(wnu)):
         assert rel_err(g, w) < GRAD_RTOL
     step_params_close(leaves(gp), leaves(wp), leaves(wmu), float(wm["lr"]))
+
+
+@pytest.mark.parametrize("case", list(REPAIR_CASES))
+def test_repaired_site_on_mesh_matches_unplaced(ranks, case):
+    """Each repaired site (``REPAIR_CASES``: the queries' view into KV
+    groups, the microbatch split, the SSD's chunk and head views, forward
+    and backward) on the mesh whose cut it failed on before the repair:
+    the decode and the step placed against unplaced by their criteria."""
+    for res in ranks["ranks"]:
+        got = res["repair"][case]
+        assert set(got) == set(REPAIR_CASES[case][3])
+        if "decode" in got:
+            decode_matches(got["decode"]["placed"], got["decode"]["unplaced"])
+        if "step" in got:
+            step_matches(got["step"]["placed"], got["step"]["unplaced"])
+
+
+@pytest.mark.parametrize("name", PINNED_ARCHS)
+def test_pinned_arch_on_mesh_matches_unplaced(ranks, name):
+    """Qwen2-VL-7B (M-RoPE) and StarCoder2-15B decode on 2 x 2 by the decode
+    criteria; Qwen2-VL's step, M-RoPE's backward among it, by the step's."""
+    for res in ranks["ranks"]:
+        got = res["pinned"][name]
+        decode_matches(got["decode"]["placed"], got["decode"]["unplaced"])
+        assert ("step" in got) == (name == "qwen2-vl-7b")
+        if "step" in got:
+            step_matches(got["step"]["placed"], got["step"]["unplaced"])
 
 
 def test_train_step_matches_jax_single_device(ranks):
