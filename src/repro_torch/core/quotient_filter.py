@@ -29,6 +29,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import tracing
 from .fingerprint import M32, fingerprint
 
 INT32_MAX = 2**31 - 1
@@ -171,27 +172,28 @@ def build_sorted(cfg: QFConfig, fq: torch.Tensor, fr: torch.Tensor, n) -> QFStat
     Padding entries must sort after all valid ones (fq == INT32_MAX).
     """
     t = cfg.total_slots
-    nn, valid, pos, overflow = probe_positions(cfg, fq, n)
-    idx = torch.arange(fq.shape[0], device=fq.device)
-    con_bits = valid & (idx > 0) & (fq == torch.roll(fq, 1))
-    shf_bits = valid & (pos != fq)
-    spos = torch.where(valid & (pos < t), pos, t)  # slot t is the dump slot
+    with tracing.span("qf.build"):
+        nn, valid, pos, overflow = probe_positions(cfg, fq, n)
+        idx = torch.arange(fq.shape[0], device=fq.device)
+        con_bits = valid & (idx > 0) & (fq == torch.roll(fq, 1))
+        shf_bits = valid & (pos != fq)
+        spos = torch.where(valid & (pos < t), pos, t)  # slot t is the dump slot
 
-    def plane(dtype, values):
-        out = torch.zeros(t + 1, dtype=dtype, device=fq.device)
-        out[spos] = values.to(dtype)
-        return out[:t]
+        def plane(dtype, values):
+            out = torch.zeros(t + 1, dtype=dtype, device=fq.device)
+            out[spos] = values.to(dtype)
+            return out[:t]
 
-    occ = torch.zeros(t + 1, dtype=torch.bool, device=fq.device)
-    occ.index_fill_(0, torch.where(valid, fq, t), True)  # a scalar fill copies nothing
-    return QFState(
-        rem=plane(torch.int32, fr),
-        occ=occ[:t],
-        shf=plane(torch.bool, shf_bits),
-        con=plane(torch.bool, con_bits),
-        n=nn,
-        overflow=overflow,
-    )
+        occ = torch.zeros(t + 1, dtype=torch.bool, device=fq.device)
+        occ.index_fill_(0, torch.where(valid, fq, t), True)  # a scalar fill copies nothing
+        return QFState(
+            rem=plane(torch.int32, fr),
+            occ=occ[:t],
+            shf=plane(torch.bool, shf_bits),
+            con=plane(torch.bool, con_bits),
+            n=nn,
+            overflow=overflow,
+        )
 
 
 def extract(cfg: QFConfig, state: QFState):
@@ -200,7 +202,8 @@ def extract(cfg: QFConfig, state: QFState):
     Returns (fq, fr, n): int64 (total_slots,) arrays whose first n
     entries are the sorted fingerprint multiset (padding = sentinels).
     """
-    fq, fr = decode_planes(state.rem, state.occ, state.shf, state.con)
+    with tracing.span("qf.extract"):
+        fq, fr = decode_planes(state.rem, state.occ, state.shf, state.con)
     return fq, fr, state.n
 
 
@@ -331,13 +334,14 @@ def merge_sorted_with(cfg: QFConfig, state: QFState, fq, fr, k, build) -> QFStat
     qs, rs, n = extract(cfg, state)
     dev = qs.device
     kk = _i32(k, dev)
-    valid = torch.cat(
-        [
-            torch.arange(qs.shape[0], device=dev) < n,
-            torch.arange(fq.shape[0], device=dev) < kk,
-        ]
-    )
-    allq, allr = _pad_sort(torch.cat([qs, fq]), torch.cat([rs, fr]), valid)
+    with tracing.span("qf.sort"):
+        valid = torch.cat(
+            [
+                torch.arange(qs.shape[0], device=dev) < n,
+                torch.arange(fq.shape[0], device=dev) < kk,
+            ]
+        )
+        allq, allr = _pad_sort(torch.cat([qs, fq]), torch.cat([rs, fr]), valid)
     new = build(cfg, allq, allr, n + kk)
     return new._replace(overflow=new.overflow | state.overflow)
 

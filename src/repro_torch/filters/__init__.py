@@ -60,6 +60,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import tracing
 from ..core import quotient_filter as qf
 from . import (  # noqa: F401 (registration)
     auto_scale as _auto_scale,
@@ -123,12 +124,14 @@ def make(name: str, device=None, **spec):
 
 def insert(cfg, state, keys, k=None):
     """Insert a key batch; ``k`` = optional valid-prefix count for padded batches."""
-    return by_cfg(cfg).require("insert")(cfg, state, _keys(state, keys), k)
+    with tracing.span("filters.insert"):
+        return by_cfg(cfg).require("insert")(cfg, state, _keys(state, keys), k)
 
 
 def contains(cfg, state, keys):
     """MAY-CONTAIN for a key batch (no false negatives)."""
-    return by_cfg(cfg).contains(cfg, state, _keys(state, keys))
+    with tracing.span("filters.contains"):
+        return by_cfg(cfg).contains(cfg, state, _keys(state, keys))
 
 
 def delete(cfg, state, keys, k=None):

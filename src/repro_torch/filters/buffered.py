@@ -17,6 +17,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import tracing
 from ..core import quotient_filter as qf
 from . import iostats, qf_filter
 from .iostats import IOCounters
@@ -99,7 +100,10 @@ def insert(cfg: BufferedQFConfig, state, keys, k=None) -> BufferedQFState:
     """Insert a batch; flush the RAM QF into the disk QF once it is full."""
     ram = qf_filter.insert_keys(cfg.ram, cfg.backend, state.ram, keys, k)
     state = state._replace(ram=ram)
-    if bool(qf.load(cfg.ram, ram) >= cfg.max_load):
+    full = qf.load(cfg.ram, ram) >= cfg.max_load
+    with tracing.span("host_read.buffered.insert"):
+        full = bool(full)
+    if full:
         state = flush(cfg, state)
     return state
 

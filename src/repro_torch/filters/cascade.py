@@ -30,6 +30,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from .. import tracing
 from ..core import cost_model
 from ..core import fuse_filter as fuse
 from ..core import quotient_filter as qf
@@ -209,31 +210,33 @@ def _level_write_bytes(cfg: CascadeConfig, i: int) -> int:
 
 def _collapse_into(cfg: CascadeConfig, state: CascadeState, i: int) -> CascadeState:
     """Merge Q0..Q_i into a fresh Q_i; levels above i empty (paper Fig. 5)."""
-    dev = state.q0.n.device
-    parts = [_q0_stream(cfg, state)] + [
-        _level_stream(cfg, state, j) for j in range(i + 1)
-    ]
-    allq, allr, total = qf.merge_streams_many(parts)
-    overflow = state.q0.overflow
-    for j in range(i + 1):
-        overflow = overflow | state.levels[j].overflow
-    merged = _build_level(cfg, i, allq, allr, total)
-    merged = merged._replace(overflow=merged.overflow | overflow)
-    # I/O: stream each participating non-empty disk level in, target out
-    read = iostats.f32(0, dev)
-    for j in range(i + 1):
-        read = read + _level_read(cfg, state.levels, j)
-    io = state.io._replace(
-        seq_read_bytes=state.io.seq_read_bytes + read,
-        seq_write_bytes=state.io.seq_write_bytes
-        + iostats.f32(_level_write_bytes(cfg, i), dev),
-        flushes=state.io.flushes + 1,
-        merges=state.io.merges + 1,
-    )
-    keep = {j: state.levels[j] for j in range(i + 1, cfg.levels)}
-    keep[i] = merged
-    levels = _empty_levels(cfg, dev, keep)
-    return CascadeState(q0=qf.empty(cfg.q0_cfg, dev), levels=levels, io=io)
+    with tracing.span(f"cascade.collapse.L{i}"):
+        dev = state.q0.n.device
+        with tracing.span("cascade.merge_streams"):
+            parts = [_q0_stream(cfg, state)] + [
+                _level_stream(cfg, state, j) for j in range(i + 1)
+            ]
+            allq, allr, total = qf.merge_streams_many(parts)
+        overflow = state.q0.overflow
+        for j in range(i + 1):
+            overflow = overflow | state.levels[j].overflow
+        merged = _build_level(cfg, i, allq, allr, total)
+        merged = merged._replace(overflow=merged.overflow | overflow)
+        # I/O: stream each participating non-empty disk level in, target out
+        read = iostats.f32(0, dev)
+        for j in range(i + 1):
+            read = read + _level_read(cfg, state.levels, j)
+        io = state.io._replace(
+            seq_read_bytes=state.io.seq_read_bytes + read,
+            seq_write_bytes=state.io.seq_write_bytes
+            + iostats.f32(_level_write_bytes(cfg, i), dev),
+            flushes=state.io.flushes + 1,
+            merges=state.io.merges + 1,
+        )
+        keep = {j: state.levels[j] for j in range(i + 1, cfg.levels)}
+        keep[i] = merged
+        levels = _empty_levels(cfg, dev, keep)
+        return CascadeState(q0=qf.empty(cfg.q0_cfg, dev), levels=levels, io=io)
 
 
 def _level_caps(cfg: CascadeConfig, dev) -> torch.Tensor:
@@ -256,7 +259,9 @@ def _collapse_target(cfg: CascadeConfig, state: CascadeState, full) -> int:
     cum = state.q0.n + torch.cumsum(ns, 0, dtype=torch.int32)
     fits = cum <= _level_caps(cfg, cum.device)
     target = fits.to(torch.int32).argmax()  # first fitting level
-    return int(torch.where(full & fits.any(), target, L))
+    target = torch.where(full & fits.any(), target, L)
+    with tracing.span("host_read.cascade._collapse_target"):
+        return int(target)
 
 
 def insert(cfg: CascadeConfig, state, keys, k=None) -> CascadeState:
@@ -303,8 +308,9 @@ def _structure_hits(cfg: CascadeConfig, state, keys):
 
 def contains(cfg: CascadeConfig, state, keys):
     hit, lvl_hits = _structure_hits(cfg, state, keys)
-    for h in lvl_hits:
-        hit = hit | h
+    with tracing.span("cascade.combine"):
+        for h in lvl_hits:
+            hit = hit | h
     return hit
 
 
@@ -392,7 +398,9 @@ def merge(cfg: CascadeConfig, sa, sb) -> CascadeState:
     io = io._replace(seq_read_bytes=io.seq_read_bytes + read, merges=io.merges + 1)
 
     fits = total <= _level_caps(cfg, dev)
-    i = int(torch.where(fits.any(), fits.to(torch.int32).argmax(), L - 1))
+    target = torch.where(fits.any(), fits.to(torch.int32).argmax(), L - 1)
+    with tracing.span("host_read.cascade.merge"):
+        i = int(target)
     merged = _build_level(cfg, i, allq, allr, total)
     merged = merged._replace(overflow=merged.overflow | overflow)
     written = iostats.f32(_level_write_bytes(cfg, i), dev)

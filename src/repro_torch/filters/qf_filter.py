@@ -16,6 +16,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import tracing
 from ..core import quotient_filter as qf
 from ..kernels import fingerprint as kfp
 from ..kernels import ops as kops
@@ -87,7 +88,8 @@ def insert_fingerprints(
     core: qf.QFConfig, backend: str, state: qf.QFState, fq, fr, valid
 ) -> qf.QFState:
     """Merge a validity-masked fingerprint batch into ``state``."""
-    fq, fr = qf._pad_sort(fq, fr, valid)
+    with tracing.span("qf.sort"):
+        fq, fr = qf._pad_sort(fq, fr, valid)
     k = valid.sum(dtype=torch.int32)
     return qf.merge_sorted_with(core, state, fq, fr, k, build_fn(backend))
 
@@ -95,7 +97,8 @@ def insert_fingerprints(
 def insert_keys(
     core: qf.QFConfig, backend: str, state: qf.QFState, keys, k=None
 ) -> qf.QFState:
-    fq, fr = fingerprint_fn(backend)(core, keys)
+    with tracing.span("qf.fingerprint"):
+        fq, fr = fingerprint_fn(backend)(core, keys)
     return insert_fingerprints(core, backend, state, fq, fr, valid_mask(keys, k))
 
 

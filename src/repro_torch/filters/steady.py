@@ -45,6 +45,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import tracing
 from ..core import quotient_filter as qf
 from ..kernels import ops as kops
 from . import iostats, qf_filter
@@ -359,7 +360,9 @@ def insert(cfg: SteadyQFConfig, state: SteadyQFState, keys, k=None):
     flags = [state.buf.n, idle.to(torch.int32), state.clean.to(torch.int32)]
     if torch.is_tensor(k):
         flags.append(k.to(device=state.buf.n.device, dtype=torch.int32).reshape(()))
-    flags = torch.stack(flags).tolist()  # the insert's one host read
+    flags = torch.stack(flags)
+    with tracing.span("host_read.steady.insert"):
+        flags = flags.tolist()  # the insert's one host read
     buffered, idle, clean = flags[0], bool(flags[1]), bool(flags[2])
     kk = flags[3] if torch.is_tensor(k) else keys.shape[0] if k is None else int(k)
     if buffered + kk > cfg.buf.capacity:

@@ -30,6 +30,7 @@ import functools
 
 import torch
 
+from .. import tracing
 from ..core.fingerprint import M32
 from . import cuda_lib, dispatch
 from .qf_probe import probe_plain, require_planes
@@ -76,47 +77,48 @@ def cascade_probe(level_planes, level_n, level_r, fq, fr, r: int):
     fingerprint ``f = fq << r | fr`` as ``(f >> r_l, f mod 2**r_l)``.
     Returns ``hit`` int32 (B,), bit l = level l.
     """
-    L = len(level_planes)
-    if not 1 <= L <= MAX_LEVELS or len(level_r) != L or len(level_n) != L:
-        raise ValueError(
-            f"cascade_probe takes 1 to {MAX_LEVELS} levels and one count and "
-            "one width each"
+    with tracing.span("kernels.cascade_probe"):
+        L = len(level_planes)
+        if not 1 <= L <= MAX_LEVELS or len(level_r) != L or len(level_n) != L:
+            raise ValueError(
+                f"cascade_probe takes 1 to {MAX_LEVELS} levels and one count and "
+                "one width each"
+            )
+        if not all(1 <= w <= 32 for w in (r, *level_r)):
+            raise ValueError("remainder widths must be in [1, 32]")
+        for planes in level_planes:
+            require_planes(*planes)
+        for n in level_n:
+            dispatch.require(n, "level_n", torch.int32)
+            if n.dim() != 0:
+                raise ValueError("each level count must be a 0-d tensor")
+        dispatch.require(fq, "fq", torch.int32)
+        dispatch.require(fr, "fr", torch.int32)
+        if fq.shape != fr.shape or fq.dim() != 1:
+            raise ValueError("fq and fr must be one-dimensional and of one shape")
+        planes_flat = (t for lv in level_planes for t in lv)
+        if not dispatch.use_kernel(*planes_flat, *level_n, fq, fr):
+            return cascade_probe_plain(level_planes, level_n, level_r, fq, fr, r)
+        B = fq.shape[0]
+        hit = torch.empty(B, dtype=torch.int32, device=fq.device)
+
+        def table(ctype, values):
+            return (ctype * L)(*values)
+
+        rem_p, occ_p, shf_p, con_p = (
+            table(_I64, (lv[k].data_ptr() for lv in level_planes)) for k in range(4)
         )
-    if not all(1 <= w <= 32 for w in (r, *level_r)):
-        raise ValueError("remainder widths must be in [1, 32]")
-    for planes in level_planes:
-        require_planes(*planes)
-    for n in level_n:
-        dispatch.require(n, "level_n", torch.int32)
-        if n.dim() != 0:
-            raise ValueError("each level count must be a 0-d tensor")
-    dispatch.require(fq, "fq", torch.int32)
-    dispatch.require(fr, "fr", torch.int32)
-    if fq.shape != fr.shape or fq.dim() != 1:
-        raise ValueError("fq and fr must be one-dimensional and of one shape")
-    planes_flat = (t for lv in level_planes for t in lv)
-    if not dispatch.use_kernel(*planes_flat, *level_n, fq, fr):
-        return cascade_probe_plain(level_planes, level_n, level_r, fq, fr, r)
-    B = fq.shape[0]
-    hit = torch.empty(B, dtype=torch.int32, device=fq.device)
-
-    def table(ctype, values):
-        return (ctype * L)(*values)
-
-    rem_p, occ_p, shf_p, con_p = (
-        table(_I64, (lv[k].data_ptr() for lv in level_planes)) for k in range(4)
-    )
-    counts = table(_I64, (n.data_ptr() for n in level_n))
-    totals = table(_I64, (lv[0].shape[0] for lv in level_planes))
-    widths = table(ctypes.c_int, level_r)
-    P = cuda_lib.ptr
-    err = _library().cascade_probe(
-        rem_p, occ_p, shf_p, con_p, counts, totals, widths, L, r, P(fq), P(fr), B,
-        P(hit), cuda_lib.stream_handle(fq.device),
-    )
-    cuda_lib.check(err, "cascade_probe")
-    cascade_probe.launches += 1
-    return hit
+        counts = table(_I64, (n.data_ptr() for n in level_n))
+        totals = table(_I64, (lv[0].shape[0] for lv in level_planes))
+        widths = table(ctypes.c_int, level_r)
+        P = cuda_lib.ptr
+        err = _library().cascade_probe(
+            rem_p, occ_p, shf_p, con_p, counts, totals, widths, L, r, P(fq), P(fr), B,
+            P(hit), cuda_lib.stream_handle(fq.device),
+        )
+        cuda_lib.check(err, "cascade_probe")
+        cascade_probe.launches += 1
+        return hit
 
 
 cascade_probe.launches = 0

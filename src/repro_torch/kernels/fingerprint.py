@@ -26,6 +26,7 @@ import functools
 
 import torch
 
+from .. import tracing
 from ..core import fingerprint as fpc
 from . import cuda_lib, dispatch
 
@@ -62,29 +63,30 @@ def fingerprint(keys, q: int, r: int, seed: int = 0, dtype=torch.int64):
     ``dtype`` is int64 (the unsigned values) or int32 (the remainder's
     uint32 bit pattern).
     """
-    if not 1 <= q <= 30:
-        raise ValueError(f"q must be in [1, 30], got {q}")
-    if not 1 <= r <= 32:
-        raise ValueError(f"r must be in [1, 32], got {r}")
-    if keys.dtype not in KEY_DTYPES:
-        raise TypeError(f"keys must be one of {KEY_DTYPES}, got {keys.dtype}")
-    if dtype not in OUT_DTYPES:
-        raise TypeError(f"dtype must be one of {OUT_DTYPES}, got {dtype}")
-    if not dispatch.use_kernel(keys):
-        return fingerprint_plain(keys, q, r, seed, dtype)
-    keys = keys.contiguous()
-    fq = torch.empty(keys.shape, dtype=dtype, device=keys.device)
-    fr = torch.empty_like(fq)
-    s = seed & fpc.M32
-    err = _library().fingerprint(
-        keys.data_ptr(), keys.element_size(), keys.numel(),
-        fpc._fmix32_int(s * 2 + 1), fpc._fmix32_int(s * 2 + 2), q, r,
-        fq.element_size(), fq.data_ptr(), fr.data_ptr(),
-        cuda_lib.stream_handle(keys.device),
-    )
-    cuda_lib.check(err, "fingerprint")
-    fingerprint.launches += 1
-    return fq, fr
+    with tracing.span("kernels.fingerprint"):
+        if not 1 <= q <= 30:
+            raise ValueError(f"q must be in [1, 30], got {q}")
+        if not 1 <= r <= 32:
+            raise ValueError(f"r must be in [1, 32], got {r}")
+        if keys.dtype not in KEY_DTYPES:
+            raise TypeError(f"keys must be one of {KEY_DTYPES}, got {keys.dtype}")
+        if dtype not in OUT_DTYPES:
+            raise TypeError(f"dtype must be one of {OUT_DTYPES}, got {dtype}")
+        if not dispatch.use_kernel(keys):
+            return fingerprint_plain(keys, q, r, seed, dtype)
+        keys = keys.contiguous()
+        fq = torch.empty(keys.shape, dtype=dtype, device=keys.device)
+        fr = torch.empty_like(fq)
+        s = seed & fpc.M32
+        err = _library().fingerprint(
+            keys.data_ptr(), keys.element_size(), keys.numel(),
+            fpc._fmix32_int(s * 2 + 1), fpc._fmix32_int(s * 2 + 2), q, r,
+            fq.element_size(), fq.data_ptr(), fr.data_ptr(),
+            cuda_lib.stream_handle(keys.device),
+        )
+        cuda_lib.check(err, "fingerprint")
+        fingerprint.launches += 1
+        return fq, fr
 
 
 fingerprint.launches = 0

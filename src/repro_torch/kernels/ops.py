@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import tracing
 from ..core import fuse_filter as ffc
 from ..core import quotient_filter as qf
 from . import bloom_block
@@ -51,13 +52,14 @@ def build_sorted(cfg: qf.QFConfig, fq, fr, n) -> qf.QFState:
     """
     if cfg.r > 31:
         raise ValueError("kernel path keeps the JAX package's r <= 31 limit")
-    nn = qf._i32(n, fq.device)
-    fq, fr = _i32(fq), _i32(fr)
-    # a position past INT32_MAX wraps negative and is dropped, as one past
-    # the last slot is
-    pos, overflow = qf_positions(fq, nn, cfg.total_slots)
-    rem, occ, shf, con = qf_build_planes(pos, fq, fr, nn, cfg.total_slots)
-    return qf.QFState(rem=rem, occ=occ, shf=shf, con=con, n=nn, overflow=overflow)
+    with tracing.span("qf.build"):
+        nn = qf._i32(n, fq.device)
+        fq, fr = _i32(fq), _i32(fr)
+        # a position past INT32_MAX wraps negative and is dropped, as one past
+        # the last slot is
+        pos, overflow = qf_positions(fq, nn, cfg.total_slots)
+        rem, occ, shf, con = qf_build_planes(pos, fq, fr, nn, cfg.total_slots)
+        return qf.QFState(rem=rem, occ=occ, shf=shf, con=con, n=nn, overflow=overflow)
 
 
 def build_span(cfg: qf.QFConfig, state: qf.QFState, fq, fr, k, last_pos, last_fq):
@@ -159,7 +161,8 @@ def cascade_lookup(qf_cfgs, qf_states, fuse_cfgs, fuse_states, keys):
         frc,
         rc,
     )
-    qf_hits = tuple(((hitm >> lvl) & 1) > 0 for lvl in range(len(qf_states)))
+    with tracing.span("kernels.unpack"):
+        qf_hits = tuple(((hitm >> lvl) & 1) > 0 for lvl in range(len(qf_states)))
     return qf_hits + tuple(
         fuse_lookup(c, s, fqc, frc) for c, s in zip(fuse_cfgs, fuse_states)
     )

@@ -43,6 +43,7 @@ import functools
 
 import torch
 
+from .. import tracing
 from . import cuda_lib, dispatch
 
 _I64 = ctypes.c_longlong
@@ -92,25 +93,26 @@ def qf_build_planes(pos, fq, fr, n, total_slots: int):
     position is outside the planes are dropped, as the JAX scatter
     drops them; their buckets are still marked occupied.
     """
-    for name, t in (("pos", pos), ("fq", fq), ("fr", fr), ("n", n)):
-        dispatch.require(t, name, torch.int32)
-    if not (pos.shape == fq.shape == fr.shape and n.dim() == 0):
-        raise ValueError("pos, fq and fr must share one shape; n must be a scalar")
-    if not dispatch.use_kernel(pos, fq, fr, n):
-        return build_planes_plain(pos, fq, fr, n, total_slots)
-    dev = pos.device
-    rem = torch.empty(total_slots, dtype=torch.int32, device=dev)
-    occ = torch.empty(total_slots, dtype=torch.bool, device=dev)
-    shf = torch.empty_like(occ)
-    con = torch.empty_like(occ)
-    P = cuda_lib.ptr
-    err = _library().qf_build_planes(
-        P(pos), P(fq), P(fr), P(n), pos.shape[0], total_slots,
-        P(rem), P(occ), P(shf), P(con), cuda_lib.stream_handle(dev),
-    )
-    cuda_lib.check(err, "qf_build_planes")
-    qf_build_planes.launches += 1
-    return rem, occ, shf, con
+    with tracing.span("kernels.qf_build_planes"):
+        for name, t in (("pos", pos), ("fq", fq), ("fr", fr), ("n", n)):
+            dispatch.require(t, name, torch.int32)
+        if not (pos.shape == fq.shape == fr.shape and n.dim() == 0):
+            raise ValueError("pos, fq and fr must share one shape; n must be a scalar")
+        if not dispatch.use_kernel(pos, fq, fr, n):
+            return build_planes_plain(pos, fq, fr, n, total_slots)
+        dev = pos.device
+        rem = torch.empty(total_slots, dtype=torch.int32, device=dev)
+        occ = torch.empty(total_slots, dtype=torch.bool, device=dev)
+        shf = torch.empty_like(occ)
+        con = torch.empty_like(occ)
+        P = cuda_lib.ptr
+        err = _library().qf_build_planes(
+            P(pos), P(fq), P(fr), P(n), pos.shape[0], total_slots,
+            P(rem), P(occ), P(shf), P(con), cuda_lib.stream_handle(dev),
+        )
+        cuda_lib.check(err, "qf_build_planes")
+        qf_build_planes.launches += 1
+        return rem, occ, shf, con
 
 
 qf_build_planes.launches = 0
@@ -158,27 +160,28 @@ def qf_positions(fq, n, total_slots: int):
     ``total_slots``.  Equal to ``quotient_filter.probe_positions``
     narrowed as ``ops.build_sorted`` narrows it.
     """
-    dispatch.require(fq, "fq", torch.int32)
-    dispatch.require(n, "n", torch.int32)
-    if fq.dim() != 1 or n.dim() != 0:
-        raise ValueError("fq must be 1-d, n a scalar")
-    if not dispatch.use_kernel(fq, n):
-        return positions_plain(fq, n, total_slots)
-    rows = fq.shape[0]
-    if rows >= 2**31:
-        raise ValueError("the scan takes fewer than 2**31 rows")
-    dev = fq.device
-    pos = torch.empty(rows, dtype=torch.int32, device=dev)
-    overflow = torch.empty((), dtype=torch.bool, device=dev)
-    stream = cuda_lib.stream_handle(dev)
-    err = _library().qf_positions(
-        fq.data_ptr(), n.data_ptr(), rows, total_slots,
-        _scan_scratch(dev, stream, rows).data_ptr(), pos.data_ptr(),
-        overflow.data_ptr(), stream,
-    )
-    cuda_lib.check(err, "qf_positions")
-    qf_positions.launches += 1
-    return pos, overflow
+    with tracing.span("kernels.qf_positions"):
+        dispatch.require(fq, "fq", torch.int32)
+        dispatch.require(n, "n", torch.int32)
+        if fq.dim() != 1 or n.dim() != 0:
+            raise ValueError("fq must be 1-d, n a scalar")
+        if not dispatch.use_kernel(fq, n):
+            return positions_plain(fq, n, total_slots)
+        rows = fq.shape[0]
+        if rows >= 2**31:
+            raise ValueError("the scan takes fewer than 2**31 rows")
+        dev = fq.device
+        pos = torch.empty(rows, dtype=torch.int32, device=dev)
+        overflow = torch.empty((), dtype=torch.bool, device=dev)
+        stream = cuda_lib.stream_handle(dev)
+        err = _library().qf_positions(
+            fq.data_ptr(), n.data_ptr(), rows, total_slots,
+            _scan_scratch(dev, stream, rows).data_ptr(), pos.data_ptr(),
+            overflow.data_ptr(), stream,
+        )
+        cuda_lib.check(err, "qf_positions")
+        qf_positions.launches += 1
+        return pos, overflow
 
 
 qf_positions.launches = 0

@@ -37,6 +37,7 @@ import functools
 
 import torch
 
+from .. import tracing
 from ..core import quotient_filter as qf
 from . import cuda_lib, dispatch
 
@@ -107,20 +108,21 @@ def qf_probe(rem, occ, shf, con, fq, fr):
     bool.  ``fr`` holds the uint32 remainder bit pattern.  Returns
     ``present`` bool (B,).
     """
-    require_planes(rem, occ, shf, con)
-    for name, t in (("fq", fq), ("fr", fr)):
-        dispatch.require(t, name, torch.int32)
-    if fq.shape != fr.shape or fq.dim() != 1:
-        raise ValueError("fq and fr must be one-dimensional and of one shape")
-    if not dispatch.use_kernel(rem, occ, shf, con, fq, fr):
-        return probe_plain(rem, occ, shf, con, fq, fr)
-    t = rem.shape[0]
-    bits = None
-    if fq.shape[0] * DENSE >= t:
-        bits = torch.empty(3 * ((t + 31) // 32), dtype=torch.int32, device=fq.device)
-    present = walk(rem, occ, shf, con, fq, fr, bits, pack=True)
-    qf_probe.launches += 1
-    return present
+    with tracing.span("kernels.qf_probe"):
+        require_planes(rem, occ, shf, con)
+        for name, t in (("fq", fq), ("fr", fr)):
+            dispatch.require(t, name, torch.int32)
+        if fq.shape != fr.shape or fq.dim() != 1:
+            raise ValueError("fq and fr must be one-dimensional and of one shape")
+        if not dispatch.use_kernel(rem, occ, shf, con, fq, fr):
+            return probe_plain(rem, occ, shf, con, fq, fr)
+        t = rem.shape[0]
+        bits = None
+        if fq.shape[0] * DENSE >= t:
+            bits = torch.empty(3 * ((t + 31) // 32), dtype=torch.int32, device=fq.device)
+        present = walk(rem, occ, shf, con, fq, fr, bits, pack=True)
+        qf_probe.launches += 1
+        return present
 
 
 qf_probe.launches = 0
