@@ -7,15 +7,17 @@ Run from the repository root with no arguments::
 
 Phases, each timed, any failure fatal (a traceback and exit code 1):
 
-1. build    nvcc builds the seven CUDA sources from ``src/repro_torch/csrc``
-            (nine kernels: ``qf_build.cu`` holds ``qf_build_planes``, the
+1. build    nvcc builds the eight CUDA sources from ``src/repro_torch/csrc``
+            (ten kernels: ``qf_build.cu`` holds ``qf_build_planes``, the
             probe scan ``qf_positions`` and the migration's
             ``qf_build_span``); each is launched once on a small filter
             against its plain version, and the quotient-filter kernels on
             small cases that reach every branch of their kernels
             (``build_cases``, ``probe_cases``, ``span_cases``, and
             ``scan_cases``: a cluster over 100 scan tiles, overflow,
-            ``n = 0``, sizes at a tile and one row either side);
+            ``n = 0``, sizes at a tile and one row either side; the
+            decode's ``DECODE_CASES`` at ``decode_sizes`` and two over
+            100 tiles);
             ``fingerprint`` on every (q, r) it takes, three seeds, int32 and
             int64 keys and both output types (``fingerprint_grid``);
             ``fuse_probe`` on small frozen filters of four cell widths at
@@ -26,7 +28,9 @@ Phases, each timed, any failure fatal (a traceback and exit code 1):
             the 7-structure cascade of phase 3 taken mid-stream, with its
             RAM structure Q0 partly full; the probe positions of a q = 25
             build's 33,555,456-row stream; a migration chunk of 61,440 and a
-            drain of 12,582,912 fingerprints appended to a q = 25 table),
+            drain of 12,582,912 fingerprints appended to a q = 25 table;
+            the decode of the benchmark's ingest tables at load 0.75: q = 29,
+            the cascade's Q0 at q = 23 and its level 4 at q = 28),
             timed with CUDA events beside the
             plain version, a library call where one computes the same
             function, and the kernel's bound.  The probes' plain version is
@@ -410,9 +414,10 @@ try:
     from repro_torch.data.pipeline import DedupPipeline, PipelineConfig
     from repro_torch.filters import bloom_filter, incremental_resize, qf_filter, sharded
     from repro_torch.filters import steady
+    from repro_torch.filters.cascade import CascadeConfig
     from repro_torch.serve.prefix_cache import PrefixCacheFilter
     from repro_torch.kernels import bloom_block, cascade_probe, cuda_lib, qf_build
-    from repro_torch.kernels import fingerprint, fuse_probe, ops, qf_probe
+    from repro_torch.kernels import fingerprint, fuse_probe, ops, qf_decode, qf_probe
     from repro_torch.configs import ARCHS, get_config, make_smoke
     from repro_torch.launch import serve as serve_launch
     from repro_torch.launch import train as train_launch
@@ -1120,6 +1125,74 @@ def fuse_cases(device) -> list:
     return out
 
 
+# qf_decode's edge cases (``decode_case``), each at every size of
+# ``decode_sizes``; the CPU tests hold its plain version to the JAX package
+# on them
+DECODE_CASES = ("empty", "load 0.75", "a cluster across a tile edge",
+                "a whole-table cluster", "overflowed", "run_id 0 and past the last bucket")
+
+
+def decode_sizes() -> dict:
+    """Table sizes at the decode's tile edges, and one of several tiles."""
+    tile = qf_decode.DECODE_TILE
+    return {"tile - 1": tile - 1, "tile": tile, "tile + 1": tile + 1,
+            "3 tiles + 5": 3 * tile + 5}
+
+
+def planes_of(fq, total: int):
+    """The planes the build's plain versions write for sorted int64
+    quotients, every row valid, with uniform 32-bit remainders; rows whose
+    position falls past the last slot are dropped."""
+    g = torch.Generator(device=fq.device).manual_seed(fq.shape[0])
+    fr = torch.randint(-(2**31), 2**31 - 1, fq.shape, generator=g, device=fq.device,
+                       dtype=torch.int32)
+    n = torch.tensor(fq.shape[0], dtype=torch.int32, device=fq.device)
+    pos, _ = qf_build.positions_plain(i32(fq), n, total)
+    return qf_build.build_planes_plain(pos, i32(fq), fr, n, total)
+
+
+def decode_case(label: str, total: int, device):
+    """``(rem, occ, shf, con)`` of ``total`` slots for one of ``DECODE_CASES``.
+
+    ``load 0.75`` draws uniform quotients; the tile-edge cluster puts 500
+    rows on one bucket 250 slots before a tile edge (a chunk edge where the
+    table has one tile) over a half-loaded table; the whole-table cluster
+    gives row i the quotient i // 2, one cluster over every slot; the
+    overflowed table heaps 400 rows 100 slots before its end; the last case
+    is random planes, not a built table: slot 0 a continuation before any
+    run start (run id 0), and more run starts than occupied buckets.
+    """
+    rng = np.random.default_rng([DECODE_CASES.index(label), total])
+
+    def quotients(*parts):
+        return planes_of(torch.from_numpy(np.sort(np.concatenate(parts))).to(device), total)
+
+    def uniform(k, hi):
+        return rng.integers(0, hi, k)
+
+    if label == "empty":
+        return planes_of(torch.zeros(0, dtype=torch.int64, device=device), total)
+    if label == "load 0.75":
+        return quotients(uniform(3 * total // 4, total - total // 8))
+    if label == "a cluster across a tile edge":
+        tile, chunk = qf_decode.DECODE_TILE, qf_decode.DECODE_CHUNK
+        step = tile if total - 400 >= tile else chunk
+        edge = (total - 400) // step * step
+        return quotients(uniform(total // 2, total - 600), np.full(500, edge - 250))
+    if label == "a whole-table cluster":
+        return quotients(np.arange(total) // 2)
+    if label == "overflowed":
+        return quotients(uniform(total // 2, total), np.full(400, total - 100))
+    if label == "run_id 0 and past the last bucket":
+        occ = rng.random(total) < 0.05
+        shf = rng.random(total) < 0.7
+        con = shf & (rng.random(total) < 0.6)
+        occ[0], shf[0], con[0] = False, True, True
+        rem = rng.integers(-(2**31), 2**31, total).astype(np.int32)
+        return tuple(torch.from_numpy(a).to(device) for a in (rem, occ, shf, con))
+    raise ValueError(f"no decode case {label!r}")
+
+
 def launch_check(device) -> None:
     """Launch each kernel once on a small filter and hold it to its plain version.
 
@@ -1185,6 +1258,14 @@ def launch_check(device) -> None:
     for label, args in scan_cases(device):
         checks.append((f"qf_positions ({label})", qf_build.qf_positions(*args),
                        qf_build.positions_plain(*args)))
+    # the edge cases, and two over 100 tiles, whose look-backs cross windows
+    many = 100 * qf_decode.DECODE_TILE + 7
+    decodes = [(c, n, t) for c in DECODE_CASES for n, t in decode_sizes().items()]
+    decodes += [(c, "100 tiles + 7", many) for c in ("load 0.75", "a whole-table cluster")]
+    for case, size, total in decodes:
+        planes = decode_case(case, total, device)
+        checks.append((f"qf_decode ({case}, {size})", qf_decode.qf_decode(*planes),
+                       qf_decode.decode_plain(*planes)))
     torch.cuda.synchronize()
     for name, got, want in checks:
         if max_abs_err(got, want) != 0:
@@ -1354,6 +1435,66 @@ def check_span(device, stream):
     ms, plain_ms, bound, library_ms = times["drain"]
     row["drain"] = {"ms": ms, "plain_ms": plain_ms,
                     "bound_ms": bound / H100_BYTES_PER_S * 1e3, "library_ms": library_ms}
+    return row
+
+
+def decode_configs() -> dict:
+    """The tables the benchmark's ingest cells decode (``amqbench/configs``):
+    the flat QF's, and the cascade's Q0 and deepest level."""
+    cascade = CascadeConfig(ram_q=23, p=38, fanout=2, levels=5)
+    return {"q = 29": qf.QFConfig(q=29, r=12, slack=2048),
+            "q = 23": cascade.q0_cfg, "q = 28": cascade.level_cfg(4)}
+
+
+def loaded_table(cfg, device):
+    """``cfg``'s table at load 0.75 (its capacity) from uniform fingerprints,
+    built on the kernel path."""
+    g = torch.Generator(device=device).manual_seed(SEED)
+    n = cfg.capacity
+    fq = torch.randint(0, cfg.m, (n,), generator=g, device=device)
+    fr = torch.randint(0, 1 << cfg.r, (n,), generator=g, device=device)
+    fq, fr = qf._pad_sort(fq, fr, torch.ones(n, dtype=torch.bool, device=device))
+    return ops.build_sorted(cfg, fq, fr, n)
+
+
+def check_decode(device):
+    """qf_decode at the main path's shapes (``decode_configs``), each table
+    at load 0.75: held to its plain version after the first launch and again
+    after the timed ones, its launch count grown.  The row is q = 29, the
+    flat QF cell's table; every table is logged.  No library call computes
+    the decode."""
+    row = None
+    for label, cfg in decode_configs().items():
+        planes = tuple(loaded_table(cfg, device)[:4])
+        before = qf_decode.qf_decode.launches
+        want = qf_decode.decode_plain(*planes)
+        err = max_abs_err(qf_decode.qf_decode(*planes), want)
+        ms = cuda_ms(lambda: qf_decode.qf_decode(*planes), 10)
+        err = max(err, max_abs_err(qf_decode.qf_decode(*planes), want))
+        del want
+        plain_ms = cuda_ms(lambda: qf_decode.decode_plain(*planes), 3)
+        if qf_decode.qf_decode.launches <= before:
+            raise AssertionError(f"qf_decode at {label}: no launch counted")
+        torch.cuda.synchronize()
+        t = cfg.total_slots
+        occupied = int(planes[1].sum())
+        bound = 7 * t + 16 * t  # the planes read, both streams written
+        scratch = 8 * occupied + 2 * 8 * -(-t // 32)  # buckets, bit words: out and back
+        log(f"  qf_decode at {label} ({t} slots, load 0.75, {occupied} buckets "
+            f"occupied): {ms:.5f} ms, plain {plain_ms:.5f} ms, bound "
+            f"{bound / H100_BYTES_PER_S * 1e3:.6f} ms, with the scratch "
+            f"{(bound + scratch) / H100_BYTES_PER_S * 1e3:.6f} ms, error {err}")
+        if row is None:
+            row = kernel_row(
+                "qf_decode", "qf_decode.cu", "src/repro/core/quotient_filter.py:169",
+                err, ms, plain_ms, bound, None,
+            )
+        elif err:
+            row["max_abs_err"], row["bit_exact"] = max(err, row["max_abs_err"]), False
+        row[f"ms at {label}"] = ms
+        row[f"plain ms at {label}"] = plain_ms
+        del planes
+        torch.cuda.empty_cache()
     return row
 
 
@@ -2336,7 +2477,7 @@ def bulk_breakdown(keys) -> dict:
     batch = keys[cap : cap + INC_BATCH]
     core = cfg.core
     wide = core._replace(q=core.q + 1, r=core.r - 1)
-    qs, rs, n = qf.extract(core, st)
+    qs, rs, n = ops.extract(core, st)
     wq, wr = qf._requotient(qs, rs, core, wide)
     pad = wide.total_slots - wq.shape[0]
     wq = torch.cat([wq, wq.new_full((pad,), qf.INT32_MAX)])
@@ -2355,7 +2496,7 @@ def bulk_breakdown(keys) -> dict:
     idx = torch.arange(wq.shape[0], device=wq.device)
     d = torch.where(idx < nn, wq - idx, -qf.INT32_MAX)
     out = {
-        "extract q": median_ms(lambda: qf.extract(core, st)),
+        "extract q": median_ms(lambda: ops.extract(core, st)),
         "requotient and pad": median_ms(lambda: qf._requotient(qs, rs, core, wide)),
         "build q+1": median_ms(lambda: ops.build_sorted(wide, wq, wr, n)),
         "of which narrowing fq and fr": median_ms(lambda: (i32(wq), i32(wr))),
@@ -2367,7 +2508,7 @@ def bulk_breakdown(keys) -> dict:
             lambda: torch.cummax(d, 0)
         ),
         "grow": median_ms(lambda: filters.grow(cfg, st)),
-        "extract q+1": median_ms(lambda: qf.extract(wide, grown)),
+        "extract q+1": median_ms(lambda: ops.extract(wide, grown)),
         "sort q+1 and a batch": median_ms(lambda: qf._pad_sort(allq, allr, valid)),
         "insert a batch at q+1": median_ms(lambda: filters.insert(gcfg, grown, batch)),
     }
@@ -5208,6 +5349,7 @@ def main(device: str = "cuda") -> int:
         "qf_probe": qf_probe.qf_probe,
         "cascade_probe": cascade_probe.cascade_probe,
         "fingerprint": fingerprint.fingerprint,
+        "qf_decode": qf_decode.qf_decode,
     }
     bloom_kernels = {
         "bloom_count": bloom_block.bloom_count,
@@ -5255,6 +5397,7 @@ def main(device: str = "cuda") -> int:
     rows["qf_positions"] = check_positions(device, stream)
     rows["qf_build_span"] = check_span(device, stream)
     del stream
+    rows["qf_decode"] = check_decode(device)
     rows["qf_probe"], probe_keys = check_probe(device, built)
     rows["fingerprint"] = check_fingerprint(built[0], probe_keys)
     del built, probe_keys

@@ -45,6 +45,7 @@ import re
 import statistics
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -90,12 +91,16 @@ def load_parent(root: Path):
 
 @contextlib.contextmanager
 def parent_path(pk):
-    """This tree's façade over the parent's kernel path (its ``ops``)."""
+    """This tree's façade over the parent's kernel path (its ``ops``); a
+    parent whose ``ops`` has no ``extract`` decoded by the plain path."""
+    kernel_path = pk.ops
+    if not hasattr(kernel_path, "extract"):
+        kernel_path = types.SimpleNamespace(**{**vars(pk.ops), "extract": qf.extract})
     mods = (qf_filter, cascade, incremental_resize)
     names = ("kops", "kernel_ops", "kops")
     saved = [getattr(m, n) for m, n in zip(mods, names)]
     for m, n in zip(mods, names):
-        setattr(m, n, pk.ops)
+        setattr(m, n, kernel_path)
     try:
         yield
     finally:

@@ -46,6 +46,7 @@ SOURCES = {
     "bloom_probe": ("bloom_block", "_probe_library"),
     "fuse_probe": ("fuse_probe", "_library"),
     "fingerprint": ("fingerprint", "_library"),
+    "qf_decode": ("qf_decode", "_library"),
 }
 
 
@@ -66,6 +67,7 @@ WRAPPERS = (
     Wrapper("bloom_block", "bloom_probe", "bloom_probe_plain"),
     Wrapper("fuse_probe", "fuse_probe", "fuse_probe_plain"),
     Wrapper("fingerprint", "fingerprint", "fingerprint_plain"),
+    Wrapper("qf_decode", "qf_decode", "decode_plain"),
 )
 
 # a C parameter's type -> its ctypes type (and the name a message gives it)

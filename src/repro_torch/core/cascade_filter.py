@@ -121,7 +121,10 @@ class CascadeFilter:
             (c, s) for c, s in self.levels[: target + 1] if int(s.n) > 0
         ]
         cfg_t = self._level_cfg(target)
-        merged = qf.multi_merge(cfg_t, parts, qf_filter.build_fn(self._backend))
+        merged = qf.multi_merge(
+            cfg_t, parts, qf_filter.build_fn(self._backend),
+            qf_filter.extract_fn(self._backend),
+        )
         # I/O: stream every participating structure in, the target out
         read_bytes = sum(c.size_bytes for c, s in parts[1:])  # Q0 is RAM
         write_bytes = cfg_t.size_bytes

@@ -227,6 +227,11 @@ def decode_planes(rem, occ, shf, con):
     return fq_out[:t], fr_out[:t]
 
 
+def _extract_or_plain(fn):
+    """``fn``, or the plain :func:`extract` where a caller passed none."""
+    return extract if fn is None else fn
+
+
 # ---------------------------------------------------------------------------
 # Lookup
 # ---------------------------------------------------------------------------
@@ -329,9 +334,12 @@ def contains(cfg: QFConfig, state: QFState, keys: torch.Tensor, window: int = 25
 # ---------------------------------------------------------------------------
 
 
-def merge_sorted_with(cfg: QFConfig, state: QFState, fq, fr, k, build) -> QFState:
-    """insert_sorted body with a pluggable build pass (plain or kernel)."""
-    qs, rs, n = extract(cfg, state)
+def merge_sorted_with(
+    cfg: QFConfig, state: QFState, fq, fr, k, build, extract=None
+) -> QFState:
+    """insert_sorted body with pluggable build and decode passes (plain or
+    kernel; ``extract`` defaults to the plain one)."""
+    qs, rs, n = _extract_or_plain(extract)(cfg, state)
     dev = qs.device
     kk = _i32(k, dev)
     with tracing.span("qf.sort"):
@@ -366,14 +374,17 @@ def insert(cfg: QFConfig, state: QFState, keys: torch.Tensor, k=None) -> QFState
     return insert_sorted(cfg, state, fq, fr, k)
 
 
-def delete_sorted(cfg: QFConfig, state: QFState, fq, fr, k, build=None) -> QFState:
+def delete_sorted(
+    cfg: QFConfig, state: QFState, fq, fr, k, build=None, extract=None
+) -> QFState:
     """Delete (one copy of) each of k sorted fingerprints — multiset diff.
 
-    ``build`` swaps the rebuild pass as in :func:`multi_merge`.
+    ``build`` and ``extract`` swap the rebuild and decode passes as in
+    :func:`multi_merge`.
     """
     if build is None:
         build = build_sorted
-    qs, rs, n = extract(cfg, state)
+    qs, rs, n = _extract_or_plain(extract)(cfg, state)
     kk = _i32(k, qs.device)
     idx = torch.arange(qs.shape[0], device=qs.device)
     valid = idx < n
@@ -400,16 +411,18 @@ def merge(
     sa: QFState,
     sb: QFState,
     build=None,
+    extract=None,
 ) -> QFState:
     """Merge two QFs into a (usually larger) output QF (paper Fig. 5).
 
     Requires identical fingerprint width q + r across all three configs.
-    ``build`` swaps the rebuild pass as in :func:`multi_merge`.
+    ``build`` and ``extract`` swap the rebuild and decode passes as in
+    :func:`multi_merge`.
     """
     pa, pb, po = cfg_a.q + cfg_a.r, cfg_b.q + cfg_b.r, cfg_out.q + cfg_out.r
     if not (pa == pb == po):
         raise ValueError("merge requires equal fingerprint width q + r")
-    return multi_merge(cfg_out, [(cfg_a, sa), (cfg_b, sb)], build)
+    return multi_merge(cfg_out, [(cfg_a, sa), (cfg_b, sb)], build, extract)
 
 
 def _requotient(fq, fr, cfg_in: QFConfig, cfg_out: QFConfig):
@@ -437,15 +450,17 @@ def _requotient(fq, fr, cfg_in: QFConfig, cfg_out: QFConfig):
     return fq2, fr2
 
 
-def multi_merge(cfg_out: QFConfig, parts, build=None) -> QFState:
+def multi_merge(cfg_out: QFConfig, parts, build=None, extract=None) -> QFState:
     """Merge any number of (cfg, state) QFs into one output QF.
 
     One decode pass per input + one sort + one build.  ``build`` swaps
     the rebuild pass (default :func:`build_sorted`; the kernel path
-    passes ``kernels.ops.build_sorted``).
+    passes ``kernels.ops.build_sorted``), ``extract`` the decode (default
+    :func:`extract`; the kernel path passes ``kernels.ops.extract``).
     """
     if build is None:
         build = build_sorted
+    extract = _extract_or_plain(extract)
     p_out = cfg_out.q + cfg_out.r
     qs_all, rs_all, valid_all = [], [], []
     n_total, overflow = None, None
@@ -523,19 +538,20 @@ def merge_streams_many(parts):
 
 
 def resize(
-    cfg: QFConfig, state: QFState, new_q: int, build=None
+    cfg: QFConfig, state: QFState, new_q: int, build=None, extract=None
 ) -> tuple[QFConfig, QFState]:
     """Dynamically resize (paper §3 'Resizing'): move bits between the
     remainder and the quotient, keeping every fingerprint.
 
     One decode, one requotient (monotone, so the stream stays sorted),
     padding to the new slot count or a sort and cut when shrinking, then
-    one build; ``build`` swaps the rebuild pass as in :func:`multi_merge`.
+    one build; ``build`` and ``extract`` swap the rebuild and decode
+    passes as in :func:`multi_merge`.
     """
     if build is None:
         build = build_sorted
     new_cfg = cfg._replace(q=new_q, r=cfg.q + cfg.r - new_q)
-    qs, rs, n = extract(cfg, state)
+    qs, rs, n = _extract_or_plain(extract)(cfg, state)
     qs, rs = _requotient(qs, rs, cfg, new_cfg)
     dev = qs.device
     pad = new_cfg.total_slots - qs.shape[0]

@@ -7,8 +7,9 @@ I/O schedule is counted in :class:`IOCounters` inside the state.
 
 The JAX package decides the flush with a ``lax.cond`` on the device
 count; here it is a Python branch on one host read of the RAM QF's load
-per insert batch.  Under ``backend="pallas"`` the flush rebuilds the
-disk QF with the build kernel; the planes are the same either way.
+per insert batch.  Under ``backend="pallas"`` the flush decodes both
+QFs with the decode kernel and rebuilds the disk QF with the build
+kernel; the planes are the same either way.
 """
 
 from __future__ import annotations
@@ -86,6 +87,7 @@ def flush(cfg: BufferedQFConfig, state: BufferedQFState) -> BufferedQFState:
         state.disk,
         state.ram,
         build=qf_filter.build_fn(cfg.backend),
+        extract=qf_filter.extract_fn(cfg.backend),
     )
     io = state.io._replace(
         seq_read_bytes=state.io.seq_read_bytes + cfg.disk.size_bytes,
@@ -137,7 +139,7 @@ def delete(cfg: BufferedQFConfig, state, keys, k=None) -> BufferedQFState:
     valid = qf_filter.valid_mask(keys, k)
     rq, rr = qf.fingerprints(cfg.ram, keys)
     rank = qf_filter.batch_occurrence_rank(rq, rr, valid)
-    cnt_ram = qf_filter.multiplicity(cfg.ram, state.ram, rq, rr)
+    cnt_ram = qf_filter.multiplicity(cfg.ram, cfg.backend, state.ram, rq, rr)
     ram = qf_filter.delete_masked(
         cfg.ram, cfg.backend, state.ram, rq, rr, valid & (rank < cnt_ram)
     )
@@ -161,6 +163,7 @@ def merge(cfg: BufferedQFConfig, sa, sb) -> BufferedQFState:
         cfg.disk,
         [(cfg.disk, sa.disk), (cfg.disk, sb.disk), (cfg.ram, sb.ram)],
         build=qf_filter.build_fn(cfg.backend),
+        extract=qf_filter.extract_fn(cfg.backend),
     )
     io = iostats.add(sa.io, sb.io)
     io = io._replace(
@@ -180,7 +183,8 @@ def needs_resize(cfg: BufferedQFConfig, state):
 def _restream(cfg: BufferedQFConfig, new_disk: qf.QFConfig, disk_state):
     """One streaming requotient pass of the disk QF into a new geometry."""
     return qf.multi_merge(
-        new_disk, [(cfg.disk, disk_state)], build=qf_filter.build_fn(cfg.backend)
+        new_disk, [(cfg.disk, disk_state)], build=qf_filter.build_fn(cfg.backend),
+        extract=qf_filter.extract_fn(cfg.backend),
     )
 
 

@@ -20,7 +20,8 @@ read per insert batch, and a frozen target's peel reads the host a few
 times more (``fuse_filter.peel_counts``).  Under ``backend="pallas"``,
 ``contains`` and ``probe`` run the QF structures through one fused
 kernel launch and each frozen level through one ``fuse_probe`` launch
-(``ops.cascade_lookup``), and rebuilds run through the build kernel.
+(``ops.cascade_lookup``), and the merges decode through the decode
+kernel and rebuild through the build kernel.
 """
 
 from __future__ import annotations
@@ -159,7 +160,7 @@ def _canon_cfg(cfg: CascadeConfig) -> qf.QFConfig:
 
 def _stream(cfg: CascadeConfig, c: qf.QFConfig, s: qf.QFState):
     """One QF as a sorted canonical fingerprint stream ``(fq, fr, n)``."""
-    fq, fr, n = qf.extract(c, s)
+    fq, fr, n = qf_filter.extract_fn(cfg.backend)(c, s)
     fq, fr = qf._requotient(fq, fr, c, _canon_cfg(cfg))
     return fq, fr, n
 
@@ -358,7 +359,7 @@ def delete(cfg: CascadeConfig, state, keys, k=None) -> CascadeState:
     writes = torch.zeros((), dtype=torch.int32, device=keys.device)
     for lvl, (c, s) in enumerate(structures):
         fq, fr = qf.fingerprints(c, keys)
-        cnt = qf_filter.multiplicity(c, s, fq, fr)
+        cnt = qf_filter.multiplicity(c, cfg.backend, s, fq, fr)
         todel = valid & (rank >= cum) & (rank < cum + cnt)
         new = qf_filter.delete_masked(c, cfg.backend, s, fq, fr, todel)
         if lvl > 0:  # disk-resident level
@@ -555,7 +556,10 @@ def resize(cfg: CascadeConfig, state, levels: int = None, fanout: int = None):
         (cfg.level_cfg(j), state.levels[j]) for j in range(cfg.levels)
     ]
     tgt = new_cfg.level_cfg(target)
-    merged = qf.multi_merge(tgt, parts, build=qf_filter.build_fn(cfg.backend))
+    merged = qf.multi_merge(
+        tgt, parts, build=qf_filter.build_fn(cfg.backend),
+        extract=qf_filter.extract_fn(cfg.backend),
+    )
     read = iostats.f32(0, dev)
     for j in range(cfg.levels):
         read = read + _level_read(cfg, state.levels, j)

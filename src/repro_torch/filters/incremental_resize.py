@@ -114,7 +114,7 @@ def begin(
     buf = cfg._replace(q=buf_q, r=cfg.q + cfg.r - buf_q)
     mcfg = MigratingQFConfig(src=cfg, dst=dst, buf=buf, chunk=chunk)
     dev = state.n.device
-    src_fq, src_fr, src_n = qf.extract(cfg.core, state)
+    src_fq, src_fr, src_n = qf_filter.extract_fn(cfg.backend)(cfg.core, state)
     io = iostats.zeros(dev)
     io = io._replace(resizes=torch.ones((), dtype=torch.int32, device=dev))
     ms = MigrationState(
@@ -232,7 +232,7 @@ def begin_restructure(cfg, state, *, chunk: int = 1024, buf_q=None, **target):
         wrap = steady._resolve_buf_q(cfg._replace(q=new_q, r=new_r, buf_q=0))
         steady._check_geometry(wrap)
         flat_cfg = cfg.flat
-        fq, fr, n = qf.extract(flat_cfg.core, state.table)
+        fq, fr, n = qf_filter.extract_fn(flat_cfg.backend)(flat_cfg.core, state.table)
         return begin_stream(
             flat_cfg,
             fq,
@@ -252,8 +252,9 @@ def begin_restructure(cfg, state, *, chunk: int = 1024, buf_q=None, **target):
                 f"disk_q={disk_q} must lie strictly between ram_q={cfg.ram_q} "
                 f"and p={cfg.p}"
             )
-        dq, dr, dn = qf.extract(cfg.disk, state.disk)
-        rq, rr, rn = qf.extract(cfg.ram, state.ram)
+        extract = qf_filter.extract_fn(cfg.backend)
+        dq, dr, dn = extract(cfg.disk, state.disk)
+        rq, rr, rn = extract(cfg.ram, state.ram)
         rq, rr = qf._requotient(rq, rr, cfg.ram, cfg.disk)
         fq, fr, n = qf.merge_streams_many([(dq, dr, dn), (rq, rr, rn)])
         dev = fq.device
@@ -329,7 +330,7 @@ def _rewrap(mcfg: MigratingQFConfig, state: qf.QFState, io: IOCounters):
             merges=io.merges + 1,
         )
         if wrap.is_frozen(tgt):
-            fq, fr, n = qf.extract(mcfg.dst.core, state)
+            fq, fr, n = qf_filter.extract_fn(mcfg.dst.backend)(mcfg.dst.core, state)
             fq, fr = qf._requotient(fq, fr, mcfg.dst.core, cascade._canon_cfg(wrap))
             merged = fuse_freeze(wrap, tgt, fq, fr, n, state.overflow)
         elif wrap.level_cfg(tgt) != mcfg.dst.core:
@@ -337,9 +338,10 @@ def _rewrap(mcfg: MigratingQFConfig, state: qf.QFState, io: IOCounters):
             # was built for: re-stream it into the level that fits.  (The
             # JAX package places the table there as it is, with the planes
             # of another level's geometry; see ROADMAP.md, Queue 3.)
-            build = qf_filter.build_fn(mcfg.dst.backend)
             merged = qf.multi_merge(
-                wrap.level_cfg(tgt), [(mcfg.dst.core, state)], build=build
+                wrap.level_cfg(tgt), [(mcfg.dst.core, state)],
+                build=qf_filter.build_fn(mcfg.dst.backend),
+                extract=qf_filter.extract_fn(mcfg.dst.backend),
             )
         else:
             merged = state
@@ -479,8 +481,8 @@ def finish(mcfg: MigratingQFConfig, ms: MigrationState):
     if int(ms.buf.n) == 0:
         state = ms.dst
     else:
-        dq, dr, dn = qf.extract(dst_core, ms.dst)
-        bq, br, bn = qf.extract(mcfg.buf.core, ms.buf)
+        dq, dr, dn = qf_filter.extract_fn(mcfg.dst.backend)(dst_core, ms.dst)
+        bq, br, bn = qf_filter.extract_fn(mcfg.buf.backend)(mcfg.buf.core, ms.buf)
         bq, br = qf._requotient(bq, br, mcfg.buf.core, dst_core)
         allq, allr = qf.merge_streams(dq, dr, dn, bq, br, bn)
         build = qf_filter.build_fn(mcfg.dst.backend)

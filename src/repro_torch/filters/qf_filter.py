@@ -73,6 +73,12 @@ def build_fn(backend: str):
     return kops.build_sorted if backend == "pallas" else qf.build_sorted
 
 
+def extract_fn(backend: str):
+    """The decode of a backend's bulk ops, planes to sorted streams: the
+    ``qf_decode`` kernel or the plain one."""
+    return kops.extract if backend == "pallas" else qf.extract
+
+
 def _kernel_fingerprints(core: qf.QFConfig, keys):
     return kfp.fingerprint(keys, core.q, core.r, core.seed, torch.int64)
 
@@ -91,7 +97,9 @@ def insert_fingerprints(
     with tracing.span("qf.sort"):
         fq, fr = qf._pad_sort(fq, fr, valid)
     k = valid.sum(dtype=torch.int32)
-    return qf.merge_sorted_with(core, state, fq, fr, k, build_fn(backend))
+    return qf.merge_sorted_with(
+        core, state, fq, fr, k, build_fn(backend), extract_fn(backend)
+    )
 
 
 def insert_keys(
@@ -115,7 +123,8 @@ def delete_masked(
     table rebuilt by the backend's build pass."""
     fq, fr = qf._pad_sort(fq, fr, mask)
     return qf.delete_sorted(
-        core, state, fq, fr, mask.sum(dtype=torch.int32), build_fn(backend)
+        core, state, fq, fr, mask.sum(dtype=torch.int32), build_fn(backend),
+        extract_fn(backend),
     )
 
 
@@ -135,9 +144,9 @@ def batch_occurrence_rank(fq, fr, valid) -> torch.Tensor:
     return out
 
 
-def multiplicity(core: qf.QFConfig, state: qf.QFState, fq, fr) -> torch.Tensor:
+def multiplicity(core: qf.QFConfig, backend: str, state: qf.QFState, fq, fr) -> torch.Tensor:
     """How many copies of each queried fingerprint the filter holds."""
-    qs, rs, _ = qf.extract(core, state)
+    qs, rs, _ = extract_fn(backend)(core, state)
     lo = qf.lex_searchsorted(qs, rs, fq, fr, "left")
     hi = qf.lex_searchsorted(qs, rs, fq, fr, "right")
     return (hi - lo).to(torch.int32)
@@ -168,7 +177,10 @@ def delete(cfg: QFilterConfig, state, keys, k=None):
 
 def merge(cfg: QFilterConfig, sa, sb):
     core = cfg.core
-    return qf.merge(core, core, core, sa, sb, build=build_fn(cfg.backend))
+    return qf.merge(
+        core, core, core, sa, sb, build=build_fn(cfg.backend),
+        extract=extract_fn(cfg.backend),
+    )
 
 
 def needs_resize(cfg: QFilterConfig, state):
@@ -187,7 +199,10 @@ def resize(cfg: QFilterConfig, state, new_q: int):
         raise ValueError(
             f"cannot re-split p={cfg.q + cfg.r} fingerprint bits at q={new_q}"
         )
-    _, st = qf.resize(cfg.core, state, new_q, build=build_fn(cfg.backend))
+    _, st = qf.resize(
+        cfg.core, state, new_q, build=build_fn(cfg.backend),
+        extract=extract_fn(cfg.backend),
+    )
     return cfg._replace(q=new_q, r=new_r), st
 
 

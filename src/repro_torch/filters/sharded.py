@@ -19,8 +19,9 @@ may repeat: the counterpart of XLA's forced host device count, and the
 way to run eight shards on one card or on the CPU.
 
 Paths.  Shards on the card take the kernel path (the ``fingerprint``
-kernel for routing, ``kernels.ops.build_sorted`` for every build,
-``kernels.ops.lookup`` for lookups), shards on the CPU the plain path of
+kernel for routing, ``kernels.ops.extract`` for every decode,
+``kernels.ops.build_sorted`` for every build, ``kernels.ops.lookup`` for
+lookups), shards on the CPU the plain path of
 :mod:`repro_torch.core.quotient_filter`.  The spec has no ``backend``
 field, as the reference's has none; a local remainder of 32 bits, which
 the reference allows, is refused on the card by the kernel path's
@@ -93,6 +94,10 @@ def _build(cfg: qf.QFConfig, fq, fr, n):
     return qf_filter.build_fn(dispatch.backend_for(fq.device))(cfg, fq, fr, n)
 
 
+def _extract(cfg: qf.QFConfig, state):
+    return qf_filter.extract_fn(dispatch.backend_for(state.rem.device))(cfg, state)
+
+
 def _insert_fingerprints(core: qf.QFConfig, state, fq, fr, valid):
     return qf_filter.insert_fingerprints(
         core, dispatch.backend_for(fq.device), state, fq, fr, valid
@@ -150,7 +155,8 @@ def contains(cfg: ShardedQFilterConfig, state, keys):
 def merge(cfg: ShardedQFilterConfig, sa, sb):
     local = cfg.core.local_cfg
     return tuple(
-        qf.merge(local, local, local, a, _to(b, a.rem.device), build=_build)
+        qf.merge(local, local, local, a, _to(b, a.rem.device), build=_build,
+                 extract=_extract)
         for a, b in zip(sa, sb)
     )
 
@@ -182,7 +188,7 @@ def grow(cfg: ShardedQFilterConfig, state):
     pad = lnew.total_slots - lold.total_slots
 
     def one(s):
-        qs, rs, n = qf.extract(lold, s)
+        qs, rs, n = _extract(lold, s)
         qs, rs = qf._requotient(qs, rs, win, wout)
         qs = torch.cat([qs, qs.new_full((pad,), qf.INT32_MAX)])
         rs = torch.cat([rs, rs.new_full((pad,), qf.UINT32_MAX)])
@@ -264,8 +270,8 @@ def shrink(cfg: ShardedQFilterConfig, state):
     half = 1 << wout.q  # odd shards' entries take the upper half
 
     def one(even, odd, dev):
-        qe, re_, ne = qf.extract(lold, even)
-        qo, ro, no = qf.extract(lold, odd)
+        qe, re_, ne = _extract(lold, even)
+        qo, ro, no = _extract(lold, odd)
         qe, re_ = qf._requotient(qe, re_, win, wout)
         qo, ro = qf._requotient(qo, ro, win, wout)
         qo = torch.where(qo == qf.INT32_MAX, qf.INT32_MAX, qo + half)

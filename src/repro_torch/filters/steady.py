@@ -11,7 +11,7 @@ all the time:
   previous settle, so no O(table) extract runs on the insert path.
   Paths that change the table behind the planes' back (``delete``, a
   forced settle, ``from_flat``) drop ``clean``, and the next open pays
-  one ``qf.extract``.  The table planes then reset empty;
+  one extract (``qf_filter.extract_fn``).  The table planes then reset empty;
 * **drain**: each later insert rank-merges one ``chunk`` window of the
   two sorted streams (``lex_searchsorted`` ranks, no sort: the k
   smallest entries of two sorted streams lie within the first k of
@@ -217,8 +217,8 @@ def _open_settle(cfg: SteadyQFConfig, s: SteadyQFState, clean: bool) -> SteadyQF
     if clean:
         tq, tr = s.out_fq, s.out_fr
     else:
-        tq, tr, _ = qf.extract(cfg.table, s.table)
-    bq, br, bn = qf.extract(cfg.buf, s.buf)
+        tq, tr, _ = qf_filter.extract_fn(cfg.backend)(cfg.table, s.table)
+    bq, br, bn = qf_filter.extract_fn(cfg.backend)(cfg.buf, s.buf)
     bq, br = qf._requotient(bq, br, cfg.buf, cfg.table)
     io = s.io._replace(flushes=s.io.flushes + 1, settles=s.io.settles + 1)
     ofq, ofr = _sentinel_planes(cfg.table.total_slots, dev)
@@ -341,7 +341,7 @@ def _forced(cfg: SteadyQFConfig, s: SteadyQFState, keys, k) -> SteadyQFState:
     table = qf_filter.insert_keys(cfg.table, cfg.backend, s.table, keys, k)
     # the insert bypassed the retained planes; this path is already
     # O(table), so re-extract and keep the next open O(buffer)
-    ofq, ofr, _ = qf.extract(cfg.table, table)
+    ofq, ofr, _ = qf_filter.extract_fn(cfg.backend)(cfg.table, table)
     dev = table.n.device
     return s._replace(
         table=table, out_fq=ofq, out_fr=ofr, clean=_scalar(True, torch.bool, dev)
@@ -412,8 +412,8 @@ def settle_all(cfg: SteadyQFConfig, s: SteadyQFState) -> SteadyQFState:
     busy = (pending > 0) | (s.buf.n > 0)
     s = _drain(cfg, s, steps)
     # fold the buffer in with one sort-free two-stream merge + rebuild
-    tq, tr, tn = qf.extract(cfg.table, s.table)
-    bq, br, bn = qf.extract(cfg.buf, s.buf)
+    tq, tr, tn = qf_filter.extract_fn(cfg.backend)(cfg.table, s.table)
+    bq, br, bn = qf_filter.extract_fn(cfg.backend)(cfg.buf, s.buf)
     bq, br = qf._requotient(bq, br, cfg.buf, cfg.table)
     allq, allr = qf.merge_streams(tq, tr, tn, bq, br, bn)
     table = qf_filter.build_fn(cfg.backend)(cfg.table, allq, allr, tn + bn)
@@ -454,7 +454,7 @@ def delete(cfg: SteadyQFConfig, state: SteadyQFState, keys, k=None):
     )
     # off the hot path (the settle is already O(table)): re-extract the
     # retained planes so the next open, which is on it, stays O(buffer)
-    ofq, ofr, _ = qf.extract(cfg.table, table)
+    ofq, ofr, _ = qf_filter.extract_fn(cfg.backend)(cfg.table, table)
     dev = table.n.device
     return state._replace(
         table=table, out_fq=ofq, out_fr=ofr, clean=_scalar(True, torch.bool, dev)
@@ -467,7 +467,8 @@ def merge(cfg: SteadyQFConfig, sa: SteadyQFState, sb: SteadyQFState):
     sb = settle_all(cfg, sb)
     core = cfg.table
     table = qf.merge(
-        core, core, core, sa.table, sb.table, build=qf_filter.build_fn(cfg.backend)
+        core, core, core, sa.table, sb.table, build=qf_filter.build_fn(cfg.backend),
+        extract=qf_filter.extract_fn(cfg.backend),
     )
     io = iostats.add(sa.io, sb.io)
     io = io._replace(merges=io.merges + 1)

@@ -31,6 +31,7 @@ SOURCES = (
     "bloom_probe",
     "fuse_probe",
     "fingerprint",
+    "qf_decode",
 )
 NVCC_FLAGS = (
     "-gencode",

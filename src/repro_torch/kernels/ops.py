@@ -1,6 +1,7 @@
 """Kernel-path wrappers binding the CUDA kernels to the filter states.
 
 The port of the wrappers of ``repro.kernels.ops``: ``build_sorted``,
+``extract`` (the decode, XLA code in the JAX package),
 ``build_span``/``build_chunk`` (the incremental migration's append),
 ``lookup``/``contains``, ``fuse_lookup``/``fuse_contains``,
 ``cascade_lookup``, and the Bloom families' ``bloom_counts`` and
@@ -36,6 +37,7 @@ from .cascade_probe import cascade_probe
 from .fingerprint import fingerprint
 from .fuse_probe import fuse_probe
 from .qf_build import qf_build_planes, qf_build_span, qf_positions
+from .qf_decode import qf_decode
 from .qf_probe import qf_probe
 
 
@@ -60,6 +62,15 @@ def build_sorted(cfg: qf.QFConfig, fq, fr, n) -> qf.QFState:
         pos, overflow = qf_positions(fq, nn, cfg.total_slots)
         rem, occ, shf, con = qf_build_planes(pos, fq, fr, nn, cfg.total_slots)
         return qf.QFState(rem=rem, occ=occ, shf=shf, con=con, n=nn, overflow=overflow)
+
+
+def extract(cfg: qf.QFConfig, state: qf.QFState):
+    """Kernel-path equivalent of ``quotient_filter.extract``: the planes
+    decoded by ``qf_decode``, ``(fq, fr, n)`` with the int64 streams of
+    ``core``."""
+    with tracing.span("qf.extract"):
+        fq, fr = qf_decode(state.rem, state.occ, state.shf, state.con)
+    return fq, fr, state.n
 
 
 def build_span(cfg: qf.QFConfig, state: qf.QFState, fq, fr, k, last_pos, last_fq):

@@ -28,7 +28,7 @@ The spans and their rule:
   per-level answers or'ed;
 - ``kernels.<wrapper>``: each CUDA wrapper on these paths
   (``fingerprint``, ``qf_probe``, ``cascade_probe``, ``qf_positions``,
-  ``qf_build_planes``), and ``kernels.unpack``, the fused cascade
+  ``qf_build_planes``, ``qf_decode``), and ``kernels.unpack``, the fused cascade
   probe's per-level answers unpacked;
 - ``host_read.<module>.<function>``: every deliberate host read on an
   insert or merge path (``analysis.trace_audit.KNOWN_SYNC_SITES``)

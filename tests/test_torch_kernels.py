@@ -24,7 +24,7 @@ from repro.core import quotient_filter as jqf
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.core import quotient_filter as tqf
-from repro_torch.kernels import cascade_probe, dispatch, ops, qf_build, qf_probe
+from repro_torch.kernels import cascade_probe, dispatch, ops, qf_build, qf_decode, qf_probe
 from repro_torch.kernels import ref as tref
 
 
@@ -676,6 +676,96 @@ def test_scan_tile_matches_the_cuda_source():
         for name, value in re.findall(r"constexpr int (SCAN_\w+) = (\d+);", text)
     }
     assert consts["SCAN_THREADS"] * consts["SCAN_ROUNDS"] == qf_build.SCAN_TILE
+
+
+@pytest.mark.parametrize("size", sorted(chip_smoke.decode_sizes()))
+@pytest.mark.parametrize("case", chip_smoke.DECODE_CASES)
+def test_decode_plain_matches_jax_extract(case, size):
+    """``qf_decode`` (its plain version on the CPU) against the JAX
+    package's ``extract`` of the same planes, row for row, on tables at the
+    decode's tile edges and over three tiles (``chip_smoke.decode_case``,
+    which the card's launch check runs through the kernel too)."""
+    total = chip_smoke.decode_sizes()[size]
+    planes = chip_smoke.decode_case(case, total, torch.device("cpu"))
+    fq, fr = qf_decode.qf_decode(*planes)
+    assert qf_decode.qf_decode.launches == 0  # CPU tensors: no launch
+    assert fq.dtype == fr.dtype == torch.int64 and fq.shape == (total,)
+    rem, occ, shf, con = (p.numpy() for p in planes)
+    jstate = jqf.QFState(rem=jnp.asarray(rem.view(np.uint32)), occ=jnp.asarray(occ),
+                         shf=jnp.asarray(shf), con=jnp.asarray(con), n=jnp.int32(0),
+                         overflow=jnp.bool_(False))
+    jq, jr, _ = jqf.extract(jqf.QFConfig(q=1, r=8, slack=total - 2), jstate)
+    np.testing.assert_array_equal(np.asarray(jq).astype(np.int64), fq.numpy())
+    np.testing.assert_array_equal(np.asarray(jr).astype(np.int64), fr.numpy())
+    rows = int((occ | shf).sum())
+    assert (fq.numpy()[rows:] == jqf.INT32_MAX).all()
+    if case == "run_id 0 and past the last bucket":
+        assert fq[0] == 0 and (fq[:rows] == total).any()  # both reached
+    if case == "empty":
+        assert rows == 0
+
+
+# small specs whose inserts decode on every call: a flat QF, a buffered QF
+# that flushes, and a cascade that collapses into three levels
+ROUTE_SPECS = {
+    "qf": dict(q=9, r=14),
+    "buffered_qf": dict(ram_q=6, disk_q=10, p=22),
+    "cascade": dict(ram_q=6, p=22, fanout=2, levels=3),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ROUTE_SPECS))
+def test_kernel_path_decodes_through_qf_decode(name, monkeypatch):
+    """Under ``backend="pallas"`` every decode of an insert, a flush and a
+    cascade collapse goes through ``ops.extract`` and ``qf_decode``, none
+    through the plain path's ``decode_planes`` (patched to raise here), and
+    the state equals the JAX package's after the same batches."""
+    from repro import filters as jf
+    from repro_torch import filters as tf
+
+    spec = dict(ROUTE_SPECS[name], backend="pallas")
+    keys = _keys(50, 336)
+    batches = [keys[b : b + 48] for b in range(0, 336, 48)]
+    jcfg, jst = jf.make(name, **spec)
+    insert = jax.jit(jf.insert, static_argnums=0)
+    for b in batches:
+        jst = insert(jcfg, jst, jnp.asarray(b))
+    extracts, decodes = [], []
+    extract, decode = ops.extract, ops.qf_decode
+
+    def refuse(*args, **kw):
+        raise AssertionError("the kernel path called decode_planes")
+
+    monkeypatch.setattr(ops, "extract", lambda *a: extracts.append(a[0]) or extract(*a))
+    monkeypatch.setattr(ops, "qf_decode", lambda *a: decodes.append(a[0]) or decode(*a))
+    monkeypatch.setattr(tqf, "decode_planes", refuse)
+    tcfg, tst = tf.make(name, device="cpu", **spec)
+    for b in batches:
+        tst = tf.insert(tcfg, tst, _t(b))
+    jleaves = [np.asarray(x) for x in jax.tree_util.tree_leaves(jst)]
+    tleaves = tf.to_numpy(tcfg, tst)
+    assert len(jleaves) == len(tleaves)
+    for i, (a, b) in enumerate(zip(jleaves, tleaves)):
+        np.testing.assert_array_equal(a, b, err_msg=f"leaf {i}")
+    assert len(decodes) == len(extracts) >= len(batches)
+    if name != "qf":  # the flushes and collapses decode a larger table too
+        assert len({p.shape[0] for p in decodes}) > 1
+
+
+def test_decode_tile_matches_the_cuda_source():
+    """The wrapper's tile, chunk and bit-word sizes (the scratch it sizes,
+    the tests' tile edges) are those of ``csrc/qf_decode.cu``."""
+    text = (Path(qf_decode.__file__).parents[1] / "csrc" / "qf_decode.cu").read_text()
+    consts = {
+        name: int(value)
+        for name, value in re.findall(r"constexpr int (DECODE_\w+) = (\d+);", text)
+    }
+    word = consts["DECODE_LANE_SLOTS"]
+    assert word == qf_decode.DECODE_WORD
+    assert 32 * word == qf_decode.DECODE_CHUNK
+    assert consts["DECODE_THREADS"] * word == qf_decode.DECODE_TILE
+    assert "DECODE_CHUNK = 32 * DECODE_LANE_SLOTS;" in text
+    assert "DECODE_TILE = DECODE_THREADS * DECODE_LANE_SLOTS;" in text
 
 
 def test_bloom_count_wrapper_matches_jax_oracle():

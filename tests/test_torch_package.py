@@ -18,6 +18,7 @@ from repro_torch.kernels import (
     fingerprint,
     fuse_probe,
     qf_build,
+    qf_decode,
     qf_probe,
 )
 
@@ -130,6 +131,8 @@ KERNELS = {
                    "repro/kernels/fuse_probe.py"),
     "fingerprint": (fingerprint, [("fingerprint", "fingerprint_plain")],
                     "repro/core/fingerprint.py"),
+    "qf_decode": (qf_decode, [("qf_decode", "decode_plain")],
+                  "repro/core/quotient_filter.py"),
 }
 # the JAX package's file each CUDA source computes
 CSRC = {
@@ -140,6 +143,7 @@ CSRC = {
     "bloom_probe": "repro/kernels/bloom_block.py",
     "fuse_probe": "repro/kernels/fuse_probe.py",
     "fingerprint": "repro/core/fingerprint.py",
+    "qf_decode": "repro/core/quotient_filter.py",
 }
 
 
@@ -153,7 +157,8 @@ def test_kernel_module_has_plain_version_and_launch_counter(module):
 
 
 def test_csrc_holds_the_six_sources_cuda_lib_builds():
-    # seven since the fingerprint kernel joined the six Pallas kernels' ports
+    # seven since the fingerprint kernel joined the six Pallas kernels' ports,
+    # eight since the decode kernel
     sources = sorted(p.stem for p in cuda_lib.CSRC.glob("*.cu"))
     assert sources == sorted(cuda_lib.SOURCES) == sorted(CSRC)
     for name in sources:  # a plain C entry point, and the JAX code it computes

@@ -115,7 +115,8 @@ def _steady_insert():
 KERNEL_QF = {("", "filters.insert"), ("filters.insert", "qf.fingerprint"),
              ("qf.fingerprint", "kernels.fingerprint"), ("filters.insert", "qf.sort"),
              ("filters.insert", "qf.extract"), ("filters.insert", "qf.build"),
-             ("qf.build", "kernels.qf_positions"), ("qf.build", "kernels.qf_build_planes")}
+             ("qf.build", "kernels.qf_positions"), ("qf.build", "kernels.qf_build_planes"),
+             ("qf.extract", "kernels.qf_decode")}
 
 CASES = {
     "qf.insert": (_qf_insert, KERNEL_QF),
